@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of psnerf_torch on one CUDA card: the quickest proof that the
-port builds, is right and runs its main path on the GPU.
+port builds, is right and runs its main paths on the GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card: name, count, and nvidia-smi's name and power limit;
-  2. build: nvcc builds every CUDA source of psnerf_torch/ops/csrc;
-  3. kernels: fused_visibility and fused_vis_shade (layouts lnc and cnl, and
-     the light sum) at the main path's widths (N = 65,536 pixels, L = 96,
-     the 8x256 visibility net), each held against its plain PyTorch version
-     and timed with CUDA events in turns (plain, kernel, kernel, plain),
-     beside a chain of bf16 torch.matmul calls over the same trunk (a
-     yardstick only; the port never calls it) and the least time the card
-     could take (tensor-core FLOPs over 989 TFLOP/s; input and output bytes
-     over 3.35 TB/s are far less);
-  4. main path: a 512x512 synthetic scene under 96 lights (2 train views, 1
-     test view) with its analytic stage-1 export; a full-width PSNet made
-     from a seed, checkpointed, resumed by a fresh Stage2Runner, which runs
-     evaluate(split="test") and render_view for the rgb and rgb_sum routes,
-     with the kernels' launch counts set to 0 just before and read just
-     after; the kernel route is held against the plain route of the view;
-  5. one JSON line of kernels, then the last line
+  2. build: one nvcc per CUDA source of psnerf_torch/ops/csrc, all at once;
+  3. stage-2 kernels: fused_visibility and fused_vis_shade (layouts lnc and
+     cnl, and the light sum) at the main path's widths (N = 65,536 pixels,
+     L = 96, the 8x256 visibility net), each held against its plain
+     PyTorch version and timed with CUDA events in turns (plain, kernel,
+     kernel, plain), beside a chain of bf16 torch.matmul calls over the
+     same trunk (a yardstick only; the port never calls it) and the least
+     time the card could take (tensor-core FLOPs over 989 TFLOP/s; input
+     and output bytes over 3.35 TB/s are far less);
+  4. stage-1 kernels at the bear field (8x256, bf16 operands): fused_occ
+     at the march's 2048 x 256 points, fused_radiance forward and backward
+     at the integration batch of 2048 x 96 samples, each held against its
+     plain version and timed the same way (yardsticks: the bf16 matmul
+     chain for fused_occ, the plain autograd route for fused_radiance);
+  5. stage-2 main path: a 512x512 synthetic scene under 96 lights (2 train
+     views, 1 test view) with its analytic stage-1 export; a full-width
+     PSNet made from a seed, checkpointed, resumed by a fresh Stage2Runner,
+     which runs evaluate(split="test") and render_view for the rgb and
+     rgb_sum routes, with the kernels' launch counts set to 0 just before
+     and read just after; the kernel route is held against the plain route;
+  6. stage-1 main path on the same scene: Stage1Runner.train(20) at the
+     bear field width (2048 rays, 256 march steps, 64 samples), counts set
+     to 0 just before and read just after; a checkpoint at it=6000 resumed
+     by a fresh runner that trains 10 steps at 96 samples; ms per step at
+     64 and 96 samples; one profiled step; the kernel route's step held
+     against the plain route's from identical params, batch and noise;
+  7. one JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It needs no network and writes only inside the checkout (a work directory
@@ -48,6 +59,11 @@ N_KERNEL, L_KERNEL = 65536, 96
 HW, N_LIGHTS = (512, 512), 96
 RAW_REL, RAW_CORR = 0.05, 0.999   # raw vis bars (tests/test_fused_vis.py)
 RGB_MAX, RGB_MEAN = 2e-2, 2e-3    # rgb bars (tests/test_fused_vis.py)
+N_RAYS, MARCH_STEPS = 2048, 256  # stage-1 rays per step, march steps
+N_OCC = N_RAYS * MARCH_STEPS      # the march's proposal points per step
+N_RAD = N_RAYS * 96               # the integration batch after it > 5000
+OCC_MAX, OCC_CORR = 0.05, 0.9999  # logit bars (tests/test_fused_occ.py)
+GRAD_REL, GRAD_CORR = 2e-2, 0.999   # per-leaf gradient bars
 
 
 def log(msg):
@@ -138,11 +154,13 @@ def phase_card():
 
 
 def phase_build():
-    from psnerf_torch.ops.build import load_library
+    from psnerf_torch.ops.build import build_all, sources
 
     t0 = time.perf_counter()
-    load_library("fused_vis")
-    log(json.dumps({"build_s": {"fused_vis": time.perf_counter() - t0}}))
+    per_source = build_all()
+    log(json.dumps({"build_s": {"total": time.perf_counter() - t0,
+                                "per_source": per_source,
+                                "sources": sources()}}))
 
 
 def raw_errors(got, ref):
@@ -286,7 +304,7 @@ def make_scene():
     return scene
 
 
-def phase_main_path():
+def phase_main_path(scene):
     from psnerf_torch.config import Stage2Config
     from psnerf_torch.data.stage2 import decode_imgs
     from psnerf_torch.eval.metrics import psnr, ssim
@@ -295,7 +313,6 @@ def phase_main_path():
     from psnerf_torch.runners.stage2 import Stage2Runner
     from psnerf_torch.train.stage2 import Stage2TrainConfig
 
-    scene = make_scene()
     cfg = Stage2Config(
         net=PSNetConfig(), train=Stage2TrainConfig(), data_dir=scene,
         stage1_shape_path=os.path.join(scene, "exports"),
@@ -441,37 +458,416 @@ def check_k4_at_view(runner, data, dirs, tile=4096):
               "fused_visibility_at_evaluate_view")
 
 
-def frame_breakdown(runner, data, dirs, ints):
-    """Where one view's time goes, after the counted run: the render part
-    of evaluate (its default outputs, host clock), and one rgb-route frame
-    under torch.profiler (device busy time by kernel against the wall)."""
+def profile_device(fn):
+    """Run fn once under torch.profiler: the wall (host clock to a
+    synchronize), device busy time summed over device-side events (kernels,
+    copies), the idle share and the top device ops by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    runner.render_view(data, 0, dirs, ints)
-    torch.cuda.synchronize()
-    eval_render_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.render_view(data, 0, dirs, ints, outputs=("rgb",))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = {}                      # device-side events only: kernels, copies
+    dev = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name[:60]
             dev[name] = dev.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(dev.values())
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms,
+            "top_device_ms": sorted(dev.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def frame_breakdown(runner, data, dirs, ints):
+    """Where one view's time goes, after the counted run: the render part
+    of evaluate (its default outputs, host clock), and one rgb-route frame
+    under torch.profiler (device busy time by kernel against the wall)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.render_view(data, 0, dirs, ints)
+    torch.cuda.synchronize()
+    eval_render_ms = (time.perf_counter() - t0) * 1e3
     out = {"evaluate_render_ms": eval_render_ms,
-           "rgb_frame_profiled": {"wall_ms": wall_ms, "device_busy_ms": busy,
-                                  "idle_share": 1.0 - busy / wall_ms,
-                                  "top_device_ms": top}}
+           "rgb_frame_profiled": profile_device(
+               lambda: runner.render_view(data, 0, dirs, ints,
+                                          outputs=("rgb",)))}
     log(json.dumps({"frame_breakdown": out}))
     return out
+
+
+# ------------------------------------------------------------ stage 1
+
+def occ_flops(n, ops):
+    """Tensor-core FLOPs of fused_occ per call: per point layer 0 and the
+    skip's PE half at the kernel's K (E = 39 padded to 48), the trunk's
+    W x W products, and the W-wide logit dot."""
+    w, ke, nt = ops["width"], ops["ke"], ops["trunk_wT"].shape[0]
+    return n * 2 * w * (2 * ke + nt * w + 1)
+
+
+def radiance_flops(n, w, ke, kv, nt):
+    """Tensor-core FLOPs of fused_radiance per call, at the kernels' padded
+    K (ke = 48, kv = 32) and the rgb head's 8 columns. Forward: trunk (nt),
+    feature head, reverse sweep (nt), wf and the 3 appearance layers, W x W
+    each; layer 0, the skip's PE half and their two transposes (ke), wv
+    (kv). Backward: the recompute (nt + 5), the appearance backward (10:
+    3 x (dTn + dnT), wf, g_feat, w8f, h_bar), the tangent forward (nt)
+    and the doubled reverse sweep (4 nt), W x W each; 8 ke and 2 kv narrow
+    products; the rgb head's few."""
+    fwd = n * 2 * w * ((2 * nt + 5) * w + 4 * ke + kv + 8)
+    bwd = n * 2 * w * ((6 * nt + 15) * w + 8 * ke + 2 * kv + 6)
+    return fwd, bwd
+
+
+@torch.no_grad()
+def library_occ(ops, em):
+    """fused_occ's trunk as a chain of bf16 torch.matmul calls (cuBLAS) with
+    f32 softplus passes: the yardstick of library_ms, never called by the
+    port."""
+    from psnerf_torch.ops.fused_occ import _sp100
+
+    bf = torch.bfloat16
+    y = _sp100(torch.matmul(em, ops["w0T"].T).float() + ops["b0"])
+    b_pe = torch.matmul(em, ops["wskipT"].T).float()
+    for i, wT in enumerate(ops["trunk_wT"]):
+        h = torch.matmul(y.to(bf), wT.T).float() + ops["trunk_b"][i]
+        y = _sp100(h + b_pe if i == ops["n_pre"] else h)
+    return y @ ops["w8"] + ops["b8"]
+
+
+def leaf_errors(got, want):
+    """Per gradient leaf: max |diff| over max |plain|, and the correlation."""
+    out = {}
+    for k, b in want.items():
+        a = got[k]
+        scale = b.abs().max().item() + 1e-30
+        corr = (float(np.corrcoef(a.flatten().cpu().numpy(),
+                                  b.flatten().cpu().numpy())[0, 1])
+                if b.numel() > 1 else 1.0)
+        diff = (a - b).abs().max().item()
+        out[k] = {"abs": diff, "rel": diff / scale, "corr": corr}
+    return out
+
+
+def phase_stage1_kernels():
+    from psnerf_torch.fields.occupancy import (OccFieldConfig,
+                                               init_occupancy_field,
+                                               radiance_and_alpha)
+    from psnerf_torch.ops import fused_occ as fo
+    from psnerf_torch.ops import fused_radiance as fr
+
+    cfg = OccFieldConfig(compute_dtype="bfloat16")
+    field = init_occupancy_field(
+        cfg, generator=torch.Generator().manual_seed(SEED), device=DEV)
+    rng = np.random.default_rng(SEED)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=DEV)
+
+    # ---- K1 fused_occ_logit at the march's points
+    with torch.no_grad():
+        p = f(rng.normal(size=(N_OCC, 3)) * 0.6)
+        ops = fo.pack_occ_operands(field, cfg)
+        em = fo.occ_embed(p, ops)
+        out = torch.empty((N_OCC,), dtype=torch.float32, device=DEV)
+        got = fo.fused_occ_logit(field, p, cfg)
+        torch.cuda.synchronize()
+        ref = fo._logit_plain(ops, em)
+        err = (got - ref).abs()
+        m1 = {"max_abs_err": err.max().item(),
+              "mean_abs_err": err.mean().item(),
+              "corr": float(np.corrcoef(got.cpu().numpy(),
+                                        ref.cpu().numpy())[0, 1]),
+              "library_max_abs_err": (library_occ(ops, em) - ref).abs().max()
+              .item()}
+        log(json.dumps({"fused_occ_logit": m1}))
+        check(torch.isfinite(got).all(), "fused_occ finite")
+        check(m1["max_abs_err"] < OCC_MAX and m1["corr"] > OCC_CORR,
+              f"fused_occ {m1}")
+        t = in_turns({"plain": lambda: fo._logit_plain(ops, em),
+                      "kernel": lambda: fo._launch(ops, em, out),
+                      "library": lambda: library_occ(ops, em)},
+                     {"plain": 3, "kernel": 10, "library": 5},
+                     ["plain", "kernel", "library", "library", "kernel",
+                      "plain"])
+        flops = occ_flops(N_OCC, ops)
+        op_bytes = nbytes(em, *(ops[k] for k in (
+            "w0T", "b0", "wskipT", "trunk_wT", "trunk_b", "w8", "b8")))
+        b, by = bound_ms(flops, op_bytes + out.numel() * 4)
+        k1 = dict(max_abs_err=m1["max_abs_err"], ms=t["kernel"],
+                  plain_ms=t["plain"], bound_ms=b, bound_by=by,
+                  library_ms=t["library"], flops=flops, n=N_OCC)
+        log(json.dumps({"fused_occ_logit_ms": k1}))
+        del p, em, out, got, ref
+
+    # ---- K2 / K3 fused_radiance_and_alpha at the integration batch
+    p = f(rng.normal(size=(N_RAD, 3)) * 0.5)
+    v = rng.normal(size=(N_RAD, 3))
+    rd = f(v / np.linalg.norm(v, axis=-1, keepdims=True))
+    skip = cfg.skips[0] - 1
+    with torch.no_grad():
+        em, de, vpe, p3 = fr.radiance_inputs(p, rd, cfg)
+        packed = fr.pack_radiance(field, cfg, torch.bfloat16)
+        out, g_e = fr.radiance_forward(packed, em, de, vpe, p3, skip)
+        torch.cuda.synchronize()
+        ref, g_e_ref = fr.radiance_forward_plain(packed, em, de, vpe, p3, skip)
+        finish = lambda o: torch.cat([torch.tanh(o[:, :3]) * 0.5 + 0.5,
+                                      torch.sigmoid(-10.0 * o[:, 3:])], 1)
+        err = (finish(out) - finish(ref)).abs()
+        m2 = {"rgb_alpha_max_abs_err": err.max().item(),
+              "rgb_alpha_mean_abs_err": err.mean().item(),
+              "raw_max_abs_err": (out - ref).abs().max().item(),
+              "g_e_rel": ((g_e - g_e_ref).abs().max()
+                          / g_e_ref.abs().max()).item()}
+        log(json.dumps({"fused_radiance_forward": m2}))
+        check(torch.isfinite(out).all() and torch.isfinite(g_e).all(),
+              "fused_radiance forward finite")
+        check(m2["rgb_alpha_max_abs_err"] < RGB_MAX
+              and m2["rgb_alpha_mean_abs_err"] < RGB_MEAN, f"K2 {m2}")
+        # the backward under two upstream gradients: a loss that grows with
+        # every output (its sums add up, as a training loss's mostly do)
+        # holds the bars; random signs (sums that cancel, so bf16 rounding
+        # and relu-mask flips show most) are reported and held by corr
+        g_pos = f(rng.uniform(0.5, 1.5, size=(N_RAD, 4)))
+        g_rand = f(rng.normal(size=(N_RAD, 4)))
+        errs = {}
+        for name, g in (("positive", g_pos), ("random_sign", g_rand)):
+            got = fr.radiance_backward(packed, em, de, vpe, p3, g_e_ref, g,
+                                       skip)
+            torch.cuda.synchronize()
+            want = fr.radiance_backward_plain(packed, em, de, vpe, p3,
+                                              g_e_ref, g, skip)
+            errs[name] = leaf_errors(got, want)
+            for k, e in errs[name].items():
+                check(all(np.isfinite(list(e.values()))), f"K3 {k} {e}")
+                check(e["corr"] > GRAD_CORR, f"K3 {name} {k} {e}")
+                if name == "positive":
+                    check(e["rel"] < GRAD_REL, f"K3 {name} {k} {e}")
+            del got, want
+        rerun = [fr.radiance_backward(packed, em, de, vpe, p3, g_e_ref,
+                                      g_pos, skip) for _ in range(2)]
+        spread = max((rerun[0][k] - rerun[1][k]).abs().max().item()
+                     / (rerun[0][k].abs().max().item() + 1e-30)
+                     for k in rerun[0])
+        del rerun
+        log(json.dumps({"fused_radiance_backward": errs,
+                        "atomics_rerun_spread_rel": spread}))
+        g_out = g_pos
+
+    def library_graph():
+        with torch.enable_grad():
+            rgb, a = radiance_and_alpha(field, p, rd, cfg)
+            return (torch.cat([rgb, a[:, None]], 1) * g_out).sum()
+
+    params = list(field.parameters())
+    graph = library_graph()
+    with torch.no_grad():
+        t = in_turns(
+            {"fwd_plain": lambda: fr.radiance_forward_plain(
+                packed, em, de, vpe, p3, skip),
+             "fwd_kernel": lambda: fr.radiance_forward(
+                 packed, em, de, vpe, p3, skip),
+             "bwd_plain": lambda: fr.radiance_backward_plain(
+                 packed, em, de, vpe, p3, g_e_ref, g_out, skip),
+             "bwd_kernel": lambda: fr.radiance_backward(
+                 packed, em, de, vpe, p3, g_e_ref, g_out, skip),
+             "fwd_library": library_graph,
+             "bwd_library": lambda: torch.autograd.grad(
+                 graph, params, retain_graph=True)},
+            {"fwd_plain": 2, "fwd_kernel": 5, "bwd_plain": 2,
+             "bwd_kernel": 3, "fwd_library": 2, "bwd_library": 2},
+            ["fwd_plain", "fwd_kernel", "bwd_plain", "bwd_kernel",
+             "fwd_library", "bwd_library", "bwd_library", "fwd_library",
+             "bwd_kernel", "bwd_plain", "fwd_kernel", "fwd_plain"])
+    del graph
+    w, ke, kv = cfg.hidden_dim, em.shape[1], vpe.shape[1]
+    nt = cfg.num_layers - 1
+    f_fwd, f_bwd = radiance_flops(N_RAD, w, ke, kv, nt)
+    kw = fr._kernel_weights(packed)
+    w_bytes = nbytes(*kw.values())
+    in_bytes = (N_RAD * ke * 2 + N_RAD * ke * 4 + N_RAD * kv * 2
+                + N_RAD * 3 * 4)
+    grad_bytes = sum(v.numel() * 4 for v in packed.values())
+    b2, by2 = bound_ms(f_fwd, in_bytes + w_bytes + N_RAD * (4 + ke) * 4)
+    b3, by3 = bound_ms(f_bwd, in_bytes + w_bytes + N_RAD * (ke + 4) * 4
+                       + grad_bytes)
+    k2 = dict(max_abs_err=m2["rgb_alpha_max_abs_err"], ms=t["fwd_kernel"],
+              plain_ms=t["fwd_plain"], bound_ms=b2, bound_by=by2,
+              library_ms=t["fwd_library"], flops=f_fwd, n=N_RAD)
+    k3 = dict(max_abs_err=max(e["abs"] for e in errs["positive"].values()),
+              max_rel_err=max(e["rel"] for e in errs["positive"].values()),
+              ms=t["bwd_kernel"], plain_ms=t["bwd_plain"], bound_ms=b3,
+              bound_by=by3, library_ms=t["bwd_library"], flops=f_bwd,
+              n=N_RAD)
+    log(json.dumps({"fused_radiance_ms": {"forward": k2, "backward": k3}}))
+    return k1, k2, k3
+
+
+def stage1_step_ms(runner, use_outside, reps=8, warmup=2):
+    """Median ms of one training step (batch and noise draws included),
+    host clock around synchronize, after warm-up; the runner's field keeps
+    training, its `it` stays."""
+    times = []
+    for _ in range(warmup + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch, noise = runner.sample(use_outside)
+        runner.step_fn(runner.field, runner.opt_state, batch, runner.it,
+                       noise, use_outside=use_outside)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[warmup:])), times[warmup:]
+
+
+@torch.no_grad()
+def march_hits(runner):
+    """The kernel march on one sampled batch: the share of rays it hits,
+    the scene's mask coverage of the same pixels, and their agreement."""
+    from psnerf_torch.ops.fused_occ import make_fused_occ_fn
+    from psnerf_torch.render.unisurf import _march_and_surface
+
+    cfg = runner.cfg
+    batch, noise = runner.sample(False)
+    *_, smask = _march_and_surface(
+        runner.field, cfg.field, cfg.render, batch["pixels"],
+        batch["camera_mat"], batch["world_mat"],
+        cfg.render.ray_marching_steps, phase=noise["phase"],
+        occ_fn=make_fused_occ_fn(runner.field, cfg.field))
+    gt = batch["mask_gt"] > 0.5
+    return {"hit_share": smask.float().mean().item(),
+            "mask_coverage": gt.float().mean().item(),
+            "agreement": (smask == gt).float().mean().item()}
+
+
+def read_losses(workdir):
+    with open(os.path.join(workdir, "metrics.jsonl")) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def phase_stage1_main(scene):
+    import copy
+
+    from psnerf_torch.config import Stage1Config
+    from psnerf_torch.fields.occupancy import OccFieldConfig
+    from psnerf_torch.ops import fused_occ as fo
+    from psnerf_torch.ops import fused_radiance as fr
+    from psnerf_torch.render.unisurf import UnisurfConfig, _march_and_surface
+    from psnerf_torch.runners.stage1 import Stage1Runner
+    from psnerf_torch.train.stage1 import (Stage1TrainConfig,
+                                           make_stage1_train_step)
+
+    # the bear field and counts; the scene's own distances (camera at 3,
+    # objects inside radius 1.2)
+    cfg = Stage1Config(
+        field=OccFieldConfig(compute_dtype="bfloat16"),
+        render=UnisurfConfig(near=1.2, far=5.0, radius=1.2,
+                             interval_start=0.6, interval_end=0.05,
+                             ray_marching_steps=MARCH_STEPS),
+        train=Stage1TrainConfig(n_training_points=N_RAYS), data_dir=scene,
+        inten_normalize=None, checkpoint_every=10 ** 9, backup_every=10 ** 9)
+    wd = os.path.join(WORK, "stage1")
+    runner = Stage1Runner(cfg, wd, seed=SEED, resume=False, device=DEV)
+    check(runner.use_fused_occ and runner.use_fused_radiance,
+          "the runner's defaults take the kernels on the card")
+    # the march on the initial sphere hits about the scene's silhouette
+    hit_init = march_hits(runner)
+    check(hit_init["hit_share"] > 0.05
+          and abs(hit_init["hit_share"] - hit_init["mask_coverage"]) < 0.15,
+          f"march on the initial field: {hit_init}")
+    torch.cuda.synchronize()
+
+    # ---- the main path: counts set to 0 just before, read just after
+    fo.fused_occ_logit.launches = 0
+    fr.radiance_forward.launches = 0
+    fr.radiance_backward.launches = 0
+    t0 = time.perf_counter()
+    runner.train(20, log_every=10)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {"fused_occ_logit": fo.fused_occ_logit.launches,
+                "fused_radiance_fwd": fr.radiance_forward.launches,
+                "fused_radiance_bwd": fr.radiance_backward.launches}
+    log(json.dumps({"stage1_train": {"steps": 20, "wall_s": train_s,
+                                     "launches": launches}}))
+    check(launches["fused_occ_logit"] >= 9 * 20, f"launches {launches}")
+    check(launches["fused_radiance_fwd"] >= 20
+          and launches["fused_radiance_bwd"] >= 20, f"launches {launches}")
+    recs = read_losses(wd)
+    check(runner.it == 20 and [r["it"] for r in recs] == [10, 20],
+          f"it {runner.it}, logs {recs}")
+    check(all(np.isfinite(r["loss"]) for r in recs), f"losses {recs}")
+    ms64, times64 = stage1_step_ms(runner, use_outside=False)
+
+    hit_trained = march_hits(runner)
+
+    # ---- a checkpoint at it=6000, resumed: 10 steps at 96 samples
+    ck = runner.save(6000)
+    r2 = Stage1Runner(cfg, wd, seed=SEED + 1, device=DEV)
+    check(r2.it == 6000, f"resumed at it={r2.it}")
+    with np.load(ck) as saved:
+        np.testing.assert_array_equal(
+            r2.field.geo[0].v.detach().cpu().numpy(), saved["params/geo/0/v"])
+    fr.radiance_forward.launches = 0
+    fr.radiance_backward.launches = 0
+    r2.train(6010, log_every=10)
+    torch.cuda.synchronize()
+    recs2 = read_losses(wd)[len(recs):]
+    check(r2.it == 6010 and [r["it"] for r in recs2] == [6010]
+          and np.isfinite(recs2[0]["loss"]), f"resumed run {recs2}")
+    check(fr.radiance_forward.launches >= 10
+          and fr.radiance_backward.launches >= 10, "launches at 96 samples")
+    ms96, times96 = stage1_step_ms(r2, use_outside=True)
+    batch, noise = r2.sample(True)
+    prof = profile_device(lambda: r2.step_fn(
+        r2.field, r2.opt_state, batch, r2.it, noise, use_outside=True))
+
+    # ---- the kernel route against the plain route: one step from
+    # identical params, batch and noise
+    batch, noise = r2.sample(True)
+    fk, fp = copy.deepcopy(r2.field), copy.deepcopy(r2.field)
+    init, step_k = make_stage1_train_step(cfg.field, cfg.render, r2.tcfg,
+                                          True, True)
+    _, step_p = make_stage1_train_step(cfg.field, cfg.render, r2.tcfg,
+                                       False, False)
+    with torch.no_grad():
+        marches = [_march_and_surface(
+            fld, cfg.field, cfg.render, batch["pixels"], batch["camera_mat"],
+            batch["world_mat"], cfg.render.ray_marching_steps,
+            phase=noise["phase"], occ_fn=fn)
+            for fld, fn in ((fk, fo.make_fused_occ_fn(fk, cfg.field)),
+                            (fp, None))]
+    (_, _, dk, _, mk), (_, _, dp, _, mp) = marches
+    both = mk & mp
+    route = {"mask_agreement": (mk == mp).float().mean().item(),
+             "depth_max_abs_diff": ((dk - dp).abs()[both].max().item()
+                                    if both.any() else 0.0),
+             "depth_median_abs_diff": ((dk - dp).abs()[both].median().item()
+                                       if both.any() else 0.0)}
+    tk = step_k(fk, init(fk), batch, r2.it, noise, use_outside=True)
+    tp = step_p(fp, init(fp), batch, r2.it, noise, use_outside=True)
+    torch.cuda.synchronize()
+    route["loss_kernel"] = tk["loss"].item()
+    route["loss_plain"] = tp["loss"].item()
+    route["loss_abs_diff"] = abs(route["loss_kernel"] - route["loss_plain"])
+    route["param_max_abs_diff"] = max(
+        (a - b).abs().max().item()
+        for a, b in zip(fk.parameters(), fp.parameters()))
+    log(json.dumps({"stage1_kernel_vs_plain_route": route}))
+    check(route["mask_agreement"] >= 0.995, f"route {route}")
+    check(route["loss_abs_diff"] < 2e-3, f"route {route}")
+    check(route["param_max_abs_diff"] < 5e-4, f"route {route}")
+
+    e2e = {"ms_per_step_64": ms64, "ms_per_step_96": ms96,
+           "step_ms_64": times64, "step_ms_96": times96,
+           "train20_wall_s": train_s, "march_init": hit_init,
+           "march_after_20_steps": hit_trained,
+           "losses": [r["loss"] for r in recs + recs2],
+           "step96_profiled": prof, "route": route}
+    log(json.dumps({"stage1_main_path": e2e}))
+    return launches, e2e
 
 
 def main():
@@ -491,39 +887,43 @@ def main():
             card = phase_card()
             phase_build()
             k4, k5 = phase_kernels()
-            launches, e2e = phase_main_path()
+        k1, k2, k3 = phase_stage1_kernels()
+        scene = make_scene()
+        with torch.no_grad():
+            launches, e2e = phase_main_path(scene)
+        launches1, e2e1 = phase_stage1_main(scene)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    def entry(name, replaces, k, launches_n):
+    def entry(name, source, replaces, k, launches_n):
         return {"name": name, "route": "cuda",
-                "source": "psnerf_torch/ops/csrc/fused_vis.cu",
+                "source": f"psnerf_torch/ops/csrc/{source}",
                 "replaces": replaces, "launches": launches_n,
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                 "status": "ported", "flops": k["flops"],
-                **({"modes": k["modes"]} if "modes" in k else {})}
+                **{x: k[x] for x in ("modes", "n", "max_rel_err") if x in k}}
 
-    not_ported = [
-        {"name": "fused_occ_logit", "status": "not ported",
-         "replaces": "psnerf_tpu/ops/fused_occ.py:113",
-         "path": "stage-1 march, eval and shape export; MISE"},
-        {"name": "fused_radiance_and_alpha (forward)",
-         "status": "not ported",
-         "replaces": "psnerf_tpu/ops/fused_radiance.py:390",
-         "path": "stage-1 train step"},
-        {"name": "fused_radiance_and_alpha (backward)",
-         "status": "not ported",
-         "replaces": "psnerf_tpu/ops/fused_radiance.py:410",
-         "path": "stage-1 train step"}]
-    log(json.dumps({"card": card["nvidia_smi"], "main_path": e2e}))
+    log(json.dumps({"card": card["nvidia_smi"], "main_path": e2e,
+                    "stage1_main_path": e2e1}))
     log(card["nvidia_smi"])
     log(json.dumps({"kernels": [
-        entry("fused_visibility", "psnerf_tpu/ops/fused_vis.py:219", k4,
+        entry("fused_occ_logit", "fused_occ.cu",
+              "psnerf_tpu/ops/fused_occ.py:113", k1,
+              launches1["fused_occ_logit"]),
+        entry("fused_radiance_and_alpha (forward)", "fused_radiance.cu",
+              "psnerf_tpu/ops/fused_radiance.py:390", k2,
+              launches1["fused_radiance_fwd"]),
+        entry("fused_radiance_and_alpha (backward)", "fused_radiance.cu",
+              "psnerf_tpu/ops/fused_radiance.py:410", k3,
+              launches1["fused_radiance_bwd"]),
+        entry("fused_visibility", "fused_vis.cu",
+              "psnerf_tpu/ops/fused_vis.py:219", k4,
               launches["fused_visibility"]),
-        entry("fused_vis_shade", "psnerf_tpu/ops/fused_vis.py:387", k5,
-              launches["fused_vis_shade"])], "not_ported": not_ported}))
+        entry("fused_vis_shade", "fused_vis.cu",
+              "psnerf_tpu/ops/fused_vis.py:387", k5,
+              launches["fused_vis_shade"])], "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
     return 0

@@ -1,11 +1,15 @@
-"""Stage-2 run config (counterpart of psnerf_tpu/config.py:Stage2Config,
-same field names). The HOCON/YAML parsers come with a later slice."""
+"""Run configs (counterpart of psnerf_tpu/config.py: Stage1Config,
+Stage2Config and milestones_epochs_to_iters, same field names). The
+HOCON/YAML parsers come with a later slice."""
 
 from __future__ import annotations
 
 import dataclasses
 
+from psnerf_torch.fields.occupancy import OccFieldConfig
 from psnerf_torch.fields.psnet import PSNetConfig
+from psnerf_torch.render.unisurf import UnisurfConfig
+from psnerf_torch.train.stage1 import Stage1TrainConfig
 from psnerf_torch.train.stage2 import Stage2TrainConfig
 
 
@@ -37,3 +41,31 @@ class Stage2Config:
     ckpt_freq: int = 1000
     nepochs: int = 20000
     sched_milestones_epochs: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage1Config:
+    field: OccFieldConfig
+    render: UnisurfConfig
+    train: Stage1TrainConfig
+    data_dir: str = ""
+    obj_name: str = ""
+    out_dir: str = "out"
+    inten_normalize: str | None = "sdps"
+    train_view: int | None = None
+    train_light: int | None = None
+    all_view: bool = False
+    mask_black: bool = False
+    est_norm: bool = True
+    visualize_every: int = 10000
+    print_every: int = 200
+    backup_every: int = 10000
+    checkpoint_every: int = 5000
+    max_iters: int = 100000
+    extraction_resolution: int = 64
+    extraction_upsampling: int = 3
+    extraction_refinement: int = 0
+
+
+def milestones_epochs_to_iters(milestones, views_per_epoch: int):
+    return tuple(int(m) * int(views_per_epoch) for m in milestones)

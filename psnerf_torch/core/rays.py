@@ -1,12 +1,46 @@
 """Camera and ray math (counterpart of psnerf_tpu/core/rays.py).
 
-Stage-2 pixel -> ray: lift through the full intrinsics (fx, fy, cx, cy),
-rotate by pose[:3, :3], L2-normalize. Poses are OpenCV-convention c2w.
+  * stage-1 pixel -> ray: p = (pix - c) / f; ray = R_c2w @ [p, 1]; the
+    camera origin is world_mat[:3, 3].
+  * stage-2 pixel -> ray: lift through the full intrinsics (fx, fy, cx,
+    cy), rotate by pose[:3, :3], L2-normalize. Poses are OpenCV-convention
+    c2w.
+  * sphere intersection returns (near, far) depths clamped to >= 0 and an
+    intersect mask.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def origin_to_world(n_points: int, world_mat: torch.Tensor) -> torch.Tensor:
+    """Camera origin broadcast over rays: world_mat [4, 4] -> [n, 3]."""
+    return world_mat[:3, -1].expand(n_points, 3)
+
+
+def image_points_to_ray(image_points: torch.Tensor, camera_mat: torch.Tensor,
+                        world_mat: torch.Tensor) -> torch.Tensor:
+    """Pixel coordinates [N, 2] (x, y) -> un-normalized world ray
+    directions [N, 3] (single focal K[0, 0], principal point K[:2, 2])."""
+    p = (image_points - camera_mat[:2, 2]) / camera_mat[0, 0]
+    p = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
+    return torch.einsum("ij,nj->ni", world_mat[:3, :3], p)
+
+
+def get_sphere_intersection(cam_loc: torch.Tensor,
+                            ray_directions: torch.Tensor, r: float = 1.0):
+    """Ray-sphere intersection of unit rays [N, 3] from cam_loc [3]:
+    (depths [N, 2] = (near, far) clamped to >= 0, mask [N] bool).
+    Rays that miss get (0, 0)."""
+    ray_cam_dot = ray_directions @ cam_loc
+    under_sqrt = ray_cam_dot ** 2 - (torch.sum(cam_loc ** 2) - r ** 2)
+    mask = under_sqrt > 0
+    sqrt_val = torch.sqrt(torch.clamp_min(under_sqrt, 0.0))
+    depths = torch.stack([-sqrt_val - ray_cam_dot, sqrt_val - ray_cam_dot],
+                         dim=-1)
+    depths = torch.where(mask[..., None], depths, 0.0)
+    return torch.clamp_min(depths, 0.0), mask
 
 
 def lift(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,

@@ -27,6 +27,46 @@ class Linear(nn.Module):
         return x @ self.w + self.b
 
 
+class WNLinear(nn.Module):
+    """Weight-normalized linear: w = g * v / ||v||_col (norm per output
+    unit, as torch.nn.utils.weight_norm on Linear), y = x @ w + b. The
+    state-dict keys `v`, `g`, `b` map onto the JAX leaves `<i>/v`, ..."""
+
+    def __init__(self, v: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.v = nn.Parameter(v)
+        self.g = nn.Parameter(g)
+        self.b = nn.Parameter(b)
+
+    def weight(self) -> torch.Tensor:
+        return wn_weight(self)
+
+    def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        return wn_linear_apply(self, x, compute_dtype)
+
+
+def wn_from_dense(w: torch.Tensor, b: torch.Tensor) -> WNLinear:
+    """Weight-norm parametrization of a dense weight (g = ||w|| per output
+    column, v = w): the same function value at init."""
+    return WNLinear(w, torch.linalg.norm(w, dim=0), b)
+
+
+def wn_weight(lyr) -> torch.Tensor:
+    norm = torch.linalg.norm(lyr.v, dim=0, keepdim=True)      # [1, dout]
+    return lyr.g * lyr.v / norm
+
+
+def wn_linear_apply(lyr, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """compute_dtype=torch.bfloat16 rounds the folded weight and the input
+    to bf16 and accumulates in f32 (an f32 product of bf16-rounded values);
+    the weight-norm reduction and the bias add stay f32."""
+    w = wn_weight(lyr)
+    if compute_dtype is None:
+        return x @ w + lyr.b
+    rnd = lambda t: t.to(compute_dtype).float()
+    return rnd(x) @ rnd(w) + lyr.b
+
+
 def linear_init(din: int, dout: int, generator: torch.Generator | None = None,
                 device: str | torch.device = "cpu") -> Linear:
     """torch nn.Linear's default distribution: U(-1/sqrt(din), 1/sqrt(din))

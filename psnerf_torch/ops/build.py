@@ -1,10 +1,14 @@
 """Builds the CUDA sources under ops/csrc into shared libraries on first use.
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by nvcc for
-sm_90a into `ops/_build/lib<name>-<hash>.so`, where <hash> is the source's
-content hash, so an edited source never loads a stale library. The build
-uses no PyTorch headers (seconds, not minutes), and a failed build raises
-with nvcc's output.
+sm_90a into `ops/_build/lib<name>-<hash>.so`, where <hash> covers the
+source and the shared headers (`csrc/*.cuh`), so an edited source never
+loads a stale library. The first `load_library` call starts one nvcc per
+source, all at once, and waits for them; the builds use no PyTorch headers
+(seconds, not minutes), and a failed build raises with nvcc's output.
+
+It also holds what every kernel wrapper shares at the ctypes boundary:
+device routing and the operand checks made before each launch.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -34,33 +40,81 @@ def _nvcc() -> str:
                        "need the CUDA toolkit to build")
 
 
+def sources() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _build(name: str) -> None:
-    """Compile csrc/<name>.cu unless its library is already built."""
-    so = library_path(name)
-    if so.exists():
-        return
+def build_all() -> dict[str, float]:
+    """Compile every source whose library is missing, one nvcc process per
+    source, concurrently. Returns {name: seconds} of the builds it ran."""
+    import time
+
+    todo = [n for n in sources() if not library_path(n).exists()]
+    if not todo:
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        if tmp.exists():
-            tmp.unlink()
-        raise RuntimeError(f"nvcc failed to build {name}.cu:\n{proc.stdout}")
-    (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stdout)
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT,
+                                             text=True))
+    times, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        times[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            if tmp.exists():
+                tmp.unlink()
+            failed.append(f"nvcc failed to build {name}.cu:\n{out}")
+            continue
+        (BUILD_DIR / f"{name}.ptxas.txt").write_text(out)
+        os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return times
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The built library of csrc/<name>.cu, building it if needed."""
+    """The built library of csrc/<name>.cu, building every missing library
+    first."""
     lib = _LOADED.get(name)
     if lib is None:
-        _build(name)
+        if not library_path(name).exists():
+            build_all()
         lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def route(t: torch.Tensor) -> str:
+    """"cpu" (the plain version runs) or "cuda" (the kernel launches)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def check_operand(name, t, dtype, shape, device):
+    """Raise unless t is what a kernel takes: on `device`, of `dtype` and
+    `shape`, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")

@@ -31,6 +31,8 @@ import ctypes
 import torch
 
 from psnerf_torch.fields.brdf import SG_LOBES
+from psnerf_torch.ops.build import (check_operand, load_library, round_up,
+                                    route)
 
 KERNEL_WIDTHS = (64, 128, 256)
 MAX_BASIS = 9
@@ -40,10 +42,6 @@ _lib_handle = []
 
 
 # ------------------------------------------------------------------ packing
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
 
 def _skip_index(layers, width: int) -> int:
     skip = None
@@ -74,7 +72,7 @@ def pack_vis_operands(layers, point_emb: torch.Tensor,
     if layers[0].w.shape[0] != 2 * e or layers[skip].w.shape[0] != width + 2 * e:
         raise ValueError("layer shapes do not match the embedding width")
     bf = torch.bfloat16
-    ke = _round_up(e, 16)
+    ke = round_up(e, 16)
 
     def point_rows_t(w):                    # [e, W] -> [W, ke] bf16
         return torch.nn.functional.pad(w.T, (0, ke - e)).to(bf).contiguous()
@@ -206,8 +204,6 @@ def _mode(sum_lights: bool, layout: str) -> str:
 
 def _lib():
     if not _lib_handle:
-        from psnerf_torch.ops.build import load_library
-
         lib = load_library("fused_vis")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.psnerf_fused_vis.argtypes = [
@@ -218,17 +214,6 @@ def _lib():
         lib.psnerf_cuda_error_string.restype = ctypes.c_char_p
         _lib_handle.append(lib)
     return _lib_handle[0]
-
-
-def _check_operand(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} lies on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
 def _launch(mode: str, ops: dict, sh: dict | None, out: torch.Tensor) -> None:
@@ -249,12 +234,12 @@ def _launch(mode: str, ops: dict, sh: dict | None, out: torch.Tensor) -> None:
             ("r0", f32, (n_l, w)), ("r5", f32, (n_l, w)),
             ("trunk_wT", bf, (nt, w, w)), ("trunk_b", f32, (nt, w)),
             ("w8", f32, (w,)), ("b8", f32, (1,))):
-        _check_operand(name, ops[name], dtype, shape, dev)
+        check_operand(name, ops[name], dtype, shape, dev)
     if sh is not None:
-        _check_operand("pix", sh["pix"], f32, (n, PIXW), dev)
-        _check_operand("ld", sh["ld"], f32, (n_l, 3), dev)
-        _check_operand("lint", sh["lint"], f32, (n_l, 3), dev)
-    _check_operand("out", out, f32, out.shape, dev)
+        check_operand("pix", sh["pix"], f32, (n, PIXW), dev)
+        check_operand("ld", sh["ld"], f32, (n_l, 3), dev)
+        check_operand("lint", sh["lint"], f32, (n_l, 3), dev)
+    check_operand("out", out, f32, out.shape, dev)
     lobes = (ctypes.c_float * MAX_BASIS)(*[float(x) for x in SG_LOBES])
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
@@ -273,18 +258,12 @@ def _launch(mode: str, ops: dict, sh: dict | None, out: torch.Tensor) -> None:
                            + lib.psnerf_cuda_error_string(rc).decode())
 
 
-def _route(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device.type
-
-
 @torch.no_grad()
 def fused_visibility(layers, point_emb: torch.Tensor,
                      light_emb: torch.Tensor) -> torch.Tensor:
     """Raw visibility MLP output [L, N] (pre-clip) for every (light, pixel)
     of point_emb [N, E] and light_emb [L, E]."""
-    if _route(point_emb) == "cpu":
+    if route(point_emb) == "cpu":
         return fused_visibility_plain(layers, point_emb, light_emb)
     ops = pack_vis_operands(layers, point_emb, light_emb)
     out = torch.empty((ops["n_lights"], ops["n"]), dtype=torch.float32,
@@ -308,7 +287,7 @@ def fused_vis_shade(layers, point_emb, light_emb, normal, view, albedo,
     [N, nbasis or 3*nbasis], mask [N] bool, light_dirs [L, 3],
     light_ints [], [L] or [L, 3]."""
     mode = _mode(sum_lights, layout)
-    if _route(point_emb) == "cpu":
+    if route(point_emb) == "cpu":
         return fused_vis_shade_plain(
             layers, point_emb, light_emb, normal, view, albedo, weights,
             mask, light_dirs, light_ints, nbasis, specular_rgb, sum_lights,

@@ -1,9 +1,71 @@
-"""Stage-2 loss weights (counterpart of psnerf_tpu/train/losses.py). The
-losses themselves come with the training slice."""
+"""Training losses (counterpart of psnerf_tpu/train/losses.py), as
+functions of dense masked tensors: every boolean-mask reduction
+`x[mask].mean()` is sum(x * m) / max(sum(m), 1), so no step reads a value
+back to the host. The stage-2 losses come with the stage-2 training
+slice."""
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of x over the elements where mask is set (mask broadcasts over
+    x's trailing dims); 0.0 for an empty mask."""
+    mask = mask.to(x.dtype)
+    while mask.ndim < x.ndim:
+        mask = mask[..., None]
+    num = torch.sum(x * mask)
+    den = torch.sum(mask.expand(x.shape))
+    return torch.where(den > 0, num / torch.clamp_min(den, 1.0), 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage1LossWeights:
+    lambda_rgb: float = 1.0        # full_weight
+    lambda_smooth: float = 0.005   # grad_weight (normal smoothness)
+    lambda_normal: float = 0.05    # norm_weight (SDPS normal supervision)
+    lambda_mask: float = 1.0       # mask_weight (BCE on acc)
+    use_mask_loss: bool = False
+
+
+def stage1_loss(out: dict, rgb_gt: torch.Tensor, w: Stage1LossWeights,
+                normal_gt: torch.Tensor | None = None,
+                norm_mask: torch.Tensor | None = None,
+                mask_gt: torch.Tensor | None = None,
+                mask_valid: torch.Tensor | None = None) -> dict:
+    """Loss terms of a stage-1 batch of N rays; the caller gates the
+    normal supervision by iteration and angle (norm_mask)."""
+    n = rgb_gt.shape[0]
+    rgb_loss = torch.sum(torch.abs(out["rgb"] - rgb_gt)) / n    # L1(sum)/N
+    diff_norm = out.get("diff_norm")
+    smooth_loss = (torch.mean(diff_norm) if diff_norm is not None
+                   else torch.zeros((), device=rgb_gt.device))
+    loss = w.lambda_rgb * rgb_loss + w.lambda_smooth * smooth_loss
+    terms = {"fullrgb_loss": rgb_loss, "grad_loss": smooth_loss}
+
+    if normal_gt is not None and norm_mask is not None:
+        m = norm_mask.to(rgb_gt.dtype)
+        diff = torch.sum(torch.abs(out["normal_pred"] - normal_gt), dim=-1)
+        cnt = torch.clamp_min(torch.sum(m), 1.0)
+        normal_loss = torch.where(torch.sum(m) > 0,
+                                  torch.sum(diff * m) / cnt, 0.0)
+        loss = loss + w.lambda_normal * normal_loss
+        terms["normal_loss"] = normal_loss
+
+    if w.use_mask_loss and mask_gt is not None:
+        acc = torch.clamp(out["acc_map"], 1e-7, 1 - 1e-7)
+        bce = -(mask_gt * torch.log(acc) + (1 - mask_gt) * torch.log(1 - acc))
+        mv = (mask_valid.to(acc.dtype) if mask_valid is not None
+              else torch.ones_like(acc))
+        mask_loss = torch.sum(bce * mv) / torch.clamp_min(torch.sum(mv), 1.0)
+        loss = loss + w.lambda_mask * mask_loss
+        terms["mask_loss"] = mask_loss
+
+    terms["loss"] = loss
+    return terms
 
 
 @dataclasses.dataclass(frozen=True)

@@ -91,3 +91,96 @@ def test_kernel_refuses_unsupported_width():
     layers, pe, le, _ = _setup(64, 2, width=32, depth=4, skip=2)
     with pytest.raises(ValueError, match="widths"):
         fv.fused_visibility(layers, pe, le)
+
+
+# ------------------------------------------------ stage-1 kernels K1, K2, K3
+
+def _occ_field(width=256, layers=8, seed=0):
+    from psnerf_torch.fields.occupancy import (OccFieldConfig,
+                                               init_occupancy_field)
+
+    cfg = OccFieldConfig(num_layers=layers, hidden_dim=width,
+                         feat_size=width, skips=(layers // 2,),
+                         compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(seed)
+    return cfg, init_occupancy_field(cfg, generator=gen, device="cuda")
+
+
+def _corr(a, b):
+    return float(np.corrcoef(a.flatten().cpu().numpy(),
+                             b.flatten().cpu().numpy())[0, 1])
+
+
+@pytest.mark.parametrize("width,layers,n", [(256, 8, 3000), (128, 6, 640)])
+def test_fused_occ_kernel_matches_plain(width, layers, n):
+    _need_gpu()
+    from psnerf_torch.ops import fused_occ as fo
+
+    cfg, field = _occ_field(width, layers)
+    rng = np.random.default_rng(1)
+    p = torch.as_tensor((rng.normal(size=(n, 3)) * 0.6).astype(np.float32),
+                        device="cuda")
+    before = fo.fused_occ_logit.launches
+    got = fo.fused_occ_logit(field, p, cfg)
+    torch.cuda.synchronize()
+    assert fo.fused_occ_logit.launches == before + 1
+    ref = fo.fused_occ_logit_plain(field, p, cfg)
+    assert got.shape == ref.shape == (n,)
+    # same rounding points; only f32 summation order differs
+    assert (got - ref).abs().max().item() < 1e-2
+    assert _corr(got, ref) > 0.9999
+
+
+def _radiance_inputs(cfg, n, seed=2):
+    from psnerf_torch.ops import fused_radiance as fr
+
+    rng = np.random.default_rng(seed)
+    p = torch.as_tensor((rng.normal(size=(n, 3)) * 0.5).astype(np.float32),
+                        device="cuda")
+    rd = torch.as_tensor(_unit(rng, (n, 3)), device="cuda")
+    return fr.radiance_inputs(p, rd, cfg)
+
+
+@pytest.mark.parametrize("width,layers,n", [(256, 8, 1000), (128, 4, 200)])
+def test_fused_radiance_kernels_match_plain(width, layers, n):
+    _need_gpu()
+    from psnerf_torch.ops import fused_radiance as fr
+
+    cfg, field = _occ_field(width, layers)
+    em, de, vpe, p3 = _radiance_inputs(cfg, n)
+    skip = cfg.skips[0] - 1
+    with torch.no_grad():
+        packed = fr.pack_radiance(field, cfg, torch.bfloat16)
+    f0, b0 = fr.radiance_forward.launches, fr.radiance_backward.launches
+    out, g_e = fr.radiance_forward(packed, em, de, vpe, p3, skip)
+    torch.cuda.synchronize()
+    ref, g_e_ref = fr.radiance_forward_plain(packed, em, de, vpe, p3, skip)
+    assert out.shape == ref.shape == (n, 4)
+    assert torch.isfinite(out).all() and torch.isfinite(g_e).all()
+    assert (out - ref).abs().max().item() < 2e-2
+    assert (out - ref).abs().mean().item() < 2e-3
+    assert (g_e - g_e_ref).abs().max().item() < 2e-2 * g_e_ref.abs().max()
+
+    rng = np.random.default_rng(3)
+    # a loss that grows with every output holds the bars; random signs make
+    # the sums cancel, so bf16 rounding and relu-mask flips show most there
+    # and only the correlation is held
+    for g_out, rel in ((rng.uniform(0.5, 1.5, size=(n, 4)), 2e-2),
+                       (rng.normal(size=(n, 4)), None)):
+        g_out = torch.as_tensor(g_out.astype(np.float32), device="cuda")
+        got = fr.radiance_backward(packed, em, de, vpe, p3, g_e_ref, g_out,
+                                   skip)
+        torch.cuda.synchronize()
+        want = fr.radiance_backward_plain(packed, em, de, vpe, p3, g_e_ref,
+                                          g_out, skip)
+        for k in fr.PACK_ORDER:
+            a, b = got[k], want[k]
+            assert a.shape == b.shape, k
+            assert torch.isfinite(a).all(), k
+            scale = b.abs().max().item() + 1e-12
+            if rel is not None:
+                assert (a - b).abs().max().item() / scale < rel, k
+            if b.numel() > 8:
+                assert _corr(a, b) > 0.999, k
+    assert fr.radiance_forward.launches == f0 + 1
+    assert fr.radiance_backward.launches == b0 + 2

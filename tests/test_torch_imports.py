@@ -89,3 +89,14 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="unsupported"):
         resolve_device("meta")
     assert psnerf_torch.__version__
+
+
+def test_stage1_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from psnerf_torch.data.stage1 import load_stage1_data
+    from psnerf_torch.runners.stage1 import Stage1Runner
+
+    with pytest.raises(RuntimeError, match="is_available"):
+        Stage1Runner(None, str(tmp_path))
+    with pytest.raises(RuntimeError, match="is_available"):
+        load_stage1_data(None)

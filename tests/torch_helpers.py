@@ -37,6 +37,17 @@ def port_psnet(jax_params: dict, jax_cfg):
     return load_module(model, flatten_jax(jax_params))
 
 
+def port_occ_field(jax_params: dict, jax_cfg):
+    """(port OccFieldConfig, port OccField on the CPU holding the JAX
+    package's stage-1 field params)."""
+    from psnerf_torch.fields.occupancy import (OccFieldConfig,
+                                               init_occupancy_field)
+    from psnerf_torch.train.checkpoints import load_module
+
+    cfg = port_config(jax_cfg, OccFieldConfig)
+    return cfg, load_module(init_occupancy_field(cfg), flatten_jax(jax_params))
+
+
 def unit(rng, shape):
     v = rng.normal(size=shape)
     return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
