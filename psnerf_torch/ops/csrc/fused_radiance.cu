@@ -2,7 +2,8 @@
 // Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of psnerf_tpu/ops/fused_radiance.py
-// (fused_radiance_and_alpha):
+// (fused_radiance_and_alpha) in both of their operand forms (wdt bf16 and
+// f32):
 //   * forward (_fwd_kernel over _forward_core): geometry trunk -> feature
 //     and logit (split head), reverse sweep g_e = d logit / d emb, normals
 //     n = (d emb / d x)^T g_e, ReLU appearance MLP -> pre-tanh rgb;
@@ -15,31 +16,43 @@
 // backward ~57 products of 2 W^2 FLOPs (W = 256): ~2.6 and ~7.7 MFLOP,
 // against a few hundred bytes of inputs per point.
 //
-// Design. One CTA of 8 warps owns a tile of 64 points; a persistent grid
-// (one CTA per SM) loops over the tiles. Each product runs bf16 mma.sync
-// over a [64, K] bf16 operand tile in shared memory, with the weight
-// fragments read from global memory (L2-resident); each warp owns W/8
-// output columns (mma_tile.cuh). The per-layer f32 values the sweeps need
-// again (sigmoid s, tangents tz, h_bar) and the bf16 operands of the weight
-// gradients (trunk and appearance activations, tangents) do not fit in
-// shared memory (eight layers of s alone are 512 KB per tile): each CTA
-// keeps them in its own slot of device memory, in the fragment layout, so
-// every thread reads back exactly the values it wrote (coalesced, no
-// synchronisation; the slots of all CTAs are a few hundred MB, mostly L2
-// traffic). They stay f32 where the TPU kernel keeps them f32.
+// Design. One CTA of 8 warps owns a tile of points; a persistent grid (one
+// CTA per SM) loops over the tiles. Each product runs mma.sync over an
+// operand tile in shared memory, with the weight fragments read from
+// global memory (L2-resident); each warp owns W/8 output columns
+// (mma_tile.cuh). The per-layer f32 values the sweeps need again (sigmoid
+// s, tangents tz, h_bar) and the operands of the weight gradients (trunk
+// and appearance activations, tangents) do not fit in shared memory (eight
+// layers of s alone are 512 KB per 64-point tile): each CTA keeps them in
+// its own slot of device memory, in the fragment layout, so every thread
+// reads back exactly the values it wrote (coalesced, no synchronisation;
+// the slots of all CTAs are a few hundred MB, mostly L2 traffic). They
+// stay f32 where the TPU kernel keeps them f32.
 //
 // Weight gradients x^T y (a reduction over points) run as mma.sync over
-// transposed [feature][point] bf16 tiles in shared memory (the trunk's two
-// terms a^T z_bar + t^T tz_bar as one product of depth 128), and every
-// CTA adds its tile's sums into the zeroed f32 gradients with atomicAdd:
-// CTAs run in no order, so nothing relies on one; the summation order
-// changes from run to run. Bias-like gradients are column sums (a shuffle
-// over the fragment's rows) added the same way.
+// transposed [feature][point] tiles in shared memory (the trunk's two
+// terms a^T z_bar + t^T tz_bar as one product of depth 2 x tile), and
+// every CTA adds its tile's sums into the zeroed f32 gradients with
+// atomicAdd: CTAs run in no order, so nothing relies on one; the summation
+// order changes from run to run. Bias-like gradients are column sums (a
+// shuffle over the fragment's rows) added the same way.
 //
-// Rounding points, as in the TPU kernel at compute="bfloat16": every
-// product's operands are bf16, accumulation, biases, softplus, sigmoid and
-// the sweeps' elementwise work are f32; the logit row w8l and the normals'
-// and position rows of appearance layer 0 (wn, wp) are f32.
+// The two forms are one source, templated on the operand type T:
+//   * T = bf16 (compute="bfloat16"): rounding points as in the TPU kernel
+//     at wdt = bf16: every product's operands are bf16; accumulation,
+//     biases, softplus, sigmoid and the sweeps' elementwise work are f32;
+//     the logit row w8l and the normals' and position rows of appearance
+//     layer 0 (wn, wp) are f32. Tiles of 64 points; bf16 m16n8k16.
+//   * T = float (compute="float32", the default field): nothing is rounded
+//     below f32, as in the TPU kernel at wdt = f32. Products by 3xTF32
+//     (mma_tile.cuh), close to f32 products; a single TF32 pass would miss
+//     the f32 form's 1e-5 bar over nine chained depth-256 products. f32
+//     tiles take twice the shared memory, so the tile is 32 points: the
+//     backward then needs 204 KB of the 227 KB a block may have (64 points
+//     would need ~400 KB), and the forward 96 KB.
+//
+// ptxas reports registers, spills and shared memory per instantiation
+// into ops/_build/fused_radiance.ptxas.txt.
 
 #include "mma_tile.cuh"
 
@@ -47,29 +60,42 @@ using namespace psnerf;
 
 namespace {
 
-constexpr int LDK = 64 + 8;          // narrow tiles (ke, kv <= 64), bf16
-constexpr int LDT = 2 * BM + 8;      // transposed tiles [feature][point]
 constexpr int ROWF = 16;             // per-point f32 values in shared memory
 // ROWF slots: 0-2 p, 3 logit (fwd) / g_logit (bwd), 4-6 n, 7-9 g_n,
 // 10-12 g_rgb
 constexpr int RF_P = 0, RF_L = 3, RF_N = 4, RF_GN = 7, RF_GRGB = 10;
-// scratch buffers per slot (each BM * W values in the fragment layout)
+// scratch buffers per slot (each TBM * W values in the fragment layout):
+// f32 buffers, then operand-type buffers
 constexpr int F_SP = 0, F_TZ = 8, F_HB = 16, N_F32_BWD = 17, N_F32_FWD = 8;
 constexpr int H_A = 0, H_T = 8, H_AA = 15, H_FEAT = 19, H_TZB = 20,
-              N_BF16_BWD = 21;
+              N_OP_BWD = 21;
 
 typedef __nv_bfloat16 bf16;
 
+// Tile shape of one operand form.
+template <typename T> struct Tile;
+template <> struct Tile<bf16> {
+  static constexpr int BM = psnerf::BM;      // 64 points
+  static constexpr int LDK = 64 + 8;         // narrow tiles (ke, kv <= 64)
+  static constexpr int LDT = 2 * BM + 8;     // transposed [feature][point]
+};
+template <> struct Tile<float> {
+  static constexpr int BM = 32;
+  static constexpr int LDK = 64 + 4;
+  static constexpr int LDT = 2 * BM + 4;
+};
+
+template <typename T>
 struct RadParams {
-  const bf16* em; const float* de; const bf16* vpe; const float* p3;
+  const T* em; const float* de; const T* vpe; const float* p3;
   const float* g_e_in; const float* g_out;
-  const bf16 *w0T, *w0; const float* b0;
-  const bf16 *wskipT, *wskip;
-  const bf16 *trunkT, *trunk; const float* trunk_b;
-  const bf16 *w8fT, *w8f; const float *b8f, *w8l, *b8l, *wp, *wn;
-  const bf16 *wvT, *wfT, *wf; const float* ba0;
-  const bf16 *waT, *wa; const float* bab;
-  const bf16 *wa4T, *wa4; const float* ba4;
+  const T *w0T, *w0; const float* b0;
+  const T *wskipT, *wskip;
+  const T *trunkT, *trunk; const float* trunk_b;
+  const T *w8fT, *w8f; const float *b8f, *w8l, *b8l, *wp, *wn;
+  const T *wvT, *wfT, *wf; const float* ba0;
+  const T *waT, *wa; const float* bab;
+  const T *wa4T, *wa4; const float* ba4;
   float* out; float* g_e;
   float *d_w0, *d_b0, *d_wskip, *d_trunk_w, *d_trunk_b, *d_w8f, *d_b8f,
       *d_w8l, *d_b8l, *d_wp, *d_wv, *d_wn, *d_wf, *d_ba0, *d_wa, *d_bab,
@@ -86,6 +112,12 @@ __device__ __forceinline__ void sp_sig(float x, float& sp, float& sg) {
   sg = bx >= 0.f ? inv : e * inv;
 }
 
+// x rounded to the operand type and back (exact for T = float)
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {
+  return Operand<T>::to_f(Operand<T>::from_f(x));
+}
+
 // thread-private scratch: element q of this thread's fragment
 __device__ __forceinline__ size_t sq(int q) {
   return (size_t)q * NTHREADS + threadIdx.x;
@@ -96,26 +128,28 @@ __device__ __forceinline__ int fq(int i, int j, int r) {
   return (i * NT + j) * 4 + r;
 }
 
-// xT[col][koff + row] = bf16(v): the tile transposed to [feature][point]
-template <int NT>
-__device__ __forceinline__ void put_T(bf16* xT, int koff,
-                                      const float (&v)[4][NT][4], int n_base) {
+// xT[col][koff + row] = operand(v): the tile transposed to [feature][point]
+template <typename T, int MI, int NT>
+__device__ __forceinline__ void put_T(T* xT, int koff,
+                                      const float (&v)[MI][NT][4], int n_base) {
+  constexpr int LDT = Tile<T>::LDT;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         xT[frag_col(n_base, j, r) * LDT + koff + frag_row(i, r)] =
-            __float2bfloat16_rn(v[i][j][r]);
+            Operand<T>::from_f(v[i][j][r]);
 }
 
-// the same from a bf16 scratch buffer (exact)
-template <int NT>
-__device__ __forceinline__ void put_T_scr(bf16* xT, int koff, const bf16* buf,
+// the same from an operand-type scratch buffer (exact)
+template <typename T, int MI, int NT>
+__device__ __forceinline__ void put_T_scr(T* xT, int koff, const T* buf,
                                           int n_base) {
+  constexpr int LDT = Tile<T>::LDT;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -125,9 +159,9 @@ __device__ __forceinline__ void put_T_scr(bf16* xT, int koff, const bf16* buf,
 }
 
 // dst[col] += sum over the tile's rows of rw[row] * v (rw null: 1)
-template <int NT>
+template <int MI, int NT>
 __device__ __forceinline__ void colsum_atomic(float* dst,
-                                              const float (&v)[4][NT][4],
+                                              const float (&v)[MI][NT][4],
                                               int n_base, const float* rw) {
   const int g = (threadIdx.x & 31) >> 2;
 #pragma unroll
@@ -136,7 +170,7 @@ __device__ __forceinline__ void colsum_atomic(float* dst,
     for (int e = 0; e < 2; ++e) {
       float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float x = v[i][j][2 * h + e];
@@ -151,16 +185,18 @@ __device__ __forceinline__ void colsum_atomic(float* dst,
 
 // dst[a_rows, W] += xT[0:a_rows, 0:K] @ yT[0:W, 0:K]^T (a reduction over
 // K points, both tiles transposed in shared memory)
-template <int W>
-__device__ __forceinline__ void dtn_atomic(const bf16* xT, int a_rows,
-                                           const bf16* yT, int K, float* dst,
+template <typename T, int W>
+__device__ __forceinline__ void dtn_atomic(const T* xT, int a_rows,
+                                           const T* yT, int K, float* dst,
                                            int n_base) {
-  constexpr int NT = W / 64;
-  for (int mc = 0; mc < a_rows; mc += BM) {
-    float acc[4][NT][4];
-    warp_gemm<NT, false>(xT + mc * LDT, LDT, K, yT, LDT, n_base, acc, true);
+  constexpr int NT = W / 64, TBM = Tile<T>::BM, MI = TBM / 16;
+  constexpr int LDT = Tile<T>::LDT;
+  for (int mc = 0; mc < a_rows; mc += TBM) {
+    float acc[MI][NT][4];
+    warp_gemm<NT, false, MI>(xT + mc * LDT, LDT, K, yT, LDT, n_base, acc,
+                             true);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -173,12 +209,12 @@ __device__ __forceinline__ void dtn_atomic(const bf16* xT, int a_rows,
   }
 }
 
-// [BM, cols] bf16 rows of a [N, cols] input into a shared tile (zeros past N)
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, int ld,
-                                               const bf16* src, int cols,
-                                               int row0, int n) {
+// [rows, cols] rows of a [N, cols] input into a shared tile (zeros past N)
+__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
+                                          int cols, int rows, int row0,
+                                          int n) {
   const int kw = cols / 2;
-  for (int idx = threadIdx.x; idx < BM * kw; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < rows * kw; idx += NTHREADS) {
     const int r = idx / kw, c = (idx % kw) * 2;
     uint32_t v = 0;
     if (row0 + r < n) v = ldg_u32(src + (size_t)(row0 + r) * cols + c);
@@ -186,34 +222,46 @@ __device__ __forceinline__ void load_rows_bf16(bf16* dst, int ld,
   }
 }
 
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* src, int cols,
+                                          int rows, int row0, int n) {
+  const int kw = cols / 2;
+  for (int idx = threadIdx.x; idx < rows * kw; idx += NTHREADS) {
+    const int r = idx / kw, c = (idx % kw) * 2;
+    float2 v = make_float2(0.f, 0.f);
+    if (row0 + r < n)
+      v = __ldg(reinterpret_cast<const float2*>(src + (size_t)(row0 + r) * cols + c));
+    *reinterpret_cast<float2*>(dst + r * ld + c) = v;
+  }
+}
+
 // the geometry trunk's forward over the tile in ems; leaves a_last (f32)
-// in acc and bf16(a_last) in act. Stores s per layer (f32 scratch) and,
-// with abuf, every activation (bf16 scratch). With rw_last, adds
+// in acc and operand(a_last) in act. Stores s per layer (f32 scratch) and,
+// with abuf, every activation (operand scratch). With rw_last, adds
 // sum_rows rw * a_last into d_w8l.
-template <int W>
-__device__ __forceinline__ void trunk_forward(const RadParams& p, bf16* act,
-                                              const bf16* ems,
-                                              float (&acc)[4][W / 64][4],
-                                              float* spbuf, bf16* abuf,
-                                              const float* rw_last,
-                                              int n_base) {
-  constexpr int NT = W / 64, LDA = W + 8;
-  constexpr size_t TILE = (size_t)BM * W;
+template <typename T, int W>
+__device__ __forceinline__ void trunk_forward(
+    const RadParams<T>& p, T* act, const T* ems,
+    float (&acc)[Tile<T>::BM / 16][W / 64][4], float* spbuf, T* abuf,
+    const float* rw_last, int n_base) {
+  constexpr int NT = W / 64, LDA = W + Operand<T>::PAD;
+  constexpr int MI = Tile<T>::BM / 16, LDK = Tile<T>::LDK;
+  constexpr size_t TILE = (size_t)Tile<T>::BM * W;
   for (int li = 0; li <= p.n_trunk; ++li) {
     if (li == 0) {
-      warp_gemm<NT, true>(ems, LDK, p.ke, p.w0T, p.ke, n_base, acc, true);
+      warp_gemm<NT, true, MI>(ems, LDK, p.ke, p.w0T, p.ke, n_base, acc, true);
     } else {
-      warp_gemm<NT, true>(act, LDA, W, p.trunkT + (size_t)(li - 1) * W * W,
-                          W, n_base, acc, true);
+      warp_gemm<NT, true, MI>(act, LDA, W, p.trunkT + (size_t)(li - 1) * W * W,
+                              W, n_base, acc, true);
       if (li - 1 == p.skip_pos)
-        warp_gemm<NT, true>(ems, LDK, p.ke, p.wskipT, p.ke, n_base, acc,
-                            false);
+        warp_gemm<NT, true, MI>(ems, LDK, p.ke, p.wskipT, p.ke, n_base, acc,
+                                false);
     }
     __syncthreads();                 // every warp has finished reading act
     const float* bias = li == 0 ? p.b0 : p.trunk_b + (size_t)(li - 1) * W;
     float* sp_l = spbuf + li * TILE;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -223,20 +271,21 @@ __device__ __forceinline__ void trunk_forward(const RadParams& p, bf16* act,
           acc[i][j][r] = s;
           sp_l[sq(fq<NT>(i, j, r))] = sg;
           if (abuf)
-            abuf[li * TILE + sq(fq<NT>(i, j, r))] = __float2bfloat16_rn(s);
+            abuf[li * TILE + sq(fq<NT>(i, j, r))] = Operand<T>::from_f(s);
         }
-    put_act<NT>(act, LDA, acc, n_base);
+    put_act<NT, MI>(act, LDA, acc, n_base);
     if (li == p.n_trunk && rw_last)
-      colsum_atomic<NT>(p.d_w8l, acc, n_base, rw_last);
+      colsum_atomic<MI, NT>(p.d_w8l, acc, n_base, rw_last);
     __syncthreads();
   }
 }
 
 // n[row][j] = sum over columns c % 3 == j of g_e[row][c] * de[row][c]
-__device__ __forceinline__ void normals(const RadParams& p, const float* ge,
+template <typename T>
+__device__ __forceinline__ void normals(const RadParams<T>& p, const float* ge,
                                         int ldg, float* rowf, int row0) {
   const int tid = threadIdx.x;
-  if (tid < BM * 3) {
+  if (tid < Tile<T>::BM * 3) {
     const int row = tid / 3, j = tid % 3;
     float s = 0.f;
     if (row0 + row < p.n) {
@@ -248,13 +297,13 @@ __device__ __forceinline__ void normals(const RadParams& p, const float* ge,
 }
 
 // appearance layer 0 epilogue: relu(acc + ba0 + sum_j p_j wp[j] + n_j wn[j])
-template <int W>
-__device__ __forceinline__ void app0_epilogue(const RadParams& p,
-                                              float (&acc)[4][W / 64][4],
-                                              const float* rowf, int n_base) {
-  constexpr int NT = W / 64;
+template <typename T, int W>
+__device__ __forceinline__ void app0_epilogue(
+    const RadParams<T>& p, float (&acc)[Tile<T>::BM / 16][W / 64][4],
+    const float* rowf, int n_base) {
+  constexpr int NT = W / 64, MI = Tile<T>::BM / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -272,91 +321,94 @@ __device__ __forceinline__ void app0_epilogue(const RadParams& p,
 
 // ------------------------------------------------------------- forward
 
-template <int W>
-__global__ void __launch_bounds__(NTHREADS, 1) rad_fwd_kernel(const RadParams p) {
-  constexpr int NT = W / 64, LDA = W + 8;
-  constexpr size_t TILE = (size_t)BM * W;
+template <typename T, int W>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    rad_fwd_kernel(const RadParams<T> p) {
+  constexpr int NT = W / 64, LDA = W + Operand<T>::PAD;
+  constexpr int TBM = Tile<T>::BM, MI = TBM / 16, LDK = Tile<T>::LDK;
+  constexpr size_t TILE = (size_t)TBM * W;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);               // [BM][LDA]
-  bf16* feats = act + BM * LDA;                            // [BM][LDA]
-  bf16* ems = feats + BM * LDA;                            // [BM][LDK]
-  bf16* vps = ems + BM * LDK;                              // [BM][LDK]
-  float* ges = reinterpret_cast<float*>(vps + BM * LDK);   // [BM][LDK]
-  float* rowf = ges + BM * LDK;                            // [BM][ROWF]
-  float* red = rowf + BM * ROWF;                           // [NWARPS][BM]
+  T* act = reinterpret_cast<T*>(smem);                     // [TBM][LDA]
+  T* feats = act + TBM * LDA;                              // [TBM][LDA]
+  T* ems = feats + TBM * LDA;                              // [TBM][LDK]
+  T* vps = ems + TBM * LDK;                                // [TBM][LDK]
+  float* ges = reinterpret_cast<float*>(vps + TBM * LDK);  // [TBM][LDK]
+  float* rowf = ges + TBM * LDK;                           // [TBM][ROWF]
+  float* red = rowf + TBM * ROWF;                          // [NWARPS][TBM]
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int n_base = warp * (W / NWARPS);
-  const int n_tiles = (p.n + BM - 1) / BM;
+  const int n_tiles = (p.n + TBM - 1) / TBM;
   float* spbuf = reinterpret_cast<float*>(p.scratch) +
                  (size_t)blockIdx.x * N_F32_FWD * TILE;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * BM;
-    load_rows_bf16(ems, LDK, p.em, p.ke, row0, p.n);
-    load_rows_bf16(vps, LDK, p.vpe, p.kv, row0, p.n);
-    for (int idx = tid; idx < BM * 3; idx += NTHREADS) {
+    const int row0 = tile * TBM;
+    load_rows(ems, LDK, p.em, p.ke, TBM, row0, p.n);
+    load_rows(vps, LDK, p.vpe, p.kv, TBM, row0, p.n);
+    for (int idx = tid; idx < TBM * 3; idx += NTHREADS) {
       const int r = idx / 3, c = idx % 3;
       rowf[r * ROWF + RF_P + c] =
           row0 + r < p.n ? __ldg(p.p3 + (size_t)(row0 + r) * 3 + c) : 0.f;
     }
     __syncthreads();
 
-    float acc[4][NT][4];
-    trunk_forward<W>(p, act, ems, acc, spbuf, nullptr, nullptr, n_base);
-    rowsum_partial<NT>(acc, p.w8l, n_base, red);
+    float acc[MI][NT][4];
+    trunk_forward<T, W>(p, act, ems, acc, spbuf, nullptr, nullptr, n_base);
+    rowsum_partial<NT, MI>(acc, p.w8l, n_base, red);
     __syncthreads();
-    if (tid < BM) {
+    if (tid < TBM) {
       float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < NWARPS; ++w) s += red[w * BM + tid];
+      for (int w = 0; w < NWARPS; ++w) s += red[w * TBM + tid];
       rowf[tid * ROWF + RF_L] = s + __ldg(p.b8l);
     }
     // feature head: feat = a_last @ w8f + b8f
-    warp_gemm<NT, true>(act, LDA, W, p.w8fT, W, n_base, acc, true);
+    warp_gemm<NT, true, MI>(act, LDA, W, p.w8fT, W, n_base, acc, true);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           acc[i][j][r] += __ldg(p.b8f + frag_col(n_base, j, r));
-    put_act<NT>(feats, LDA, acc, n_base);
+    put_act<NT, MI>(feats, LDA, acc, n_base);
     __syncthreads();
 
     // reverse sweep: g = d logit / d a, from g = w8l down to the embedding
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           acc[i][j][r] = __ldg(p.w8l + frag_col(n_base, j, r));
     const bool owns_e = warp * 8 < p.ke;       // warps holding g_e columns
-    float ge_skip[4][1][4];
+    float ge_skip[MI][1][4];
     for (int li = p.n_trunk; li >= 0; --li) {
       const float* sp_l = spbuf + li * TILE;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int r = 0; r < 4; ++r) acc[i][j][r] *= sp_l[sq(fq<NT>(i, j, r))];
-      put_act<NT>(act, LDA, acc, n_base);
+      put_act<NT, MI>(act, LDA, acc, n_base);
       __syncthreads();
       if (li == 0) break;
       if (li == p.skip_pos + 1 && owns_e)
-        warp_gemm<1, true>(act, LDA, W, p.wskip, W, warp * 8, ge_skip, true);
-      warp_gemm<NT, true>(act, LDA, W, p.trunk + (size_t)(li - 1) * W * W, W,
-                          n_base, acc, true);
+        warp_gemm<1, true, MI>(act, LDA, W, p.wskip, W, warp * 8, ge_skip,
+                               true);
+      warp_gemm<NT, true, MI>(act, LDA, W, p.trunk + (size_t)(li - 1) * W * W,
+                              W, n_base, acc, true);
       __syncthreads();
     }
     // g_e = (g s0) @ w0^T + gz_skip @ wskip^T
     if (owns_e) {
-      float ge[4][1][4];
-      warp_gemm<1, true>(act, LDA, W, p.w0, W, warp * 8, ge, true);
+      float ge[MI][1][4];
+      warp_gemm<1, true, MI>(act, LDA, W, p.w0, W, warp * 8, ge, true);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int row = frag_row(i, r), col = frag_col(warp * 8, 0, r);
@@ -370,17 +422,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_fwd_kernel(const RadParams p)
     __syncthreads();
 
     // appearance: relu layers on [p, view PE, n, feat] -> pre-tanh rgb
-    warp_gemm<NT, true>(vps, LDK, p.kv, p.wvT, p.kv, n_base, acc, true);
-    warp_gemm<NT, true>(feats, LDA, W, p.wfT, W, n_base, acc, false);
-    app0_epilogue<W>(p, acc, rowf, n_base);
-    put_act<NT>(act, LDA, acc, n_base);
+    warp_gemm<NT, true, MI>(vps, LDK, p.kv, p.wvT, p.kv, n_base, acc, true);
+    warp_gemm<NT, true, MI>(feats, LDA, W, p.wfT, W, n_base, acc, false);
+    app0_epilogue<T, W>(p, acc, rowf, n_base);
+    put_act<NT, MI>(act, LDA, acc, n_base);
     __syncthreads();
     for (int jl = 0; jl < 3; ++jl) {
-      warp_gemm<NT, true>(act, LDA, W, p.waT + (size_t)jl * W * W, W, n_base,
-                          acc, true);
+      warp_gemm<NT, true, MI>(act, LDA, W, p.waT + (size_t)jl * W * W, W,
+                              n_base, acc, true);
       __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -388,14 +440,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_fwd_kernel(const RadParams p)
             acc[i][j][r] = fmaxf(
                 acc[i][j][r] + __ldg(p.bab + jl * W + frag_col(n_base, j, r)),
                 0.f);
-      put_act<NT>(act, LDA, acc, n_base);
+      put_act<NT, MI>(act, LDA, acc, n_base);
       __syncthreads();
     }
     if (warp == 0) {
-      float rgb[4][1][4];
-      warp_gemm<1, true>(act, LDA, W, p.wa4T, W, 0, rgb, true);
+      float rgb[MI][1][4];
+      warp_gemm<1, true, MI>(act, LDA, W, p.wa4T, W, 0, rgb, true);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int row = frag_row(i, r), col = frag_col(0, 0, r);
@@ -403,7 +455,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_fwd_kernel(const RadParams p)
             p.out[(size_t)(row0 + row) * 4 + col] = rgb[i][0][r] + __ldg(p.ba4 + col);
         }
     }
-    if (tid < BM && row0 + tid < p.n)
+    if (tid < TBM && row0 + tid < p.n)
       p.out[(size_t)(row0 + tid) * 4 + 3] = rowf[tid * ROWF + RF_L];
     __syncthreads();
   }
@@ -411,35 +463,39 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_fwd_kernel(const RadParams p)
 
 // ------------------------------------------------------------ backward
 
-template <int W>
-__global__ void __launch_bounds__(NTHREADS, 1) rad_bwd_kernel(const RadParams p) {
-  constexpr int NT = W / 64, LDA = W + 8;
-  constexpr size_t TILE = (size_t)BM * W;
+template <typename T, int W>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    rad_bwd_kernel(const RadParams<T> p) {
+  typedef Operand<T> Op;
+  constexpr int NT = W / 64, LDA = W + Op::PAD;
+  constexpr int TBM = Tile<T>::BM, MI = TBM / 16;
+  constexpr int LDK = Tile<T>::LDK, LDT = Tile<T>::LDT;
+  constexpr size_t TILE = (size_t)TBM * W;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);               // [BM][LDA]
-  bf16* ems = act + BM * LDA;                              // [BM][LDK]
-  bf16* ces = ems + BM * LDK;                              // [BM][LDK]
-  bf16* vps = ces + BM * LDK;                              // [BM][LDK]
-  bf16* xT = vps + BM * LDK;                               // [W][LDT]
-  bf16* yT = xT + W * LDT;                                 // [W][LDT]
-  float* rowf = reinterpret_cast<float*>(yT + W * LDT);    // [BM][ROWF]
-  float* red = rowf + BM * ROWF;                           // [3][NWARPS][BM]
+  T* act = reinterpret_cast<T*>(smem);                     // [TBM][LDA]
+  T* ems = act + TBM * LDA;                                // [TBM][LDK]
+  T* ces = ems + TBM * LDK;                                // [TBM][LDK]
+  T* vps = ces + TBM * LDK;                                // [TBM][LDK]
+  T* xT = vps + TBM * LDK;                                 // [W][LDT]
+  T* yT = xT + W * LDT;                                    // [W][LDT]
+  float* rowf = reinterpret_cast<float*>(yT + W * LDT);    // [TBM][ROWF]
+  float* red = rowf + TBM * ROWF;                          // [3][NWARPS][TBM]
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int n_base = warp * (W / NWARPS);
-  const int n_tiles = (p.n + BM - 1) / BM;
-  const size_t slot_bytes = N_F32_BWD * TILE * 4 + N_BF16_BWD * TILE * 2;
+  const int n_tiles = (p.n + TBM - 1) / TBM;
+  const size_t slot_bytes = N_F32_BWD * TILE * 4 + N_OP_BWD * TILE * sizeof(T);
   float* fbuf = reinterpret_cast<float*>(p.scratch + blockIdx.x * slot_bytes);
-  bf16* hbuf = reinterpret_cast<bf16*>(fbuf + N_F32_BWD * TILE);
+  T* hbuf = reinterpret_cast<T*>(fbuf + N_F32_BWD * TILE);
   float* spbuf = fbuf + F_SP * TILE;
   float* tzbuf = fbuf + F_TZ * TILE;
   float* hb = fbuf + F_HB * TILE;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * BM;
-    load_rows_bf16(ems, LDK, p.em, p.ke, row0, p.n);
-    load_rows_bf16(vps, LDK, p.vpe, p.kv, row0, p.n);
-    for (int idx = tid; idx < BM * 4; idx += NTHREADS) {
+    const int row0 = tile * TBM;
+    load_rows(ems, LDK, p.em, p.ke, TBM, row0, p.n);
+    load_rows(vps, LDK, p.vpe, p.kv, TBM, row0, p.n);
+    for (int idx = tid; idx < TBM * 4; idx += NTHREADS) {
       const int r = idx / 4, c = idx % 4;
       const bool in = row0 + r < p.n;
       if (c < 3)
@@ -451,23 +507,22 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_bwd_kernel(const RadParams p)
     __syncthreads();
 
     // ---- forward recompute (the reverse sweep's g_e is an input)
-    float acc[4][NT][4];
-    trunk_forward<W>(p, act, ems, acc, spbuf, hbuf + H_A * TILE,
-                     rowf + RF_L, n_base);
-    warp_gemm<NT, true>(act, LDA, W, p.w8fT, W, n_base, acc, true);
+    float acc[MI][NT][4];
+    trunk_forward<T, W>(p, act, ems, acc, spbuf, hbuf + H_A * TILE,
+                        rowf + RF_L, n_base);
+    warp_gemm<NT, true, MI>(act, LDA, W, p.w8fT, W, n_base, acc, true);
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           acc[i][j][r] += __ldg(p.b8f + frag_col(n_base, j, r));
-          hbuf[H_FEAT * TILE + sq(fq<NT>(i, j, r))] =
-              __float2bfloat16_rn(acc[i][j][r]);
+          hbuf[H_FEAT * TILE + sq(fq<NT>(i, j, r))] = Op::from_f(acc[i][j][r]);
         }
-    put_act<NT>(act, LDA, acc, n_base);
-    if (tid < BM * 3) {
+    put_act<NT, MI>(act, LDA, acc, n_base);
+    if (tid < TBM * 3) {
       // n from the saved g_e, in the forward's summation order
       const int row = tid / 3, j = tid % 3;
       float s = 0.f;
@@ -479,28 +534,28 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_bwd_kernel(const RadParams p)
       rowf[row * ROWF + RF_N + j] = s;
     }
     __syncthreads();
-    warp_gemm<NT, true>(vps, LDK, p.kv, p.wvT, p.kv, n_base, acc, true);
-    warp_gemm<NT, true>(act, LDA, W, p.wfT, W, n_base, acc, false);
+    warp_gemm<NT, true, MI>(vps, LDK, p.kv, p.wvT, p.kv, n_base, acc, true);
+    warp_gemm<NT, true, MI>(act, LDA, W, p.wfT, W, n_base, acc, false);
     __syncthreads();
-    app0_epilogue<W>(p, acc, rowf, n_base);
+    app0_epilogue<T, W>(p, acc, rowf, n_base);
     for (int jl = 0; jl <= 3; ++jl) {
       // acc holds aa[jl]
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int r = 0; r < 4; ++r)
             hbuf[(H_AA + jl) * TILE + sq(fq<NT>(i, j, r))] =
-                __float2bfloat16_rn(acc[i][j][r]);
-      put_act<NT>(act, LDA, acc, n_base);
+                Op::from_f(acc[i][j][r]);
+      put_act<NT, MI>(act, LDA, acc, n_base);
       __syncthreads();
       if (jl == 3) break;
-      warp_gemm<NT, true>(act, LDA, W, p.waT + (size_t)jl * W * W, W, n_base,
-                          acc, true);
+      warp_gemm<NT, true, MI>(act, LDA, W, p.waT + (size_t)jl * W * W, W,
+                              n_base, acc, true);
       __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -514,29 +569,28 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_bwd_kernel(const RadParams p)
     // d_wa4 = aa3^T g_rgb and d_ba4 on the CUDA cores (3 output columns)
     if (tid < W) {
       float s[3] = {0.f, 0.f, 0.f};
-      for (int row = 0; row < BM; ++row) {
-        const float a = __bfloat162float(act[row * LDA + tid]);
+      for (int row = 0; row < TBM; ++row) {
+        const float a = Op::to_f(act[row * LDA + tid]);
 #pragma unroll
         for (int c = 0; c < 3; ++c)
-          s[c] += a * __bfloat162float(
-                          __float2bfloat16_rn(rowf[row * ROWF + RF_GRGB + c]));
+          s[c] += a * rnd<T>(rowf[row * ROWF + RF_GRGB + c]);
       }
 #pragma unroll
       for (int c = 0; c < 3; ++c) atomicAdd(p.d_wa4 + tid * 3 + c, s[c]);
     }
     if (tid < 3) {
       float s = 0.f;
-      for (int row = 0; row < BM; ++row) s += rowf[row * ROWF + RF_GRGB + tid];
+      for (int row = 0; row < TBM; ++row) s += rowf[row * ROWF + RF_GRGB + tid];
       atomicAdd(p.d_ba4 + tid, s);
     }
     if (tid == 3) {
       float s = 0.f;
-      for (int row = 0; row < BM; ++row) s += rowf[row * ROWF + RF_L];
+      for (int row = 0; row < TBM; ++row) s += rowf[row * ROWF + RF_L];
       atomicAdd(p.d_b8l, s);
     }
-    // gz = bf16(g_rgb) @ wa4^T
+    // gz = operand(g_rgb) @ wa4^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -545,85 +599,85 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_bwd_kernel(const RadParams p)
           float s = 0.f;
 #pragma unroll
           for (int c = 0; c < 3; ++c)
-            s += __bfloat162float(__float2bfloat16_rn(
-                     rowf[row * ROWF + RF_GRGB + c])) *
-                 __bfloat162float(p.wa4[col * 3 + c]);
+            s += rnd<T>(rowf[row * ROWF + RF_GRGB + c]) *
+                 Op::to_f(p.wa4[col * 3 + c]);
           acc[i][j][r] = s;
         }
     __syncthreads();                 // act (aa3) is read; free to overwrite
     for (int jl = 2; jl >= 0; --jl) {
-      const bf16* aa_next = hbuf + (H_AA + jl + 1) * TILE;
+      const T* aa_next = hbuf + (H_AA + jl + 1) * TILE;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int r = 0; r < 4; ++r)
-            if (!(__bfloat162float(aa_next[sq(fq<NT>(i, j, r))]) > 0.f))
+            if (!(Op::to_f(aa_next[sq(fq<NT>(i, j, r))]) > 0.f))
               acc[i][j][r] = 0.f;
-      put_T<NT>(yT, 0, acc, n_base);
-      put_T_scr<NT>(xT, 0, hbuf + (H_AA + jl) * TILE, n_base);
-      colsum_atomic<NT>(p.d_bab + jl * W, acc, n_base, nullptr);
-      put_act<NT>(act, LDA, acc, n_base);
+      put_T<T, MI, NT>(yT, 0, acc, n_base);
+      put_T_scr<T, MI, NT>(xT, 0, hbuf + (H_AA + jl) * TILE, n_base);
+      colsum_atomic<MI, NT>(p.d_bab + jl * W, acc, n_base, nullptr);
+      put_act<NT, MI>(act, LDA, acc, n_base);
       __syncthreads();
-      dtn_atomic<W>(xT, W, yT, BM, p.d_wa + (size_t)jl * W * W, n_base);
-      warp_gemm<NT, true>(act, LDA, W, p.wa + (size_t)jl * W * W, W, n_base,
-                          acc, true);
+      dtn_atomic<T, W>(xT, W, yT, TBM, p.d_wa + (size_t)jl * W * W, n_base);
+      warp_gemm<NT, true, MI>(act, LDA, W, p.wa + (size_t)jl * W * W, W,
+                              n_base, acc, true);
       __syncthreads();
     }
     {
-      const bf16* aa0 = hbuf + H_AA * TILE;
+      const T* aa0 = hbuf + H_AA * TILE;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int r = 0; r < 4; ++r)
-            if (!(__bfloat162float(aa0[sq(fq<NT>(i, j, r))]) > 0.f))
+            if (!(Op::to_f(aa0[sq(fq<NT>(i, j, r))]) > 0.f))
               acc[i][j][r] = 0.f;
     }
     // gz is appearance layer 0's z_bar: d_wf, d_wv, d_ba0, d_wp, d_wn, g_n
-    put_T<NT>(yT, 0, acc, n_base);
-    put_T_scr<NT>(xT, 0, hbuf + H_FEAT * TILE, n_base);
-    colsum_atomic<NT>(p.d_ba0, acc, n_base, nullptr);
+    put_T<T, MI, NT>(yT, 0, acc, n_base);
+    put_T_scr<T, MI, NT>(xT, 0, hbuf + H_FEAT * TILE, n_base);
+    colsum_atomic<MI, NT>(p.d_ba0, acc, n_base, nullptr);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      colsum_atomic<NT>(p.d_wp + c * W, acc, n_base, rowf + RF_P + c);
-      colsum_atomic<NT>(p.d_wn + c * W, acc, n_base, rowf + RF_N + c);
-      rowsum_partial<NT>(acc, p.wn + c * W, n_base, red + c * NWARPS * BM);
+      colsum_atomic<MI, NT>(p.d_wp + c * W, acc, n_base, rowf + RF_P + c);
+      colsum_atomic<MI, NT>(p.d_wn + c * W, acc, n_base, rowf + RF_N + c);
+      rowsum_partial<NT, MI>(acc, p.wn + c * W, n_base,
+                             red + c * NWARPS * TBM);
     }
-    put_act<NT>(act, LDA, acc, n_base);
+    put_act<NT, MI>(act, LDA, acc, n_base);
     __syncthreads();
-    if (tid < BM * 3) {
+    if (tid < TBM * 3) {
       const int row = tid / 3, c = tid % 3;
       float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < NWARPS; ++w) s += red[(c * NWARPS + w) * BM + row];
+      for (int w = 0; w < NWARPS; ++w) s += red[(c * NWARPS + w) * TBM + row];
       rowf[row * ROWF + RF_GN + c] = s;
     }
-    dtn_atomic<W>(xT, W, yT, BM, p.d_wf, n_base);
+    dtn_atomic<T, W>(xT, W, yT, TBM, p.d_wf, n_base);
     __syncthreads();
-    for (int idx = tid; idx < BM * p.kv; idx += NTHREADS) {
-      const int c = idx / BM, row = idx % BM;
+    for (int idx = tid; idx < TBM * p.kv; idx += NTHREADS) {
+      const int c = idx / TBM, row = idx % TBM;
       xT[c * LDT + row] = vps[row * LDK + c];
     }
     __syncthreads();
-    dtn_atomic<W>(xT, p.kv, yT, BM, p.d_wv, n_base);
-    // g_feat = bf16(gz) @ wf^T
-    warp_gemm<NT, true>(act, LDA, W, p.wf, W, n_base, acc, true);
+    dtn_atomic<T, W>(xT, p.kv, yT, TBM, p.d_wv, n_base);
+    // g_feat = operand(gz) @ wf^T
+    warp_gemm<NT, true, MI>(act, LDA, W, p.wf, W, n_base, acc, true);
     __syncthreads();
 
     // ---- first-order seeds through the split geometry head
-    put_T<NT>(yT, 0, acc, n_base);
-    put_T_scr<NT>(xT, 0, hbuf + (H_A + p.n_trunk) * TILE, n_base);
-    colsum_atomic<NT>(p.d_b8f, acc, n_base, nullptr);
-    put_act<NT>(act, LDA, acc, n_base);
+    put_T<T, MI, NT>(yT, 0, acc, n_base);
+    put_T_scr<T, MI, NT>(xT, 0, hbuf + (H_A + p.n_trunk) * TILE, n_base);
+    colsum_atomic<MI, NT>(p.d_b8f, acc, n_base, nullptr);
+    put_act<NT, MI>(act, LDA, acc, n_base);
     __syncthreads();
-    dtn_atomic<W>(xT, W, yT, BM, p.d_w8f, n_base);
-    // h_bar = bf16(g_feat) @ w8f^T + g_logit w8l
-    warp_gemm<NT, true>(act, LDA, W, p.w8f, W, n_base, acc, true);
+    dtn_atomic<T, W>(xT, W, yT, TBM, p.d_w8f, n_base);
+    // h_bar = operand(g_feat) @ w8f^T + g_logit w8l
+    warp_gemm<NT, true, MI>(act, LDA, W, p.w8f, W, n_base, acc, true);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -634,30 +688,32 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_bwd_kernel(const RadParams p)
     __syncthreads();
 
     // ---- tangent forward of the normal path: c_e = de * g_n[c % 3]
-    for (int idx = tid; idx < BM * p.ke; idx += NTHREADS) {
+    for (int idx = tid; idx < TBM * p.ke; idx += NTHREADS) {
       const int row = idx / p.ke, c = idx % p.ke;
       const float v = row0 + row < p.n
                           ? __ldg(p.de + (size_t)(row0 + row) * p.ke + c) *
                                 rowf[row * ROWF + RF_GN + c % 3]
                           : 0.f;
-      ces[row * LDK + c] = __float2bfloat16_rn(v);
+      ces[row * LDK + c] = Op::from_f(v);
     }
     __syncthreads();
     for (int li = 0; li <= p.n_trunk; ++li) {
       if (li == 0) {
-        warp_gemm<NT, true>(ces, LDK, p.ke, p.w0T, p.ke, n_base, acc, true);
+        warp_gemm<NT, true, MI>(ces, LDK, p.ke, p.w0T, p.ke, n_base, acc,
+                                true);
       } else {
-        warp_gemm<NT, true>(act, LDA, W, p.trunkT + (size_t)(li - 1) * W * W,
-                            W, n_base, acc, true);
+        warp_gemm<NT, true, MI>(act, LDA, W,
+                                p.trunkT + (size_t)(li - 1) * W * W, W,
+                                n_base, acc, true);
         if (li - 1 == p.skip_pos)
-          warp_gemm<NT, true>(ces, LDK, p.ke, p.wskipT, p.ke, n_base, acc,
-                              false);
+          warp_gemm<NT, true, MI>(ces, LDK, p.ke, p.wskipT, p.ke, n_base,
+                                  acc, false);
       }
       __syncthreads();
       const float* sp_l = spbuf + li * TILE;
       float* tz_l = tzbuf + li * TILE;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -666,19 +722,19 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_bwd_kernel(const RadParams p)
             tz_l[sq(q)] = acc[i][j][r];
             acc[i][j][r] *= sp_l[sq(q)];
             if (li < p.n_trunk)
-              hbuf[(H_T + li) * TILE + sq(q)] = __float2bfloat16_rn(acc[i][j][r]);
+              hbuf[(H_T + li) * TILE + sq(q)] = Op::from_f(acc[i][j][r]);
           }
       if (li < p.n_trunk) {
-        put_act<NT>(act, LDA, acc, n_base);
+        put_act<NT, MI>(act, LDA, acc, n_base);
       } else {
-        colsum_atomic<NT>(p.d_w8l, acc, n_base, nullptr);
+        colsum_atomic<MI, NT>(p.d_w8l, acc, n_base, nullptr);
       }
       __syncthreads();
     }
 
     // ---- doubled reverse sweep: (h_bar, t_bar) through s and s'
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -687,10 +743,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_bwd_kernel(const RadParams p)
     for (int li = p.n_trunk; li >= 0; --li) {
       const float* sp_l = spbuf + li * TILE;
       const float* tz_l = tzbuf + li * TILE;
-      // z_bar = h_bar s + t_bar s'' tz -> act (bf16), yT[:, 0:64]
-      // tz_bar = t_bar s               -> scratch (bf16), yT[:, 64:128]
+      // z_bar = h_bar s + t_bar s'' tz -> act, yT[:, 0:TBM]
+      // tz_bar = t_bar s               -> scratch, yT[:, TBM:2 TBM]
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -701,93 +757,97 @@ __global__ void __launch_bounds__(NTHREADS, 1) rad_bwd_kernel(const RadParams p)
             const float zb = hb[sq(q)] * s + tb * (100.f * s * (1.f - s)) * tz_l[sq(q)];
             const float tzb = tb * s;
             const int row = frag_row(i, r), col = frag_col(n_base, j, r);
-            yT[col * LDT + row] = __float2bfloat16_rn(zb);
-            yT[col * LDT + BM + row] = __float2bfloat16_rn(tzb);
-            hbuf[H_TZB * TILE + sq(q)] = __float2bfloat16_rn(tzb);
+            yT[col * LDT + row] = Op::from_f(zb);
+            yT[col * LDT + TBM + row] = Op::from_f(tzb);
+            hbuf[H_TZB * TILE + sq(q)] = Op::from_f(tzb);
             acc[i][j][r] = zb;
           }
-      colsum_atomic<NT>(li == 0 ? p.d_b0 : p.d_trunk_b + (size_t)(li - 1) * W,
-                        acc, n_base, nullptr);
+      colsum_atomic<MI, NT>(
+          li == 0 ? p.d_b0 : p.d_trunk_b + (size_t)(li - 1) * W, acc, n_base,
+          nullptr);
       if (li == 0) {
-        for (int idx = tid; idx < BM * p.ke; idx += NTHREADS) {
-          const int c = idx / BM, row = idx % BM;
+        for (int idx = tid; idx < TBM * p.ke; idx += NTHREADS) {
+          const int c = idx / TBM, row = idx % TBM;
           xT[c * LDT + row] = ems[row * LDK + c];
-          xT[c * LDT + BM + row] = ces[row * LDK + c];
+          xT[c * LDT + TBM + row] = ces[row * LDK + c];
         }
         __syncthreads();
-        dtn_atomic<W>(xT, p.ke, yT, 2 * BM, p.d_w0, n_base);
+        dtn_atomic<T, W>(xT, p.ke, yT, 2 * TBM, p.d_w0, n_base);
         break;
       }
-      put_act<NT>(act, LDA, acc, n_base);
-      put_T_scr<NT>(xT, 0, hbuf + (H_A + li - 1) * TILE, n_base);
-      put_T_scr<NT>(xT, BM, hbuf + (H_T + li - 1) * TILE, n_base);
+      put_act<NT, MI>(act, LDA, acc, n_base);
+      put_T_scr<T, MI, NT>(xT, 0, hbuf + (H_A + li - 1) * TILE, n_base);
+      put_T_scr<T, MI, NT>(xT, TBM, hbuf + (H_T + li - 1) * TILE, n_base);
       __syncthreads();
-      dtn_atomic<W>(xT, W, yT, 2 * BM, p.d_trunk_w + (size_t)(li - 1) * W * W,
-                    n_base);
+      dtn_atomic<T, W>(xT, W, yT, 2 * TBM,
+                       p.d_trunk_w + (size_t)(li - 1) * W * W, n_base);
       if (li - 1 == p.skip_pos) {
         __syncthreads();             // xT is read; its rows take [em; c_e]
-        for (int idx = tid; idx < BM * p.ke; idx += NTHREADS) {
-          const int c = idx / BM, row = idx % BM;
+        for (int idx = tid; idx < TBM * p.ke; idx += NTHREADS) {
+          const int c = idx / TBM, row = idx % TBM;
           xT[c * LDT + row] = ems[row * LDK + c];
-          xT[c * LDT + BM + row] = ces[row * LDK + c];
+          xT[c * LDT + TBM + row] = ces[row * LDK + c];
         }
         __syncthreads();
-        dtn_atomic<W>(xT, p.ke, yT, 2 * BM, p.d_wskip, n_base);
+        dtn_atomic<T, W>(xT, p.ke, yT, 2 * TBM, p.d_wskip, n_base);
       }
-      // h_bar = bf16(z_bar) @ W^T, then t_bar = bf16(tz_bar) @ W^T
-      const bf16* wl = p.trunk + (size_t)(li - 1) * W * W;
-      warp_gemm<NT, true>(act, LDA, W, wl, W, n_base, acc, true);
+      // h_bar = operand(z_bar) @ W^T, then t_bar = operand(tz_bar) @ W^T
+      const T* wl = p.trunk + (size_t)(li - 1) * W * W;
+      warp_gemm<NT, true, MI>(act, LDA, W, wl, W, n_base, acc, true);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int r = 0; r < 4; ++r) hb[sq(fq<NT>(i, j, r))] = acc[i][j][r];
       __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int r = 0; r < 4; ++r)
-            acc[i][j][r] = __bfloat162float(hbuf[H_TZB * TILE + sq(fq<NT>(i, j, r))]);
-      put_act<NT>(act, LDA, acc, n_base);
+            acc[i][j][r] = Op::to_f(hbuf[H_TZB * TILE + sq(fq<NT>(i, j, r))]);
+      put_act<NT, MI>(act, LDA, acc, n_base);
       __syncthreads();
-      warp_gemm<NT, true>(act, LDA, W, wl, W, n_base, acc, true);
+      warp_gemm<NT, true, MI>(act, LDA, W, wl, W, n_base, acc, true);
       __syncthreads();
     }
     __syncthreads();
   }
 }
 
-template <int W>
+template <typename T, int W>
 size_t fwd_smem() {
-  return 2 * (size_t)BM * (W + 8) * sizeof(bf16) + 2 * (size_t)BM * LDK * sizeof(bf16) +
-         (size_t)BM * LDK * sizeof(float) + (size_t)BM * ROWF * sizeof(float) +
-         (size_t)NWARPS * BM * sizeof(float);
+  constexpr size_t TBM = Tile<T>::BM, LDK = Tile<T>::LDK;
+  return 2 * TBM * (W + Operand<T>::PAD) * sizeof(T) + 2 * TBM * LDK * sizeof(T) +
+         TBM * LDK * sizeof(float) + TBM * ROWF * sizeof(float) +
+         (size_t)NWARPS * TBM * sizeof(float);
 }
 
-template <int W>
+template <typename T, int W>
 size_t bwd_smem() {
-  return (size_t)BM * (W + 8) * sizeof(bf16) + 3 * (size_t)BM * LDK * sizeof(bf16) +
-         2 * (size_t)W * LDT * sizeof(bf16) + (size_t)BM * ROWF * sizeof(float) +
-         3 * (size_t)NWARPS * BM * sizeof(float);
+  constexpr size_t TBM = Tile<T>::BM, LDK = Tile<T>::LDK, LDT = Tile<T>::LDT;
+  return TBM * (W + Operand<T>::PAD) * sizeof(T) + 3 * TBM * LDK * sizeof(T) +
+         2 * (size_t)W * LDT * sizeof(T) + TBM * ROWF * sizeof(float) +
+         3 * (size_t)NWARPS * TBM * sizeof(float);
 }
 
+template <typename T>
 size_t scratch_bytes(int which, int width) {
-  const size_t tile = (size_t)BM * width;
+  const size_t tile = (size_t)Tile<T>::BM * width;
   return which == 0 ? N_F32_FWD * tile * 4
-                    : N_F32_BWD * tile * 4 + N_BF16_BWD * tile * 2;
+                    : N_F32_BWD * tile * 4 + N_OP_BWD * tile * sizeof(T);
 }
 
-template <int W, bool FWD>
-cudaError_t launch(const RadParams& p, int slots, cudaStream_t stream) {
-  const size_t smem = FWD ? fwd_smem<W>() : bwd_smem<W>();
-  auto kernel = FWD ? rad_fwd_kernel<W> : rad_bwd_kernel<W>;
+template <typename T, int W, bool FWD>
+cudaError_t launch(const RadParams<T>& p, int slots, cudaStream_t stream) {
+  const size_t smem = FWD ? fwd_smem<T, W>() : bwd_smem<T, W>();
+  auto kernel = FWD ? rad_fwd_kernel<T, W> : rad_bwd_kernel<T, W>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_tiles = (p.n + BM - 1) / BM;
+  const int n_tiles = (p.n + Tile<T>::BM - 1) / Tile<T>::BM;
   const int grid = n_tiles < slots ? n_tiles : slots;
   kernel<<<grid, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
@@ -797,23 +857,25 @@ cudaError_t launch(const RadParams& p, int slots, cudaStream_t stream) {
 // wskipT, wskip, trunkT, trunk, trunk_b, w8fT, w8f, b8f, w8l, b8l, wp, wn,
 // wvT, wfT, wf, ba0, waT, wa, bab, wa4T, wa4, ba4), then the outputs
 // (fwd: out, g_e; bwd: the 18 gradients in the packed order), then the
-// scratch. ints: n, width, ke, kv, n_trunk, skip_pos, slots.
+// scratch. ints: n, width, ke, kv, n_trunk, skip_pos, slots. em, vpe and
+// the product weights are of the operand type T, everything else f32.
+template <typename T>
 int run(bool fwd, void* const* ptrs, const int* ints, void* stream) {
-  RadParams p = {};
+  RadParams<T> p = {};
   int k = 0;
-  auto bfp = [&]() { return static_cast<const bf16*>(ptrs[k++]); };
+  auto tp = [&]() { return static_cast<const T*>(ptrs[k++]); };
   auto fp = [&]() { return static_cast<const float*>(ptrs[k++]); };
   auto op = [&]() { return static_cast<float*>(ptrs[k++]); };
-  p.em = bfp(); p.de = fp(); p.vpe = bfp(); p.p3 = fp();
+  p.em = tp(); p.de = fp(); p.vpe = tp(); p.p3 = fp();
   if (!fwd) { p.g_e_in = fp(); p.g_out = fp(); }
-  p.w0T = bfp(); p.w0 = bfp(); p.b0 = fp();
-  p.wskipT = bfp(); p.wskip = bfp();
-  p.trunkT = bfp(); p.trunk = bfp(); p.trunk_b = fp();
-  p.w8fT = bfp(); p.w8f = bfp(); p.b8f = fp(); p.w8l = fp(); p.b8l = fp();
+  p.w0T = tp(); p.w0 = tp(); p.b0 = fp();
+  p.wskipT = tp(); p.wskip = tp();
+  p.trunkT = tp(); p.trunk = tp(); p.trunk_b = fp();
+  p.w8fT = tp(); p.w8f = tp(); p.b8f = fp(); p.w8l = fp(); p.b8l = fp();
   p.wp = fp(); p.wn = fp();
-  p.wvT = bfp(); p.wfT = bfp(); p.wf = bfp(); p.ba0 = fp();
-  p.waT = bfp(); p.wa = bfp(); p.bab = fp();
-  p.wa4T = bfp(); p.wa4 = bfp(); p.ba4 = fp();
+  p.wvT = tp(); p.wfT = tp(); p.wf = tp(); p.ba0 = fp();
+  p.waT = tp(); p.wa = tp(); p.bab = fp();
+  p.wa4T = tp(); p.wa4 = tp(); p.ba4 = fp();
   if (fwd) {
     p.out = op(); p.g_e = op();
   } else {
@@ -838,29 +900,42 @@ int run(bool fwd, void* const* ptrs, const int* ints, void* stream) {
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (width) {
-    case 128: return fwd ? launch<128, true>(p, slots, s) : launch<128, false>(p, slots, s);
-    case 256: return fwd ? launch<256, true>(p, slots, s) : launch<256, false>(p, slots, s);
+    case 128: return fwd ? launch<T, 128, true>(p, slots, s) : launch<T, 128, false>(p, slots, s);
+    case 256: return fwd ? launch<T, 256, true>(p, slots, s) : launch<T, 256, false>(p, slots, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Bytes of device scratch one CTA slot needs (which: 0 forward, 1 backward).
-extern "C" long long psnerf_radiance_scratch_bytes(int which, int width) {
-  return (long long)scratch_bytes(which, width);
+// Bytes of device scratch one CTA slot needs (which: 0 forward, 1
+// backward; f32: 0 bf16 operands, 1 f32 operands).
+extern "C" long long psnerf_radiance_scratch_bytes(int which, int width,
+                                                   int f32) {
+  return (long long)(f32 ? scratch_bytes<float>(which, width)
+                         : scratch_bytes<bf16>(which, width));
 }
 
 // Return a cudaError_t (0 = cudaSuccess). The backward adds into its
-// gradient outputs, which the caller zeroes.
+// gradient outputs, which the caller zeroes. _f32: the f32-operand form.
 extern "C" int psnerf_radiance_fwd(void* const* ptrs, const int* ints,
                                    void* stream) {
-  return run(true, ptrs, ints, stream);
+  return run<bf16>(true, ptrs, ints, stream);
 }
 
 extern "C" int psnerf_radiance_bwd(void* const* ptrs, const int* ints,
                                    void* stream) {
-  return run(false, ptrs, ints, stream);
+  return run<bf16>(false, ptrs, ints, stream);
+}
+
+extern "C" int psnerf_radiance_fwd_f32(void* const* ptrs, const int* ints,
+                                       void* stream) {
+  return run<float>(true, ptrs, ints, stream);
+}
+
+extern "C" int psnerf_radiance_bwd_f32(void* const* ptrs, const int* ints,
+                                       void* stream) {
+  return run<float>(false, ptrs, ints, stream);
 }
 
 extern "C" const char* psnerf_cuda_error_string(int err) {

@@ -16,6 +16,10 @@ normal path injects. Two kernels compute it:
     doubled reverse sweep carrying (h_bar, t_bar) through softplus'' =
     100 s (1 - s). It returns weight gradients only.
 
+Both come in the two operand forms of the TPU kernels: bf16 operands
+(`compute="bfloat16"`, bf16 mma.sync) and f32 operands (`compute="float32"`,
+the default field's form: 3xTF32 mma.sync, close to f32 products).
+
 Weight norm and the layout (skip row split, split geometry head,
 appearance input split into [p, view PE, normal, feat] rows) are folded
 outside the kernels by differentiable packing (`pack_radiance`), so
@@ -27,9 +31,8 @@ the no-grad march).
 its forward and backward run the plain versions (`radiance_forward_plain`,
 `radiance_backward_plain`: the kernels' arithmetic, and the backward's
 explicit sweep, in PyTorch). On CUDA tensors they launch the kernels or
-raise. The kernels take bf16 operands only (`compute="bfloat16"`); the
-plain versions also run `compute="float32"`. Launches are counted in
-`radiance_forward.launches` and `radiance_backward.launches`.
+raise. Launches are counted per form in `radiance_forward.launches` and
+`radiance_backward.launches` ({"bfloat16": n, "float32": n}).
 """
 
 from __future__ import annotations
@@ -45,17 +48,18 @@ from psnerf_torch.ops.build import (check_operand, load_library, round_up,
 from psnerf_torch.ops.fused_occ import fold_geometry
 
 KERNEL_WIDTHS = (128, 256)
+_OP_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+FORMS = tuple(_OP_DTYPE)        # the operand forms, by `compute` name
 PACK_ORDER = ["w0", "b0", "wskip", "trunk_w", "trunk_b", "w8f", "b8f", "w8l",
               "b8l", "wp", "wv", "wn", "wf", "ba0", "wa", "bab", "wa4", "ba4"]
 _lib_handle = []
 
 
 def supports(cfg) -> bool:
-    """True iff the kernels take this architecture and its operand type:
+    """True iff the kernels take this architecture (either operand form):
     the split geometry head needs feat_size == hidden_dim, one skip inside
-    the trunk, a width the kernels are built for, embeddings up to 64 wide,
-    and bf16 operands (the kernels are bf16 mma.sync; their f32-operand
-    form is not written yet)."""
+    the trunk, a width the kernels are built for and embeddings up to 64
+    wide."""
     ev = nerf_embed_dim(3, cfg.octaves_pe_views)
     return (cfg.hidden_dim in KERNEL_WIDTHS
             and cfg.feat_size == cfg.hidden_dim
@@ -63,8 +67,7 @@ def supports(cfg) -> bool:
             and 1 <= cfg.skips[0] <= cfg.num_layers - 1
             and cfg.num_layers <= 8
             and round_up(cfg.dim_embed, 16) <= 64
-            and round_up(ev, 16) <= 64
-            and cfg.compute_dtype == "bfloat16")
+            and round_up(ev, 16) <= 64)
 
 
 # ------------------------------------------------------------------ packing
@@ -144,10 +147,14 @@ def _normals(g_e, de):
 
 
 def _ops(packed: dict, compute: str):
-    """f32 views of the packed operands and the operand rounding."""
-    wdt = torch.bfloat16 if compute == "bfloat16" else torch.float32
-    r = {k: v.float() for k, v in packed.items()}
-    return r, (lambda x: x.to(wdt).float())
+    """Views of the packed operands at least f32 wide (f64 operands stay
+    f64: a reference of the f32 form's own rounding) and the operand
+    rounding of the form."""
+    r = {k: v.to(torch.promote_types(v.dtype, torch.float32))
+         for k, v in packed.items()}
+    if compute == "bfloat16":
+        return r, (lambda x: x.to(torch.bfloat16).to(x.dtype))
+    return r, (lambda x: x)
 
 
 def _forward_core(r, cast, em, de, vpe, p3, skip_pos, g_e=None):
@@ -280,12 +287,12 @@ def radiance_backward_plain(packed: dict, em, de, vpe, p3, g_e, g_out,
 def _lib():
     if not _lib_handle:
         lib = load_library("fused_radiance")
-        for fn in (lib.psnerf_radiance_fwd, lib.psnerf_radiance_bwd):
+        for fn in (lib.psnerf_radiance_fwd, lib.psnerf_radiance_bwd,
+                   lib.psnerf_radiance_fwd_f32, lib.psnerf_radiance_bwd_f32):
             fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.psnerf_radiance_scratch_bytes.argtypes = [ctypes.c_int,
-                                                      ctypes.c_int]
+        lib.psnerf_radiance_scratch_bytes.argtypes = [ctypes.c_int] * 3
         lib.psnerf_radiance_scratch_bytes.restype = ctypes.c_longlong
         lib.psnerf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.psnerf_cuda_error_string.restype = ctypes.c_char_p
@@ -296,9 +303,8 @@ def _lib():
 @torch.no_grad()
 def _kernel_weights(packed: dict) -> dict:
     """The kernels' weight layouts: each product's operand as [out, in]
-    (the forward's) and [in, out] (the backward sweeps'), bf16; the rgb
-    head padded to the MMA's 8 columns."""
-    bf = torch.bfloat16
+    (the forward's) and [in, out] (the backward sweeps'), in the packed
+    operand type; the rgb head padded to the MMA's 8 columns."""
     c = lambda t: t.contiguous()
     wa4 = packed["wa4"]
     return dict(
@@ -324,18 +330,19 @@ _W_NAMES = ["w0T", "w0", "b0", "wskipT", "wskip", "trunkT", "trunk",
             "wfT", "wf", "ba0", "waT", "wa", "bab", "wa4T", "wa4", "ba4"]
 
 
-def _weight_shapes(w, ke, kv, nt):
-    bf, f32 = torch.bfloat16, torch.float32
+def _weight_shapes(w, ke, kv, nt, op):
+    """(dtype, shape) of each kernel weight; op: the operand type."""
+    f32 = torch.float32
     return {
-        "w0T": (bf, (w, ke)), "w0": (bf, (ke, w)), "b0": (f32, (w,)),
-        "wskipT": (bf, (w, ke)), "wskip": (bf, (ke, w)),
-        "trunkT": (bf, (nt, w, w)), "trunk": (bf, (nt, w, w)),
-        "trunk_b": (f32, (nt, w)), "w8fT": (bf, (w, w)), "w8f": (bf, (w, w)),
+        "w0T": (op, (w, ke)), "w0": (op, (ke, w)), "b0": (f32, (w,)),
+        "wskipT": (op, (w, ke)), "wskip": (op, (ke, w)),
+        "trunkT": (op, (nt, w, w)), "trunk": (op, (nt, w, w)),
+        "trunk_b": (f32, (nt, w)), "w8fT": (op, (w, w)), "w8f": (op, (w, w)),
         "b8f": (f32, (w,)), "w8l": (f32, (w,)), "b8l": (f32, (1,)),
-        "wp": (f32, (3, w)), "wn": (f32, (3, w)), "wvT": (bf, (w, kv)),
-        "wfT": (bf, (w, w)), "wf": (bf, (w, w)), "ba0": (f32, (w,)),
-        "waT": (bf, (3, w, w)), "wa": (bf, (3, w, w)), "bab": (f32, (3, w)),
-        "wa4T": (bf, (8, w)), "wa4": (bf, (w, 3)), "ba4": (f32, (3,))}
+        "wp": (f32, (3, w)), "wn": (f32, (3, w)), "wvT": (op, (w, kv)),
+        "wfT": (op, (w, w)), "wf": (op, (w, w)), "ba0": (f32, (w,)),
+        "waT": (op, (3, w, w)), "wa": (op, (3, w, w)), "bab": (f32, (3, w)),
+        "wa4T": (op, (8, w)), "wa4": (op, (w, 3)), "ba4": (f32, (3,))}
 
 
 _GRAD_SHAPES = lambda w, ke, kv, nt: {
@@ -345,9 +352,10 @@ _GRAD_SHAPES = lambda w, ke, kv, nt: {
     "wa": (3, w, w), "bab": (3, w), "wa4": (w, 3), "ba4": (3,)}
 
 
-def _launch(which: str, kw: dict, tensors: dict, names: list, n: int,
-            skip_pos: int) -> None:
-    """Check every operand and launch the forward or backward kernel."""
+def _launch(which: str, compute: str, kw: dict, tensors: dict,
+            names: list, n: int, skip_pos: int) -> None:
+    """Check every operand and launch the forward or backward kernel of
+    the operand form `compute`."""
     dev = tensors["em"].device
     if dev.type != "cuda":
         raise ValueError(f"the fused_radiance kernels need CUDA tensors, got "
@@ -360,9 +368,9 @@ def _launch(which: str, kw: dict, tensors: dict, names: list, n: int,
         raise ValueError(f"the fused_radiance kernels do not take width {w}, "
                          f"embedding widths {ke}/{kv}, {nt} trunk layers, "
                          f"skip {skip_pos}")
-    bf, f32 = torch.bfloat16, torch.float32
-    shapes = dict(_weight_shapes(w, ke, kv, nt),
-                  em=(bf, (n, ke)), de=(f32, (n, ke)), vpe=(bf, (n, kv)),
+    op, f32 = _OP_DTYPE[compute], torch.float32
+    shapes = dict(_weight_shapes(w, ke, kv, nt, op),
+                  em=(op, (n, ke)), de=(f32, (n, ke)), vpe=(op, (n, kv)),
                   p3=(f32, (n, 3)), g_e=(f32, (n, ke)), out=(f32, (n, 4)),
                   g_out=(f32, (n, 4)))
     for k, shape in _GRAD_SHAPES(w, ke, kv, nt).items():
@@ -370,7 +378,7 @@ def _launch(which: str, kw: dict, tensors: dict, names: list, n: int,
     for name in names:
         dt, shape = shapes[name]
         check_operand(name, tensors[name], dt, shape, dev)
-    scratch = _scratch(which, w, dev)
+    scratch = _scratch(which, compute, w, dev)
     slots = torch.cuda.get_device_properties(dev).multi_processor_count
     ptrs = (ctypes.c_void_p * (len(names) + 1))(
         *[tensors[k].data_ptr() for k in names], scratch.data_ptr())
@@ -378,19 +386,21 @@ def _launch(which: str, kw: dict, tensors: dict, names: list, n: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib = _lib()
-        fn = lib.psnerf_radiance_fwd if which == "fwd" else \
-            lib.psnerf_radiance_bwd
+        fn = getattr(lib, f"psnerf_radiance_{which}"
+                     + ("_f32" if compute == "float32" else ""))
         rc = fn(ptrs, ints, stream)
     if rc != 0:
-        raise RuntimeError(f"fused_radiance {which} kernel launch failed: "
+        raise RuntimeError(f"fused_radiance {which} ({compute}) kernel "
+                           "launch failed: "
                            + lib.psnerf_cuda_error_string(rc).decode())
 
 
-def _scratch(which: str, w: int, dev) -> torch.Tensor:
+def _scratch(which: str, compute: str, w: int, dev) -> torch.Tensor:
     """Device scratch of the persistent grid: one slot per SM, each holding
     a CTA's per-layer values of one tile (sizes from the library)."""
     slots = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_slot = _lib().psnerf_radiance_scratch_bytes(int(which == "bwd"), w)
+    per_slot = _lib().psnerf_radiance_scratch_bytes(
+        int(which == "bwd"), w, int(compute == "float32"))
     return torch.empty((slots * per_slot,), dtype=torch.uint8, device=dev)
 
 
@@ -399,47 +409,64 @@ _BWD_NAMES = (["em", "de", "vpe", "p3", "g_e", "g_out"] + _W_NAMES
               + ["d_" + k for k in PACK_ORDER])
 
 
-def radiance_forward(packed: dict, em, de, vpe, p3, skip_pos: int):
-    """Kernel forward on CUDA tensors: (out [N, 4], g_e [N, ke])."""
+def _check_form(compute: str) -> None:
+    if compute not in FORMS:
+        raise ValueError(f"compute must be one of {FORMS}, got {compute!r}")
+
+
+def radiance_forward(packed: dict, em, de, vpe, p3, skip_pos: int,
+                     compute: str = "bfloat16"):
+    """Kernel forward on CUDA tensors, operand form `compute`:
+    (out [N, 4], g_e [N, ke])."""
+    _check_form(compute)
     n = em.shape[0]
     dev = em.device
+    op = _OP_DTYPE[compute]
     kw = _kernel_weights(packed)
-    t = dict(kw, em=em.to(torch.bfloat16).contiguous(), de=de.contiguous(),
-             vpe=vpe.to(torch.bfloat16).contiguous(), p3=p3.contiguous(),
+    t = dict(kw, em=em.to(op).contiguous(), de=de.contiguous(),
+             vpe=vpe.to(op).contiguous(), p3=p3.contiguous(),
              out=torch.empty((n, 4), dtype=torch.float32, device=dev),
              g_e=torch.empty((n, em.shape[1]), dtype=torch.float32,
                              device=dev))
-    _launch("fwd", kw, t, _FWD_NAMES, n, skip_pos)
-    radiance_forward.launches += 1
+    _launch("fwd", compute, kw, t, _FWD_NAMES, n, skip_pos)
+    radiance_forward.launches[compute] += 1
     return t["out"], t["g_e"]
 
 
-radiance_forward.launches = 0
+radiance_forward.launches = dict.fromkeys(FORMS, 0)
 
 
 def radiance_backward(packed: dict, em, de, vpe, p3, g_e, g_out,
-                      skip_pos: int) -> dict:
-    """Kernel backward on CUDA tensors: f32 gradients of sum(out * g_out)
-    in the packed shapes. The CTAs add their tiles' sums into the zeroed
-    gradients with f32 atomics, so the summation order varies from run to
-    run."""
+                      skip_pos: int, compute: str = "bfloat16") -> dict:
+    """Kernel backward on CUDA tensors, operand form `compute`: f32
+    gradients of sum(out * g_out) in the packed shapes. The CTAs add their
+    tiles' sums into the zeroed gradients with f32 atomics, so the
+    summation order varies from run to run."""
+    _check_form(compute)
     n = em.shape[0]
     dev = em.device
+    op = _OP_DTYPE[compute]
     kw = _kernel_weights(packed)
     w, ke = kw["w8l"].shape[0], em.shape[1]
     kv, nt = kw["wvT"].shape[1], kw["trunk"].shape[0]
     grads = {k: torch.zeros(s, dtype=torch.float32, device=dev)
              for k, s in _GRAD_SHAPES(w, ke, kv, nt).items()}
-    t = dict(kw, em=em.to(torch.bfloat16).contiguous(), de=de.contiguous(),
-             vpe=vpe.to(torch.bfloat16).contiguous(), p3=p3.contiguous(),
+    t = dict(kw, em=em.to(op).contiguous(), de=de.contiguous(),
+             vpe=vpe.to(op).contiguous(), p3=p3.contiguous(),
              g_e=g_e.contiguous(), g_out=g_out.float().contiguous(),
              **{"d_" + k: v for k, v in grads.items()})
-    _launch("bwd", kw, t, _BWD_NAMES, n, skip_pos)
-    radiance_backward.launches += 1
+    _launch("bwd", compute, kw, t, _BWD_NAMES, n, skip_pos)
+    radiance_backward.launches[compute] += 1
     return grads
 
 
-radiance_backward.launches = 0
+radiance_backward.launches = dict.fromkeys(FORMS, 0)
+
+
+def reset_launches() -> None:
+    """Set both kernels' counts of both forms to 0."""
+    for fn in (radiance_forward, radiance_backward):
+        fn.launches = dict.fromkeys(FORMS, 0)
 
 
 class _RadianceOp(torch.autograd.Function):
@@ -450,7 +477,8 @@ class _RadianceOp(torch.autograd.Function):
             out, g_e = radiance_forward_plain(packed, em, de, vpe, p3,
                                               skip_pos, compute)
         else:
-            out, g_e = radiance_forward(packed, em, de, vpe, p3, skip_pos)
+            out, g_e = radiance_forward(packed, em, de, vpe, p3, skip_pos,
+                                        compute)
         ctx.skip_pos, ctx.compute = skip_pos, compute
         ctx.save_for_backward(em, de, vpe, p3, g_e, *weights)
         return out
@@ -464,7 +492,7 @@ class _RadianceOp(torch.autograd.Function):
                                         ctx.skip_pos, ctx.compute)
         else:
             d = radiance_backward(packed, em, de, vpe, p3, g_e, g_out,
-                                  ctx.skip_pos)
+                                  ctx.skip_pos, ctx.compute)
         grads = [d[k].to(packed[k].dtype) for k in PACK_ORDER]
         return (None, None, None, None, None, None, *grads)
 
@@ -474,18 +502,14 @@ def fused_radiance_and_alpha(field, p: torch.Tensor, ray_d: torch.Tensor,
     """Drop-in for fields.occupancy.radiance_and_alpha on the training
     batch: (rgb [..., 3] in [0, 1], alpha [...]). Differentiable wrt the
     field's weights only. Any N (the kernels mask the ragged edge); leading
-    batch dims are flattened."""
-    if compute not in ("bfloat16", "float32"):
-        raise ValueError(f"compute must be 'bfloat16' or 'float32', got "
-                         f"{compute!r}")
-    if route(p) == "cuda" and compute != "bfloat16":
-        raise ValueError("the fused_radiance kernels take bf16 operands only "
-                         "(compute='bfloat16')")
+    batch dims are flattened. compute: the operand form, "float32" for
+    the default field (compute_dtype="float32"), "bfloat16" for a bf16
+    field."""
+    _check_form(compute)
     shape = p.shape[:-1]
     em, de, vpe, p3 = radiance_inputs(p.reshape(-1, 3), ray_d.reshape(-1, 3),
                                       cfg)
-    wdt = torch.bfloat16 if compute == "bfloat16" else torch.float32
-    packed = pack_radiance(field, cfg, wdt)
+    packed = pack_radiance(field, cfg, _OP_DTYPE[compute])
     out = _RadianceOp.apply(cfg.skips[0] - 1, compute, em, de, vpe, p3,
                             *[packed[k] for k in PACK_ORDER])
     rgb = (torch.tanh(out[:, :3]) * 0.5 + 0.5).reshape(*shape, 3)

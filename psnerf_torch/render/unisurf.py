@@ -1,5 +1,5 @@
 """UNISURF-style surface+volume hybrid renderer for stage 1 (counterpart of
-psnerf_tpu/render/unisurf.py `render_unisurf`).
+psnerf_tpu/render/unisurf.py `render_unisurf` and `render_shape_extract`).
 
   * one dense batch: every ray evaluates the same sample grid; hit and miss
     rays select their depth schedule with torch.where;
@@ -24,7 +24,7 @@ from psnerf_torch.core.rays import (get_sphere_intersection,
 from psnerf_torch.core.sampling import linspace_between, stratified_noise
 from psnerf_torch.fields.occupancy import (OccFieldConfig, occ_alpha,
                                            occ_gradient, radiance_and_alpha)
-from psnerf_torch.render.marching import ray_marching
+from psnerf_torch.render.marching import light_visibility, ray_marching
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,3 +153,30 @@ def render_unisurf(field, field_cfg: OccFieldConfig, rcfg: UnisurfConfig,
     return {"rgb": rgb_values, "mask_pred": surface_mask,
             "normal_pred": norm_pred, "diff_norm": diff_norm,
             "acc_map": acc_map, "points": points}
+
+
+@torch.no_grad()
+def render_shape_extract(field, field_cfg: OccFieldConfig,
+                         rcfg: UnisurfConfig, pixels: torch.Tensor,
+                         camera_mat: torch.Tensor, world_mat: torch.Tensor,
+                         light_dir: torch.Tensor | None = None,
+                         n_steps: int = 512, occ_fn=None) -> dict:
+    """Per-pixel surface points [N, 3], unit normals [N, 3] (0 off the
+    surface) and mask [N] of pixels [N, 2]; with light_dir [L, 3] also the
+    visibility [L, N] of every pixel toward each light (1 off the surface),
+    by the faithful light_visibility."""
+    _, _, _, points, surface_mask = _march_and_surface(
+        field, field_cfg, rcfg, pixels, camera_mat, world_mat, n_steps,
+        occ_fn=occ_fn)
+    g = occ_gradient(field, points, field_cfg)
+    normals = g / torch.clamp_min(torch.linalg.norm(g, dim=-1, keepdim=True),
+                                  1e-12)
+    out = {"mask": surface_mask,
+           "normal": torch.where(surface_mask[:, None], normals, 0.0),
+           "points": points}
+    if light_dir is not None:
+        if occ_fn is None:
+            occ_fn = lambda p: occ_alpha(field, p, field_cfg)
+        vis = light_visibility(occ_fn, points, light_dir)
+        out["visibility"] = torch.where(surface_mask[None, :], vis, 1.0)
+    return out

@@ -8,8 +8,9 @@ at hidden 128, 4 layers, skip (2,), on 256 points:
   * weight gradients at f32 within 2e-4 of each leaf's scale, against
     JAX's interpret-mode gradients and against torch.autograd of the
     port's own radiance_and_alpha;
-  * ragged N and leading batch dims; `supports`; and the refusal of f32
-    operands on a CUDA tensor."""
+  * ragged N and leading batch dims; `supports` (both operand forms, the
+    architecture refusals); and the routing of compute="float32" on a CUDA
+    route to the f32 kernels' launch path."""
 
 import jax
 import jax.numpy as jnp
@@ -134,21 +135,41 @@ def test_padding_and_batch_shape(setup):
 
 
 def test_supports_and_f32_refused_on_cuda(setup, monkeypatch):
+    """supports() takes both operand forms and refuses what the kernels'
+    layout does not; on a CUDA route compute="float32" reaches the f32
+    kernels' launch path (forward and backward, f32 operands), and an
+    unknown form is refused."""
     _, cfg, field, p, rd, _, _ = setup
-    bear = occ.OccFieldConfig(compute_dtype="bfloat16")
-    assert fr.supports(bear)
-    assert fr.supports(cfg.__class__(**{**cfg.__dict__,
-                                        "compute_dtype": "bfloat16"}))
-    assert not fr.supports(occ.OccFieldConfig())            # f32 operands
-    assert not fr.supports(occ.OccFieldConfig(
-        compute_dtype="bfloat16", feat_size=128))           # split head
-    assert not fr.supports(occ.OccFieldConfig(
-        compute_dtype="bfloat16", skips=(2, 4)))
-    assert not fr.supports(occ.OccFieldConfig(
-        compute_dtype="bfloat16", hidden_dim=64, feat_size=64))
+    assert fr.supports(occ.OccFieldConfig())                # f32, default
+    assert fr.supports(occ.OccFieldConfig(compute_dtype="bfloat16"))
+    assert fr.supports(cfg)
+    for bf in ("float32", "bfloat16"):
+        assert not fr.supports(occ.OccFieldConfig(
+            compute_dtype=bf, feat_size=128))               # split head
+        assert not fr.supports(occ.OccFieldConfig(
+            compute_dtype=bf, skips=(2, 4)))
+        assert not fr.supports(occ.OccFieldConfig(
+            compute_dtype=bf, hidden_dim=64, feat_size=64))
+    launched = []
+
+    def fake_launch(which, compute, kw, tensors, names, n, skip_pos):
+        assert tensors["em"].dtype == tensors["trunk"].dtype == torch.float32
+        assert set(names) <= set(tensors)
+        launched.append((which, compute))
+        if which == "fwd":
+            tensors["out"].zero_()
+            tensors["g_e"].zero_()
+
     monkeypatch.setattr(fr, "route", lambda x: "cuda")
-    with pytest.raises(ValueError, match="bf16"):
-        fr.fused_radiance_and_alpha(field, t(p), t(rd), cfg,
-                                    compute="float32")
+    monkeypatch.setattr(fr, "_launch", fake_launch)
+    fr.reset_launches()
+    field.zero_grad()
+    rgb, a = fr.fused_radiance_and_alpha(field, t(p), t(rd), cfg,
+                                         compute="float32")
+    (rgb.sum() + a.sum()).backward()
+    assert launched == [("fwd", "float32"), ("bwd", "float32")]
+    assert fr.radiance_forward.launches == {"bfloat16": 0, "float32": 1}
+    assert fr.radiance_backward.launches == {"bfloat16": 0, "float32": 1}
+    fr.reset_launches()
     with pytest.raises(ValueError, match="compute"):
         fr.fused_radiance_and_alpha(field, t(p), t(rd), cfg, compute="f16")

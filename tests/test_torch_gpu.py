@@ -95,13 +95,13 @@ def test_kernel_refuses_unsupported_width():
 
 # ------------------------------------------------ stage-1 kernels K1, K2, K3
 
-def _occ_field(width=256, layers=8, seed=0):
+def _occ_field(width=256, layers=8, seed=0, compute="bfloat16"):
     from psnerf_torch.fields.occupancy import (OccFieldConfig,
                                                init_occupancy_field)
 
     cfg = OccFieldConfig(num_layers=layers, hidden_dim=width,
                          feat_size=width, skips=(layers // 2,),
-                         compute_dtype="bfloat16")
+                         compute_dtype=compute)
     gen = torch.Generator().manual_seed(seed)
     return cfg, init_occupancy_field(cfg, generator=gen, device="cuda")
 
@@ -151,7 +151,8 @@ def test_fused_radiance_kernels_match_plain(width, layers, n):
     skip = cfg.skips[0] - 1
     with torch.no_grad():
         packed = fr.pack_radiance(field, cfg, torch.bfloat16)
-    f0, b0 = fr.radiance_forward.launches, fr.radiance_backward.launches
+    f0 = fr.radiance_forward.launches["bfloat16"]
+    b0 = fr.radiance_backward.launches["bfloat16"]
     out, g_e = fr.radiance_forward(packed, em, de, vpe, p3, skip)
     torch.cuda.synchronize()
     ref, g_e_ref = fr.radiance_forward_plain(packed, em, de, vpe, p3, skip)
@@ -182,5 +183,44 @@ def test_fused_radiance_kernels_match_plain(width, layers, n):
                 assert (a - b).abs().max().item() / scale < rel, k
             if b.numel() > 8:
                 assert _corr(a, b) > 0.999, k
-    assert fr.radiance_forward.launches == f0 + 1
-    assert fr.radiance_backward.launches == b0 + 2
+    assert fr.radiance_forward.launches["bfloat16"] == f0 + 1
+    assert fr.radiance_backward.launches["bfloat16"] == b0 + 2
+
+
+@pytest.mark.parametrize("width,layers,n", [(256, 8, 1000), (128, 4, 200)])
+def test_fused_radiance_f32_kernels_match_plain(width, layers, n):
+    """The f32-operand form (3xTF32) against the plain f32 version at the
+    JAX kernel tests' bars: rgb and alpha within 1e-5, each gradient leaf
+    within 2e-4 of its max, under both upstream gradients."""
+    _need_gpu()
+    from psnerf_torch.ops import fused_radiance as fr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, field = _occ_field(width, layers, compute="float32")
+    em, de, vpe, p3 = _radiance_inputs(cfg, n)
+    skip = cfg.skips[0] - 1
+    with torch.no_grad():
+        packed = fr.pack_radiance(field, cfg, torch.float32)
+    before = dict(fr.radiance_forward.launches)
+    out, g_e = fr.radiance_forward(packed, em, de, vpe, p3, skip, "float32")
+    torch.cuda.synchronize()
+    assert fr.radiance_forward.launches == dict(
+        before, float32=before["float32"] + 1)
+    ref, g_e_ref = fr.radiance_forward_plain(packed, em, de, vpe, p3, skip,
+                                             "float32")
+    finish = lambda o: torch.cat([torch.tanh(o[:, :3]) * 0.5 + 0.5,
+                                  torch.sigmoid(-10.0 * o[:, 3:])], 1)
+    torch.testing.assert_close(finish(out), finish(ref), rtol=1e-5,
+                               atol=1e-5)
+    assert (g_e - g_e_ref).abs().max() < 2e-4 * g_e_ref.abs().max()
+    rng = np.random.default_rng(3)
+    for g_out in (rng.uniform(0.5, 1.5, size=(n, 4)), rng.normal(size=(n, 4))):
+        g_out = torch.as_tensor(g_out.astype(np.float32), device="cuda")
+        got = fr.radiance_backward(packed, em, de, vpe, p3, g_e_ref, g_out,
+                                   skip, "float32")
+        torch.cuda.synchronize()
+        want = fr.radiance_backward_plain(packed, em, de, vpe, p3, g_e_ref,
+                                          g_out, skip, "float32")
+        for k in fr.PACK_ORDER:
+            scale = want[k].abs().max().item() + 1e-12
+            assert (got[k] - want[k]).abs().max().item() / scale < 2e-4, k
