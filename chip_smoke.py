@@ -23,9 +23,12 @@ Phases (any failure exits non-zero; nothing is caught):
   5. the f32-operand form of fused_radiance (the default field's) at 2048
      x 64 and 2048 x 96 points, held against its plain f32 version at the
      JAX kernel tests' bars (rgb and alpha 1e-5, each gradient leaf 2e-4
-     of its max) and timed the same way (yardstick: the f32 autograd
-     route); an f64 run of the plain version shows how far f32 itself is
-     from exact where ReLU kinks flip;
+     of its max), its backward bit for bit from run to run, and timed the
+     same way (yardstick: the f32 autograd route); an f64 run of the plain
+     version shows how far f32 itself is from exact where ReLU kinks flip;
+     at 2048 x 96 each of its kernels (prologue split, sweep, weight-
+     gradient pass, reduce) is held against its plain version and timed
+     alone, with the workspace's bytes;
   6. stage-2 main path: a 512x512 synthetic scene under 96 lights (2 train
      views, 1 test view) with its analytic stage-1 export; a full-width
      PSNet made from a seed, checkpointed, resumed by a fresh Stage2Runner,
@@ -181,6 +184,58 @@ def phase_build():
     log(json.dumps({"build_s": {"total": time.perf_counter() - t0,
                                 "per_source": per_source,
                                 "sources": sources()}}))
+    regs = ptxas_registers()
+    log(json.dumps({"ptxas": regs}))
+    return regs
+
+
+def kernel_name(sym):
+    """A short name of a mangled kernel symbol: the name that ends in
+    "kernel", with its width and operand type where it is a template."""
+    import re
+
+    i = 0
+    while i < len(sym):
+        m = re.match(r"\d+", sym[i:])
+        if not m:
+            i += 1
+            continue
+        j = i + len(m.group(0))
+        name = sym[j:j + int(m.group(0))]
+        if name.endswith("kernel"):
+            rest = sym[j + len(name):j + len(name) + 40]
+            w = re.search(r"Li(\d+)E", rest)
+            return (name + (f"<{w.group(1)}>" if w else "")
+                    + (" bf16" if "bfloat16" in rest else ""))
+        i = j + max(len(name), 1)
+    return sym
+
+
+def ptxas_registers():
+    """{source: {kernel: registers and spill bytes}} from the build's ptxas
+    reports."""
+    import re
+
+    from psnerf_torch.ops.build import BUILD_DIR, sources
+
+    out = {}
+    for name in sources():
+        kern, rows = None, {}
+        for line in (BUILD_DIR / f"{name}.ptxas.txt").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kern = kernel_name(m.group(1))
+                rows[kern] = {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and kern:
+                rows[kern].update(spill_stores=int(m.group(1)),
+                                  spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kern:
+                rows[kern]["registers"] = int(m.group(1))
+        out[name] = rows
+    return out
 
 
 def raw_errors(got, ref):
@@ -579,8 +634,12 @@ def time_radiance(field, cfg, p, rd, packed, inputs, g_e, g_out, skip,
     """K2 and K3 of one operand form timed in turns (plain, kernel,
     kernel, plain) beside the plain autograd route (library: its forward
     with the create_graph normals, and torch.autograd.grad of the weights),
-    with their bounds at the form's tensor-core peak (bf16 989, TF32 495
-    TFLOP/s). Returns the forward's and the backward's dicts."""
+    with their bounds at the form's tensor-core peak: bf16 one pass at 989
+    TFLOP/s; f32 three TF32 passes (3xTF32, the least work that meets the
+    f32 form's bars) at 495 TFLOP/s. Each kernel time is all of the form's
+    launches of one call (the f32 form: prologue and forward; prologue,
+    sweeps, weight-gradient passes and reduce). Returns the forward's and
+    the backward's dicts."""
     from psnerf_torch.fields.occupancy import radiance_and_alpha
     from psnerf_torch.ops import fused_radiance as fr
 
@@ -615,13 +674,17 @@ def time_radiance(field, cfg, p, rd, packed, inputs, g_e, g_out, skip,
     del graph
     w, ke, kv = cfg.hidden_dim, em.shape[1], vpe.shape[1]
     f_fwd, f_bwd = radiance_flops(n, w, ke, kv, cfg.num_layers - 1)
-    w_bytes = nbytes(*fr._kernel_weights(packed).values())
-    op = 2 if compute == "bfloat16" else 4         # em and vpe reach it so
+    bf16 = compute == "bfloat16"
+    w_bytes = (nbytes(*fr._kernel_weights(packed).values()) if bf16
+               else sum(x.numel() * 4 for x in packed.values()))
+    op = 2 if bf16 else 4                          # em and vpe reach it so
     in_bytes = n * (ke * op + ke * 4 + kv * op + 3 * 4)
     grad_bytes = sum(x.numel() * 4 for x in packed.values())
-    peak = PEAK_BF16_FLOPS if compute == "bfloat16" else PEAK_TF32_FLOPS
-    b2, by2 = bound_ms(f_fwd, in_bytes + w_bytes + n * (4 + ke) * 4, peak)
-    b3, by3 = bound_ms(f_bwd, in_bytes + w_bytes + n * (ke + 4) * 4
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS
+    passes = 1 if bf16 else 3
+    b2, by2 = bound_ms(passes * f_fwd, in_bytes + w_bytes + n * (4 + ke) * 4,
+                       peak)
+    b3, by3 = bound_ms(passes * f_bwd, in_bytes + w_bytes + n * (ke + 4) * 4
                        + grad_bytes, peak)
     k2 = dict(ms=t["fwd_kernel"], plain_ms=t["fwd_plain"], bound_ms=b2,
               bound_by=by2, library_ms=t["fwd_library"], flops=f_fwd, n=n)
@@ -846,18 +909,33 @@ def phase_radiance_f32():
                     check(bwd[name]["max_rel_err"] < F32_GRAD_REL,
                           f"K3 f32 {name} {bwd[name]}")
                 del got, want, w64
+            # the f32 backward sums in fixed order: bit for bit run to run
+            rerun = [fr.radiance_backward(packed, em, de, vpe, p3, g_e_ref,
+                                          g_out, skip, f32) for _ in range(2)]
+            bwd["rerun_bitwise_equal"] = all(
+                torch.equal(rerun[0][k], rerun[1][k]) for k in rerun[0])
+            del rerun
             log(json.dumps({"fused_radiance_f32_backward": {"n": n, **bwd}}))
+            check(bwd["rerun_bitwise_equal"],
+                  "K3 f32: two launches agree bit for bit")
             del p64
 
         k2, k3 = time_radiance(field, cfg, p, rd, packed,
                                (em, de, vpe, p3), g_e_ref, g_out, skip, f32)
-        extra = dict(bound_peak="tf32 tensor-core peak 495 TFLOP/s")
-        k2.update(extra, max_abs_err=fwd["rgb_alpha_max_abs_err"],
-                  bound_ffma_ms=k2["flops"] / PEAK_F32_FLOPS * 1e3)
-        k3.update(extra, max_abs_err=bwd["positive"]["max_abs_err"],
+        extra = dict(bound_peak="3xTF32: three tf32 passes at 495 TFLOP/s")
+        for k in (k2, k3):
+            k.update(extra, bound_tf32_single_ms=k["flops"] / PEAK_TF32_FLOPS
+                     * 1e3, bound_ffma_ms=k["flops"] / PEAK_F32_FLOPS * 1e3)
+        k2.update(max_abs_err=fwd["rgb_alpha_max_abs_err"])
+        k3.update(max_abs_err=bwd["positive"]["max_abs_err"],
                   max_rel_err=bwd["positive"]["max_rel_err"],
                   random_sign=bwd["random_sign"],
-                  bound_ffma_ms=k3["flops"] / PEAK_F32_FLOPS * 1e3)
+                  rerun_bitwise_equal=bwd["rerun_bitwise_equal"])
+        if n == N_RAD:
+            stages = time_f32_stages(packed, (em, de, vpe, p3), g_e_ref,
+                                     g_out, skip)
+            k3["stages_ms"] = {k: v["ms"] for k, v in stages.items()
+                               if "ms" in v}
         res[n] = (k2, k3)
         log(json.dumps({"fused_radiance_f32_ms": {"forward": k2,
                                                   "backward": k3}}))
@@ -868,7 +946,120 @@ def phase_radiance_f32():
                 for i, which in enumerate(("fwd", "bwd"))
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                             "max_abs_err")}}
-    return dict(k2, at_64_samples=small), k3
+    return dict(k2, at_64_samples=small), k3, stages
+
+
+def f32_stage_flops(n, w, ke, kv, nt):
+    """Tensor-core FLOPs of one tf32 pass of the f32 backward's stages: the
+    sweep's activation products (recompute nt + 5, appearance backward 5,
+    tangent nt, doubled reverse sweep 2 nt, W x W each; 4 ke + kv narrow)
+    and the weight-gradient products (the trunk's two segments 2 nt, w8f,
+    wf and wa 5, W x W each; the app0 block's kv + 6 extra rows, w0 and
+    wskip's 4 ke, the rgb head's 8 columns)."""
+    sweep = n * 2 * w * ((4 * nt + 10) * w + 4 * ke + kv)
+    wgrad = n * 2 * w * ((2 * nt + 5) * w + kv + 6 + 4 * ke + 8)
+    return sweep, wgrad
+
+
+def time_f32_stages(packed, inputs, g_e, g_out, skip):
+    """The f32 backward kernel by kernel (prologue, sweeps, weight-gradient
+    passes, reduce: F32Backward), each held against its plain version on
+    the same inputs and timed in turns with it (plain, kernel, kernel,
+    plain): split_weights_plain; radiance_sweep_plain per chunk (held on
+    the points clear of the relu kinks, where no f32 rounding flips a mask);
+    weight_grads_plain on the kernel's own workspace (held for wgrad and
+    reduce together); the slots' sum (timed only)."""
+    from psnerf_torch.ops import fused_radiance as fr
+
+    em, de, vpe, p3 = inputs
+    n = em.shape[0]
+    b = fr.F32Backward(packed, em, de, vpe, p3, g_e, g_out, skip)
+    w, ke, kv, nt = b.dims
+    chunks = range(b.n_chunks)
+    rows = [slice(c * fr.CHUNK, c * fr.CHUNK + b._chunk(c)[1])
+            for c in chunks]
+    clear = torch.zeros(n, dtype=torch.bool, device=em.device)
+    clear[kink_free(packed, em, de, vpe, p3, g_e, skip)] = True
+    with torch.no_grad():
+        b.split()
+        torch.cuda.synchronize()
+        split_err = (b.frags != fr.split_weights_plain(packed)).sum().item()
+        sweep_err, ws_kernel = 0.0, []
+        for c in chunks:
+            b.sweep(c)
+            b.wgrad(c)
+            got = b.workspace(c)
+            r = rows[c]
+            want = fr.radiance_sweep_plain(packed, em[r], de[r], vpe[r],
+                                           p3[r], g_e[r], g_out[r], skip,
+                                           "float32")
+            m = clear[r]
+            sweep_err = max(sweep_err, max(
+                ((got[k][m] - x[m]).abs().max() / (x.abs().max() + 1e-30))
+                .item() for k, x in want.items()))
+            ws_kernel.append(got)
+            del want
+        grads = b.reduce()
+        slots = b.partial.view(b.n_chunks * b.splits, -1)
+        torch.cuda.synchronize()
+        wg_plain = None
+        for ws in ws_kernel:
+            d = fr.weight_grads_plain(ws, skip, "float32")
+            wg_plain = d if wg_plain is None else {
+                k: wg_plain[k] + d[k] for k in d}
+        wgrad_err = max(((grads[k] - x).abs().max() / (x.abs().max() + 1e-30))
+                        .item() for k, x in wg_plain.items())
+        t = in_turns(
+            {"split": b.split, "split_plain": lambda: fr.split_weights_plain(
+                packed),
+             "sweep": lambda: [b.sweep(c) for c in chunks],
+             "sweep_plain": lambda: [fr.radiance_sweep_plain(
+                 packed, em[r], de[r], vpe[r], p3[r], g_e[r], g_out[r],
+                 skip, "float32") for r in rows],
+             "wgrad": lambda: [b.wgrad(c) for c in chunks],
+             "wgrad_plain": lambda: [fr.weight_grads_plain(ws, skip,
+                                                           "float32")
+                                     for ws in ws_kernel],
+             "reduce": b.reduce, "reduce_plain": lambda: slots.sum(0)},
+            {"split": 20, "split_plain": 3, "sweep": 3, "sweep_plain": 2,
+             "wgrad": 3, "wgrad_plain": 2, "reduce": 20, "reduce_plain": 20},
+            ["split_plain", "split", "split", "split_plain",
+             "sweep_plain", "sweep", "sweep", "sweep_plain",
+             "wgrad_plain", "wgrad", "wgrad", "wgrad_plain",
+             "reduce_plain", "reduce", "reduce", "reduce_plain"])
+    del ws_kernel
+    f_sweep, f_wgrad = f32_stage_flops(n, w, ke, kv, nt)
+    ws_bytes = n * fr.ws_layout(w, ke, kv, nt)[1] * 4
+    w_bytes = sum(x.numel() * 4 for x in packed.values())
+    in_bytes = n * (3 * ke + kv + 3 + 4) * 4
+    slot_bytes = b.partial.numel() * 4
+    grad_bytes = sum(x.numel() * 4 for x in grads.values())
+    out = {}
+    for name, flops, nbytes_, err in (
+            ("split", 0, w_bytes + b.frags.numel() * 4, float(split_err)),
+            ("sweep", 3 * f_sweep, in_bytes + w_bytes + ws_bytes, sweep_err),
+            ("wgrad", 3 * f_wgrad, ws_bytes + slot_bytes, wgrad_err),
+            ("reduce", 0, slot_bytes + grad_bytes, wgrad_err)):
+        bnd, by = bound_ms(flops, nbytes_, PEAK_TF32_FLOPS)
+        out[name] = dict(ms=t[name], plain_ms=t[name + "_plain"],
+                         bound_ms=bnd, bound_by=by, library_ms=None,
+                         max_abs_err=err, flops=flops, n=n)
+    out["split"]["err_is"] = "words differing from split_weights_plain"
+    out["sweep"]["err_is"] = ("max over arrays of max |diff| / max |plain|, "
+                              "on the points clear of the relu kinks")
+    for k in ("wgrad", "reduce"):
+        out[k]["err_is"] = ("max over leaves of max |diff| / max |plain|, "
+                            "wgrad and reduce together")
+    out["workspace"] = {"bytes": b.workspace_bytes(), "ws_bytes": ws_bytes,
+                        "slot_bytes": slot_bytes, "chunk": fr.CHUNK,
+                        "chunks": b.n_chunks, "splits": b.splits,
+                        "rows_per_point": fr.ws_layout(w, ke, kv, nt)[1]}
+    log(json.dumps({"fused_radiance_f32_stages": out}))
+    check(split_err == 0, "the prologue's split equals split_weights_plain")
+    check(sweep_err < F32_GRAD_REL and wgrad_err < F32_GRAD_REL,
+          f"f32 stages against their plain versions {sweep_err} {wgrad_err}")
+    del b
+    return out
 
 
 def stage1_step_ms(runner, use_outside, reps=8, warmup=2, step=None):
@@ -971,7 +1162,8 @@ def phase_stage1_main(scene, compute, steps, steps96, vis_every=0):
     train_s = time.perf_counter() - t0
     launches = {"fused_occ_logit": fo.fused_occ_logit.launches,
                 "fused_radiance_fwd": dict(fr.radiance_forward.launches),
-                "fused_radiance_bwd": dict(fr.radiance_backward.launches)}
+                "fused_radiance_bwd": dict(fr.radiance_backward.launches),
+                "fused_radiance_f32": dict(fr.f32_launches)}
     if vis_every:
         # the strip's render_view of 2 views: a march (proposal pass and 8
         # secant passes) per pixel tile
@@ -985,6 +1177,15 @@ def phase_stage1_main(scene, compute, steps, steps96, vis_every=0):
     for k in ("fused_radiance_fwd", "fused_radiance_bwd"):
         check(launches[k][compute] >= steps and launches[k][other] == 0,
               f"{k}: {compute} form launched, {other} form not: {launches}")
+    f32k = launches["fused_radiance_f32"]
+    if compute == "float32":
+        # every kernel of the f32 form: a prologue per forward and per
+        # backward, a sweep and a weight-gradient pass per chunk
+        check(f32k["fwd"] >= steps and f32k["split"] >= 2 * steps
+              and f32k["sweep"] >= steps and f32k["wgrad"] >= steps
+              and f32k["reduce"] >= steps, f"f32 kernels {f32k}")
+    else:
+        check(not any(f32k.values()), f"f32 kernels at the bf16 field {f32k}")
     recs = read_losses(wd)
     check(runner.it == steps
           and [r["it"] for r in recs] == [steps // 2, steps],
@@ -1257,10 +1458,10 @@ def main():
     try:
         with torch.no_grad():     # the layers are nn.Parameters
             card = phase_card()
-            phase_build()
+            regs = phase_build()
             k4, k5 = phase_kernels()
         k1, k2, k3 = phase_stage1_kernels()
-        k2f, k3f = phase_radiance_f32()
+        k2f, k3f, stages = phase_radiance_f32()
         scene = make_scene()
         with torch.no_grad():
             launches, e2e = phase_main_path(scene)
@@ -1282,13 +1483,16 @@ def main():
                 "status": "ported", "flops": k["flops"],
                 **{x: k[x] for x in ("modes", "n", "max_rel_err",
                                      "bound_peak", "bound_ffma_ms",
-                                     "random_sign", "at_64_samples")
+                                     "bound_tf32_single_ms", "random_sign",
+                                     "rerun_bitwise_equal", "stages_ms",
+                                     "err_is", "at_64_samples")
                    if x in k}}
 
     log(json.dumps({"card": card["nvidia_smi"], "main_path": e2e,
                     "stage1_main_path_bfloat16": e2e_bf,
                     "stage1_main_path_float32": e2e1,
-                    "stage1_eval_export": e2e_export}))
+                    "stage1_eval_export": e2e_export,
+                    "f32_workspace": stages["workspace"], "ptxas": regs}))
     log(card["nvidia_smi"])
     # K1 counts the default-field train path, K2/K3 each form's own path
     log(json.dumps({"kernels": [
@@ -1301,12 +1505,24 @@ def main():
         entry("fused_radiance_and_alpha (backward)", "fused_radiance.cu",
               "psnerf_tpu/ops/fused_radiance.py:410", k3,
               launches_bf["fused_radiance_bwd"]["bfloat16"]),
-        entry("fused_radiance_and_alpha (forward, f32 operands)",
-              "fused_radiance.cu", "psnerf_tpu/ops/fused_radiance.py:390",
-              k2f, launches1["fused_radiance_fwd"]["float32"]),
-        entry("fused_radiance_and_alpha (backward, f32 operands)",
-              "fused_radiance.cu", "psnerf_tpu/ops/fused_radiance.py:410",
+        entry("fused_radiance_and_alpha (forward, f32 operands: prologue "
+              "and forward kernel)", "fused_radiance_f32.cu",
+              "psnerf_tpu/ops/fused_radiance.py:390", k2f,
+              launches1["fused_radiance_fwd"]["float32"]),
+        entry("fused_radiance_and_alpha (backward, f32 operands: prologue, "
+              "sweeps, weight-gradient passes, reduce)",
+              "fused_radiance_f32.cu", "psnerf_tpu/ops/fused_radiance.py:410",
               k3f, launches1["fused_radiance_bwd"]["float32"]),
+        *[entry(f"fused_radiance_and_alpha f32 {name}",
+                "fused_radiance_f32.cu",
+                "psnerf_tpu/ops/fused_radiance.py:390 and :410" if kern ==
+                "split" else "psnerf_tpu/ops/fused_radiance.py:410",
+                stages[kern], launches1["fused_radiance_f32"][kern])
+          for kern, name in (
+              ("split", "weight split (prologue of forward and backward)"),
+              ("sweep", "backward sweep (writes the workspace)"),
+              ("wgrad", "weight-gradient products (split-K)"),
+              ("reduce", "weight-gradient reduce (fixed order)"))],
         entry("fused_visibility", "fused_vis.cu",
               "psnerf_tpu/ops/fused_vis.py:219", k4,
               launches["fused_visibility"]),

@@ -2,8 +2,8 @@
 // Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of psnerf_tpu/ops/fused_radiance.py
-// (fused_radiance_and_alpha) in both of their operand forms (wdt bf16 and
-// f32):
+// (fused_radiance_and_alpha) in their bf16-operand form (wdt = bf16; the
+// f32 form is fused_radiance_f32.cu):
 //   * forward (_fwd_kernel over _forward_core): geometry trunk -> feature
 //     and logit (split head), reverse sweep g_e = d logit / d emb, normals
 //     n = (d emb / d x)^T g_e, ReLU appearance MLP -> pre-tanh rgb;
@@ -37,19 +37,12 @@
 // order changes from run to run. Bias-like gradients are column sums (a
 // shuffle over the fragment's rows) added the same way.
 //
-// The two forms are one source, templated on the operand type T:
-//   * T = bf16 (compute="bfloat16"): rounding points as in the TPU kernel
-//     at wdt = bf16: every product's operands are bf16; accumulation,
-//     biases, softplus, sigmoid and the sweeps' elementwise work are f32;
-//     the logit row w8l and the normals' and position rows of appearance
-//     layer 0 (wn, wp) are f32. Tiles of 64 points; bf16 m16n8k16.
-//   * T = float (compute="float32", the default field): nothing is rounded
-//     below f32, as in the TPU kernel at wdt = f32. Products by 3xTF32
-//     (mma_tile.cuh), close to f32 products; a single TF32 pass would miss
-//     the f32 form's 1e-5 bar over nine chained depth-256 products. f32
-//     tiles take twice the shared memory, so the tile is 32 points: the
-//     backward then needs 204 KB of the 227 KB a block may have (64 points
-//     would need ~400 KB), and the forward 96 KB.
+// Rounding points as in the TPU kernel at wdt = bf16: every product's
+// operands are bf16; accumulation, biases, softplus, sigmoid and the
+// sweeps' elementwise work are f32; the logit row w8l and the normals' and
+// position rows of appearance layer 0 (wn, wp) are f32. Tiles of 64
+// points; bf16 m16n8k16. The kernels are templated on the operand type T
+// (instantiated at bf16 only).
 //
 // ptxas reports registers, spills and shared memory per instantiation
 // into ops/_build/fused_radiance.ptxas.txt.
@@ -78,11 +71,6 @@ template <> struct Tile<bf16> {
   static constexpr int BM = psnerf::BM;      // 64 points
   static constexpr int LDK = 64 + 8;         // narrow tiles (ke, kv <= 64)
   static constexpr int LDT = 2 * BM + 8;     // transposed [feature][point]
-};
-template <> struct Tile<float> {
-  static constexpr int BM = 32;
-  static constexpr int LDK = 64 + 4;
-  static constexpr int LDT = 2 * BM + 4;
 };
 
 template <typename T>
@@ -219,19 +207,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
     uint32_t v = 0;
     if (row0 + r < n) v = ldg_u32(src + (size_t)(row0 + r) * cols + c);
     *reinterpret_cast<uint32_t*>(dst + r * ld + c) = v;
-  }
-}
-
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const float* src, int cols,
-                                          int rows, int row0, int n) {
-  const int kw = cols / 2;
-  for (int idx = threadIdx.x; idx < rows * kw; idx += NTHREADS) {
-    const int r = idx / kw, c = (idx % kw) * 2;
-    float2 v = make_float2(0.f, 0.f);
-    if (row0 + r < n)
-      v = __ldg(reinterpret_cast<const float2*>(src + (size_t)(row0 + r) * cols + c));
-    *reinterpret_cast<float2*>(dst + r * ld + c) = v;
   }
 }
 
@@ -909,15 +884,13 @@ int run(bool fwd, void* const* ptrs, const int* ints, void* stream) {
 }  // namespace
 
 // Bytes of device scratch one CTA slot needs (which: 0 forward, 1
-// backward; f32: 0 bf16 operands, 1 f32 operands).
-extern "C" long long psnerf_radiance_scratch_bytes(int which, int width,
-                                                   int f32) {
-  return (long long)(f32 ? scratch_bytes<float>(which, width)
-                         : scratch_bytes<bf16>(which, width));
+// backward).
+extern "C" long long psnerf_radiance_scratch_bytes(int which, int width) {
+  return (long long)scratch_bytes<bf16>(which, width);
 }
 
 // Return a cudaError_t (0 = cudaSuccess). The backward adds into its
-// gradient outputs, which the caller zeroes. _f32: the f32-operand form.
+// gradient outputs, which the caller zeroes.
 extern "C" int psnerf_radiance_fwd(void* const* ptrs, const int* ints,
                                    void* stream) {
   return run<bf16>(true, ptrs, ints, stream);
@@ -926,16 +899,6 @@ extern "C" int psnerf_radiance_fwd(void* const* ptrs, const int* ints,
 extern "C" int psnerf_radiance_bwd(void* const* ptrs, const int* ints,
                                    void* stream) {
   return run<bf16>(false, ptrs, ints, stream);
-}
-
-extern "C" int psnerf_radiance_fwd_f32(void* const* ptrs, const int* ints,
-                                       void* stream) {
-  return run<float>(true, ptrs, ints, stream);
-}
-
-extern "C" int psnerf_radiance_bwd_f32(void* const* ptrs, const int* ints,
-                                       void* stream) {
-  return run<float>(false, ptrs, ints, stream);
 }
 
 extern "C" const char* psnerf_cuda_error_string(int err) {

@@ -1,19 +1,13 @@
 // Building blocks shared by the stage-1 kernels (fused_occ.cu,
-// fused_radiance.cu): one CTA of 8 warps owns a tile of MI * 16 points; a
-// [rows, K] operand tile sits in shared memory and each warp runs mma.sync
-// (f32 accumulators) over all rows of the tile for its own output columns.
-// Two operand forms share one fragment layout:
-//   * bf16 operands: mma.sync m16n8k16 bf16 (one product per k-step of 16);
-//   * f32 operands: "3xTF32" on mma.sync m16n8k8 tf32. Each operand x is
-//     split at fragment load into hi = tf32(x) and lo = tf32(x - hi), and
-//     the product is accumulated as lo·hi' + hi·lo' + hi·hi' in f32: the
-//     dropped lo·lo' term and lo's own rounding are ~2^-22 of |x x'|, close
-//     to an f32 product, where a single TF32 pass keeps 10 mantissa bits.
-//     The tensor core's f32 accumulation does not round to nearest: chained
-//     over a depth-256 product (96 mma) it drifted from an f64 reference an
-//     order of magnitude further than plain f32 does. So each k-step's
-//     three mma start from zero and their sum is added into the
-//     accumulator by FADD, which rounds to nearest.
+// fused_radiance.cu, fused_radiance_f32.cu): one CTA of 8 warps owns a
+// tile of MI * 16 points; a [rows, K] operand tile sits in shared memory
+// and each warp runs mma.sync (f32 accumulators) over all rows of the tile
+// for its own output columns.
+// bf16 operands run mma.sync m16n8k16 (one product per k-step of 16). The
+// f32-operand kernels (fused_radiance_f32.cu) build "3xTF32" wgmma
+// products from split_tf32 below: x = hi + lo with hi = tf32(x), lo =
+// tf32(x - hi), and lo·hi' + hi·lo' + hi·hi' keeps ~2^-22 of |x x'|, close
+// to an f32 product.
 //
 // Accumulator ("fragment") layout of a warp that owns NT n-tiles of 8
 // columns starting at n_base (g = lane / 4, t = lane % 4), the same for
@@ -36,9 +30,9 @@ constexpr int BM = 64;             // points per tile (bf16 operands)
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 
-// What differs between the operand forms besides the tile product: the
-// row padding of shared tiles (conflict-free fragment loads: a row stride
-// of 4 mod 32 words) and the rounding of an f32 value to the operand type.
+// What an operand type sets besides the tile product: the row padding of
+// shared tiles (conflict-free fragment loads: a row stride of 4 mod 32
+// words) and the rounding of an f32 value to the operand type.
 template <typename T> struct Operand;
 
 template <> struct Operand<__nv_bfloat16> {
@@ -51,12 +45,6 @@ template <> struct Operand<__nv_bfloat16> {
   }
 };
 
-template <> struct Operand<float> {
-  static constexpr int PAD = 4;
-  static __device__ __forceinline__ float from_f(float x) { return x; }
-  static __device__ __forceinline__ float to_f(float x) { return x; }
-};
-
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0,
                                                uint32_t a1, uint32_t a2,
                                                uint32_t a3, uint32_t b0,
@@ -65,15 +53,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
-                                              const uint32_t (&a)[4],
-                                              uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // x = hi + lo (+ ~2^-22 |x|), both as tf32 bit patterns
@@ -150,47 +129,6 @@ __device__ __forceinline__ void warp_gemm(const __nv_bfloat16* act, int lda,
   }
 }
 
-// The same product on f32 operands by 3xTF32, m16n8k8:
-//   A regs: (row g, k t) (row g+8, k t) (row g, k t+4) (row g+8, k t+4)
-//   B regs: (k t, col g) (k t+4, col g)
-template <int NT, bool B_GLOBAL, int MI = BM / 16>
-__device__ __forceinline__ void warp_gemm(const float* act, int lda, int K,
-                                          const float* __restrict__ wT,
-                                          int ldw, int n_base,
-                                          float (&acc)[MI][NT][4], bool zero) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  if (zero) zero_acc(acc);
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    uint32_t bh[NT][2], bl[NT][2];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float* pb = wT + (size_t)(n_base + j * 8 + g) * ldw + k0 + t;
-      split_tf32(B_GLOBAL ? __ldg(pb) : pb[0], bh[j][0], bl[j][0]);
-      split_tf32(B_GLOBAL ? __ldg(pb + 4) : pb[4], bh[j][1], bl[j][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const float* pa = act + (i * 16 + g) * lda + k0 + t;
-      uint32_t ah[4], al[4];
-      split_tf32(pa[0], ah[0], al[0]);
-      split_tf32(pa[8 * lda], ah[1], al[1]);
-      split_tf32(pa[4], ah[2], al[2]);
-      split_tf32(pa[8 * lda + 4], ah[3], al[3]);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        float d[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_tf32_1688(d, al, bh[j][0], bh[j][1]);
-        mma_tf32_1688(d, ah, bl[j][0], bl[j][1]);
-        mma_tf32_1688(d, ah, bh[j][0], bh[j][1]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][j][r] += d[r];
-      }
-    }
-  }
-}
-
 // act[row][col] = operand(v) for this thread's fragment elements.
 template <int NT, int MI = BM / 16>
 __device__ __forceinline__ void put_act(__nv_bfloat16* act, int lda,
@@ -205,22 +143,6 @@ __device__ __forceinline__ void put_act(__nv_bfloat16* act, int lda,
         const int row = frag_row(i, 2 * h), col = frag_col(n_base, j, 0);
         *reinterpret_cast<__nv_bfloat162*>(act + row * lda + col) =
             __floats2bfloat162_rn(v[i][j][2 * h], v[i][j][2 * h + 1]);
-      }
-}
-
-template <int NT, int MI = BM / 16>
-__device__ __forceinline__ void put_act(float* act, int lda,
-                                        const float (&v)[MI][NT][4],
-                                        int n_base) {
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = frag_row(i, 2 * h), col = frag_col(n_base, j, 0);
-        *reinterpret_cast<float2*>(act + row * lda + col) =
-            make_float2(v[i][j][2 * h], v[i][j][2 * h + 1]);
       }
 }
 

@@ -16,9 +16,19 @@ normal path injects. Two kernels compute it:
     doubled reverse sweep carrying (h_bar, t_bar) through softplus'' =
     100 s (1 - s). It returns weight gradients only.
 
-Both come in the two operand forms of the TPU kernels: bf16 operands
-(`compute="bfloat16"`, bf16 mma.sync) and f32 operands (`compute="float32"`,
-the default field's form: 3xTF32 mma.sync, close to f32 products).
+Both come in the two operand forms of the TPU kernels:
+  * bf16 operands (`compute="bfloat16"`, csrc/fused_radiance.cu): one
+    forward and one backward kernel; the backward adds each tile's weight
+    gradients with f32 atomics;
+  * f32 operands (`compute="float32"`, the default field's form,
+    csrc/fused_radiance_f32.cu; 3xTF32 mma.sync, close to f32 products):
+    a prologue splits the weights into tf32 hi/lo fragments (`split`),
+    then the forward (`fwd`); the backward is a sweep over chunks of at
+    most CHUNK points that writes every weight-gradient operand to a
+    device workspace (`sweep`), a split-K product of those operands per
+    chunk (`wgrad`), and a fixed-order sum of the partial products
+    (`reduce`): deterministic from run to run. Each of the five counts its
+    launches in `f32_launches`.
 
 Weight norm and the layout (skip row split, split geometry head,
 appearance input split into [p, view PE, normal, feat] rows) are folded
@@ -30,9 +40,12 @@ the no-grad march).
 `fused_radiance_and_alpha` runs a torch.autograd.Function. On CPU tensors
 its forward and backward run the plain versions (`radiance_forward_plain`,
 `radiance_backward_plain`: the kernels' arithmetic, and the backward's
-explicit sweep, in PyTorch). On CUDA tensors they launch the kernels or
-raise. Launches are counted per form in `radiance_forward.launches` and
-`radiance_backward.launches` ({"bfloat16": n, "float32": n}).
+explicit sweep, in PyTorch; the backward is the composition of
+`radiance_sweep_plain` and `weight_grads_plain`, chunked as the f32
+kernels chunk; `split_weights_plain` is the prologue's). On CUDA tensors
+they launch the kernels or raise. Launches are counted per form in
+`radiance_forward.launches` and `radiance_backward.launches`
+({"bfloat16": n, "float32": n}), and per f32 kernel in `f32_launches`.
 """
 
 from __future__ import annotations
@@ -52,7 +65,10 @@ _OP_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 FORMS = tuple(_OP_DTYPE)        # the operand forms, by `compute` name
 PACK_ORDER = ["w0", "b0", "wskip", "trunk_w", "trunk_b", "w8f", "b8f", "w8l",
               "b8l", "wp", "wv", "wn", "wf", "ba0", "wa", "bab", "wa4", "ba4"]
+F32_KERNELS = ("split", "fwd", "sweep", "wgrad", "reduce")
+CHUNK = 65536        # points per backward sweep of the f32 form
 _lib_handle = []
+_lib_f32_handle = []
 
 
 def supports(cfg) -> bool:
@@ -207,45 +223,54 @@ def radiance_forward_plain(packed: dict, em, de, vpe, p3, skip_pos: int,
     return torch.cat([c["rgb"], c["logit"][:, None]], dim=1), c["g_e"]
 
 
+def ws_layout(w: int, ke: int, kv: int, nt: int) -> tuple[dict, int]:
+    """The f32 backward's workspace rows (one row = one feature over the
+    points; csrc/fused_radiance_f32.cu:ws_layout): {name: (first row,
+    rows)} and the rows per point. [feat; vpe; p3; n3] is one product's x
+    block; a, t, aa, gz, zb and tzb stack their layers."""
+    rows = [("feat", w), ("vpe", kv), ("p3", 3), ("n3", 3), ("em", ke),
+            ("ce", ke), ("a", (nt + 1) * w), ("t", nt * w), ("aa", 4 * w),
+            ("gz", 4 * w), ("gfeat", w), ("w8lt", w), ("g8", 8),
+            ("zb", (nt + 1) * w), ("tzb", (nt + 1) * w)]
+    out, r = {}, 0
+    for name, n in rows:
+        out[name] = (r, n)
+        r += n
+    return out, r
+
+
 @torch.no_grad()
-def radiance_backward_plain(packed: dict, em, de, vpe, p3, g_e, g_out,
-                            skip_pos: int, compute: str = "bfloat16") -> dict:
-    """Gradients of sum(out * g_out) wrt every packed operand (f32, the
-    packed shapes), by the backward kernel's explicit sweep."""
+def radiance_sweep_plain(packed: dict, em, de, vpe, p3, g_e, g_out,
+                         skip_pos: int, compute: str = "bfloat16") -> dict:
+    """The backward's sweep: recompute with the saved g_e, appearance
+    backward, tangent forward of the normal path and the doubled reverse
+    sweep. Returns the operands of every weight-gradient product, point-
+    major ([N, rows] each, the workspace's rows by `ws_layout`): the x
+    operands em, ce (the tangent c_e), vpe, p3, n3, feat, a (trunk
+    activations, layer by layer), t (tangent activations), aa (appearance
+    activations); the y operands gz (appearance z_bars, layer 0 first),
+    gfeat, zb and tzb (the trunk's z_bar and tz_bar per layer), w8lt
+    (g_logit a_last + t_last) and g8 ([g_rgb, g_logit, 0 x 4])."""
     r, cast = _ops(packed, compute)
-    dTn = lambda x, y: cast(x).T @ cast(y)
     c = _forward_core(r, cast, em, de, vpe, p3, skip_pos, g_e=g_e)
-    z, a, sprime = c["z"], c["a"], c["sprime"]
+    a, sprime = c["a"], c["sprime"]
     n_trunk = r["trunk_w"].shape[0]
-    d = {}
+    cat = lambda xs: torch.cat(xs, dim=1)
 
     # appearance backward
     g_rgb, g_logit = g_out[:, :3], g_out[:, 3]
-    d["wa4"] = dTn(c["aa"][-1], g_rgb)
-    d["ba4"] = g_rgb.sum(0)
     gz = cast(g_rgb) @ r["wa4"].T
-    d_wa, d_bab = [None] * 3, [None] * 3
+    gzs = [None] * 4
     for j in range(r["wa"].shape[0] - 1, -1, -1):
         gz = gz * (c["za"][j + 1] > 0)
-        d_wa[j] = dTn(c["aa"][j], gz)
-        d_bab[j] = gz.sum(0)
+        gzs[j + 1] = gz
         gz = cast(gz) @ r["wa"][j].T
-    d["wa"], d["bab"] = torch.stack(d_wa), torch.stack(d_bab)
     gz = gz * (c["za"][0] > 0)
-    d["wv"] = dTn(vpe, gz)
-    d["wf"] = dTn(c["feat"], gz)
-    d["ba0"] = gz.sum(0)
-    d["wp"] = torch.stack([(p3[:, j:j + 1] * gz).sum(0) for j in range(3)])
-    d["wn"] = torch.stack([(c["n3"][:, j:j + 1] * gz).sum(0)
-                           for j in range(3)])
+    gzs[0] = gz
     g_n = torch.stack([(gz * r["wn"][j]).sum(1) for j in range(3)], dim=1)
     g_feat = cast(gz) @ r["wf"].T
 
     # first-order seeds through the split geometry head
-    d["w8f"] = dTn(a[-1], g_feat)
-    d["b8f"] = g_feat.sum(0)
-    d_w8l = (g_logit[:, None] * a[-1]).sum(0)
-    d["b8l"] = g_logit.sum().reshape(1)
     h_bar = cast(g_feat) @ r["w8f"].T + g_logit[:, None] * r["w8l"]
 
     # tangent forward of the normal path
@@ -259,40 +284,140 @@ def radiance_backward_plain(packed: dict, em, de, vpe, p3, g_e, g_out,
             tzi = tzi + tc_pe
         tz.append(tzi)
         t_list.append(sprime[i + 1] * tzi)
-    d["w8l"] = d_w8l + t_list[-1].sum(0)
     t_bar = r["w8l"].expand_as(a[-1])
 
     # doubled reverse sweep through the trunk
     spp = lambda i: 100.0 * sprime[i] * (1.0 - sprime[i])
-    d_tw, d_tb = [None] * n_trunk, [None] * n_trunk
-    for i in range(n_trunk, 0, -1):
-        z_bar = h_bar * sprime[i] + t_bar * spp(i) * tz[i]
-        tz_bar = t_bar * sprime[i]
-        d_tw[i - 1] = dTn(a[i - 1], z_bar) + dTn(t_list[i - 1], tz_bar)
-        d_tb[i - 1] = z_bar.sum(0)
-        if i - 1 == skip_pos:
-            d["wskip"] = dTn(em, z_bar) + dTn(c_e, tz_bar)
-        h_bar = cast(z_bar) @ r["trunk_w"][i - 1].T
-        t_bar = cast(tz_bar) @ r["trunk_w"][i - 1].T
-    z_bar = h_bar * sprime[0] + t_bar * spp(0) * tz[0]
-    tz_bar = t_bar * sprime[0]
-    d["w0"] = dTn(em, z_bar) + dTn(c_e, tz_bar)
-    d["b0"] = z_bar.sum(0)
-    d["trunk_w"], d["trunk_b"] = torch.stack(d_tw), torch.stack(d_tb)
+    zb, tzb = [None] * (n_trunk + 1), [None] * (n_trunk + 1)
+    for i in range(n_trunk, -1, -1):
+        zb[i] = h_bar * sprime[i] + t_bar * spp(i) * tz[i]
+        tzb[i] = t_bar * sprime[i]
+        if i > 0:
+            h_bar = cast(zb[i]) @ r["trunk_w"][i - 1].T
+            t_bar = cast(tzb[i]) @ r["trunk_w"][i - 1].T
+    return dict(
+        feat=c["feat"], vpe=vpe, p3=p3, n3=c["n3"], em=em, ce=c_e,
+        a=cat(a), t=cat(t_list[:-1]), aa=cat(c["aa"]), gz=cat(gzs),
+        gfeat=g_feat, w8lt=g_logit[:, None] * a[-1] + t_list[-1],
+        g8=cat([g_rgb, g_logit[:, None], g_rgb.new_zeros((g_rgb.shape[0], 4))]),
+        zb=cat(zb), tzb=cat(tzb))
+
+
+@torch.no_grad()
+def weight_grads_plain(ws: dict, skip_pos: int,
+                       compute: str = "bfloat16") -> dict:
+    """Every weight gradient from the sweep's operands (`radiance_sweep_
+    plain`): products x^T y over the points and the bias-like column sums
+    of y, in the packed shapes."""
+    cast = _ops({}, compute)[1]
+    dTn = lambda x, y: cast(x).T @ cast(y)
+    w = ws["feat"].shape[1]
+    nt = ws["t"].shape[1] // w
+    lay = lambda k, i: ws[k][:, i * w:(i + 1) * w]
+    g_rgb, g_logit = ws["g8"][:, :3], ws["g8"][:, 3]
+    gz0 = lay("gz", 0)
+    s1 = skip_pos + 1
+    return {
+        "w0": dTn(ws["em"], lay("zb", 0)) + dTn(ws["ce"], lay("tzb", 0)),
+        "b0": lay("zb", 0).sum(0),
+        "wskip": dTn(ws["em"], lay("zb", s1)) + dTn(ws["ce"], lay("tzb", s1)),
+        "trunk_w": torch.stack([dTn(lay("a", i - 1), lay("zb", i))
+                                + dTn(lay("t", i - 1), lay("tzb", i))
+                                for i in range(1, nt + 1)]),
+        "trunk_b": torch.stack([lay("zb", i).sum(0)
+                                for i in range(1, nt + 1)]),
+        "w8f": dTn(lay("a", nt), ws["gfeat"]), "b8f": ws["gfeat"].sum(0),
+        "w8l": ws["w8lt"].sum(0), "b8l": g_logit.sum().reshape(1),
+        "wp": torch.stack([(ws["p3"][:, j:j + 1] * gz0).sum(0)
+                           for j in range(3)]),
+        "wv": dTn(ws["vpe"], gz0),
+        "wn": torch.stack([(ws["n3"][:, j:j + 1] * gz0).sum(0)
+                           for j in range(3)]),
+        "wf": dTn(ws["feat"], gz0), "ba0": gz0.sum(0),
+        "wa": torch.stack([dTn(lay("aa", j), lay("gz", j + 1))
+                           for j in range(3)]),
+        "bab": torch.stack([lay("gz", j + 1).sum(0) for j in range(3)]),
+        "wa4": dTn(lay("aa", 3), g_rgb), "ba4": g_rgb.sum(0)}
+
+
+@torch.no_grad()
+def radiance_backward_plain(packed: dict, em, de, vpe, p3, g_e, g_out,
+                            skip_pos: int, compute: str = "bfloat16",
+                            chunk: int | None = None) -> dict:
+    """Gradients of sum(out * g_out) wrt every packed operand (f32, the
+    packed shapes), by the backward kernels' explicit sweep: the sweep's
+    operands, then the weight gradients, over chunks of `chunk` points
+    (default: CHUNK for the f32 form, as its kernels chunk; all points for
+    the bf16 form) summed in order."""
+    n = em.shape[0]
+    chunk = chunk or (CHUNK if compute == "float32" else max(n, 1))
+    d = None
+    for b in range(0, max(n, 1), chunk):
+        s = slice(b, b + chunk)
+        ws = radiance_sweep_plain(packed, em[s], de[s], vpe[s], p3[s],
+                                  g_e[s], g_out[s], skip_pos, compute)
+        dc = weight_grads_plain(ws, skip_pos, compute)
+        d = dc if d is None else {k: d[k] + dc[k] for k in d}
     return d
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: x rounded to 10 mantissa bits, ties away from 0
+    (f32 values, finite)."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (bits + 0x1000) & 0xFFFFE000
+    r = torch.where(r >= 2 ** 31, r - 2 ** 32, r)
+    return r.to(torch.int32).view(torch.float32)
+
+
+def _split_mats(packed: dict) -> list:
+    """Each product weight as the B [K, N] its products read, in the order
+    of the kernels' split weights (csrc/fused_radiance_f32.cu:frag_list):
+    w0, wskip, trunk_w[i], w8f, wv, wf, wa[j], wa4 (3 columns padded to
+    8), then the transposes w0^T and wskip^T (ke columns padded to 64),
+    trunk_w[i]^T, w8f^T, wf^T, wa[j]^T."""
+    p = {k: v.float() for k, v in packed.items()}
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, n - x.shape[1]))
+    return [p["w0"], p["wskip"], *p["trunk_w"], p["w8f"], p["wv"], p["wf"],
+            *p["wa"], pad(p["wa4"], 8), pad(p["w0"].T, 64),
+            pad(p["wskip"].T, 64), *[t.T for t in p["trunk_w"]], p["w8f"].T,
+            p["wf"].T, *[t.T for t in p["wa"]]]
+
+
+@torch.no_grad()
+def split_weights_plain(packed: dict) -> torch.Tensor:
+    """The prologue's output: every product weight split into tf32 hi and
+    lo = tf32(x - hi), as k-step slabs for wgmma. Slab ks of B [K, N] is
+    a hi part then a lo part, each K-major in core matrices of 8 columns x
+    4 k: float (n // 8) * 64 + c * 32 + (n % 8) * 4 + kk of a part holds
+    B[8 ks + 4 c + kk, n]. Returns [words, 4] int32 (the bit patterns)."""
+    out = []
+    for b in _split_mats(packed):
+        k, n = b.shape
+        hi = _tf32_rna(b)
+        lo = _tf32_rna(b - hi)
+        # [ks, c, kk, n // 8, n % 8] -> [ks, n // 8, c, n % 8, kk]
+        part = lambda x: x.reshape(k // 8, 2, 4, n // 8, 8).permute(
+            0, 3, 1, 4, 2).reshape(k // 8, -1)
+        slabs = torch.cat([part(hi), part(lo)], dim=1)
+        out.append(slabs.reshape(-1, 4).contiguous().view(torch.int32))
+    return torch.cat(out)
 
 
 # ----------------------------------------------------------------- kernels
 
+_LAUNCH_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                ctypes.c_void_p]
+
+
 def _lib():
+    """The bf16 form's library (csrc/fused_radiance.cu)."""
     if not _lib_handle:
         lib = load_library("fused_radiance")
-        for fn in (lib.psnerf_radiance_fwd, lib.psnerf_radiance_bwd,
-                   lib.psnerf_radiance_fwd_f32, lib.psnerf_radiance_bwd_f32):
-            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        for fn in (lib.psnerf_radiance_fwd, lib.psnerf_radiance_bwd):
+            fn.argtypes = _LAUNCH_ARGS
             fn.restype = ctypes.c_int
-        lib.psnerf_radiance_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        lib.psnerf_radiance_scratch_bytes.argtypes = [ctypes.c_int] * 2
         lib.psnerf_radiance_scratch_bytes.restype = ctypes.c_longlong
         lib.psnerf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.psnerf_cuda_error_string.restype = ctypes.c_char_p
@@ -300,9 +425,26 @@ def _lib():
     return _lib_handle[0]
 
 
+def _lib_f32():
+    """The f32 form's library (csrc/fused_radiance_f32.cu)."""
+    if not _lib_f32_handle:
+        lib = load_library("fused_radiance_f32")
+        for k in F32_KERNELS:
+            fn = getattr(lib, f"psnerf_rf32_{k}")
+            fn.argtypes = _LAUNCH_ARGS
+            fn.restype = ctypes.c_int
+        lib.psnerf_rf32_sizes.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                          ctypes.POINTER(ctypes.c_longlong)]
+        lib.psnerf_rf32_sizes.restype = ctypes.c_int
+        lib.psnerf_rf32_error_string.argtypes = [ctypes.c_int]
+        lib.psnerf_rf32_error_string.restype = ctypes.c_char_p
+        _lib_f32_handle.append(lib)
+    return _lib_f32_handle[0]
+
+
 @torch.no_grad()
 def _kernel_weights(packed: dict) -> dict:
-    """The kernels' weight layouts: each product's operand as [out, in]
+    """The bf16 kernels' weight layouts: each product's operand as [out, in]
     (the forward's) and [in, out] (the backward sweeps'), in the packed
     operand type; the rgb head padded to the MMA's 8 columns."""
     c = lambda t: t.contiguous()
@@ -352,14 +494,32 @@ _GRAD_SHAPES = lambda w, ke, kv, nt: {
     "wa": (3, w, w), "bab": (3, w), "wa4": (w, 3), "ba4": (3,)}
 
 
-def _launch(which: str, compute: str, kw: dict, tensors: dict,
-            names: list, n: int, skip_pos: int) -> None:
-    """Check every operand and launch the forward or backward kernel of
-    the operand form `compute`."""
-    dev = tensors["em"].device
+def _dims(packed: dict, skip_pos: int) -> tuple:
+    """(width, ke, kv, n_trunk) of the packed operands; raises for what the
+    kernels do not take."""
+    w = packed["w8l"].shape[0]
+    ke, kv = packed["w0"].shape[0], packed["wv"].shape[0]
+    nt = packed["trunk_w"].shape[0]
+    if w not in KERNEL_WIDTHS or ke > 64 or kv > 64 or nt > 7 or \
+            packed["wa"].shape[0] != 3 or not 0 <= skip_pos < nt:
+        raise ValueError(f"the fused_radiance kernels do not take width {w}, "
+                         f"embedding widths {ke}/{kv}, {nt} trunk layers, "
+                         f"skip {skip_pos}")
+    return w, ke, kv, nt
+
+
+def _need_cuda(dev) -> None:
     if dev.type != "cuda":
         raise ValueError(f"the fused_radiance kernels need CUDA tensors, got "
                          f"{dev}")
+
+
+def _launch(which: str, kw: dict, tensors: dict, names: list, n: int,
+            skip_pos: int) -> None:
+    """Check every operand and launch the bf16 form's forward or backward
+    kernel."""
+    dev = tensors["em"].device
+    _need_cuda(dev)
     w = kw["w8l"].shape[0]
     ke, kv = kw["w0"].shape[0], kw["wvT"].shape[1]
     nt = kw["trunk"].shape[0]
@@ -368,7 +528,7 @@ def _launch(which: str, compute: str, kw: dict, tensors: dict,
         raise ValueError(f"the fused_radiance kernels do not take width {w}, "
                          f"embedding widths {ke}/{kv}, {nt} trunk layers, "
                          f"skip {skip_pos}")
-    op, f32 = _OP_DTYPE[compute], torch.float32
+    op, f32 = torch.bfloat16, torch.float32
     shapes = dict(_weight_shapes(w, ke, kv, nt, op),
                   em=(op, (n, ke)), de=(f32, (n, ke)), vpe=(op, (n, kv)),
                   p3=(f32, (n, 3)), g_e=(f32, (n, ke)), out=(f32, (n, 4)),
@@ -378,7 +538,7 @@ def _launch(which: str, compute: str, kw: dict, tensors: dict,
     for name in names:
         dt, shape = shapes[name]
         check_operand(name, tensors[name], dt, shape, dev)
-    scratch = _scratch(which, compute, w, dev)
+    scratch = _scratch(which, w, dev)
     slots = torch.cuda.get_device_properties(dev).multi_processor_count
     ptrs = (ctypes.c_void_p * (len(names) + 1))(
         *[tensors[k].data_ptr() for k in names], scratch.data_ptr())
@@ -386,22 +546,214 @@ def _launch(which: str, compute: str, kw: dict, tensors: dict,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib = _lib()
-        fn = getattr(lib, f"psnerf_radiance_{which}"
-                     + ("_f32" if compute == "float32" else ""))
-        rc = fn(ptrs, ints, stream)
+        rc = getattr(lib, f"psnerf_radiance_{which}")(ptrs, ints, stream)
     if rc != 0:
-        raise RuntimeError(f"fused_radiance {which} ({compute}) kernel "
+        raise RuntimeError(f"fused_radiance {which} (bfloat16) kernel "
                            "launch failed: "
                            + lib.psnerf_cuda_error_string(rc).decode())
 
 
-def _scratch(which: str, compute: str, w: int, dev) -> torch.Tensor:
+def _scratch(which: str, w: int, dev) -> torch.Tensor:
     """Device scratch of the persistent grid: one slot per SM, each holding
     a CTA's per-layer values of one tile (sizes from the library)."""
     slots = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_slot = _lib().psnerf_radiance_scratch_bytes(
-        int(which == "bwd"), w, int(compute == "float32"))
+    per_slot = _lib().psnerf_radiance_scratch_bytes(int(which == "bwd"), w)
     return torch.empty((slots * per_slot,), dtype=torch.uint8, device=dev)
+
+
+# ------------------------------------------------ the f32 form's kernels
+
+f32_launches = dict.fromkeys(F32_KERNELS, 0)
+_F32_WEIGHTS = ["w0", "wskip", "trunk_w", "w8f", "wv", "wf", "wa", "wa4"]
+_F32_VECTORS = ["b0", "trunk_b", "b8f", "w8l", "b8l", "wp", "wn", "ba0",
+                "bab", "ba4", "wa4"]
+
+
+def _launch_f32(kernel: str, dev, tensors: list, ints: list) -> None:
+    """Launch psnerf_rf32_<kernel> on the current stream of `dev` with the
+    tensors' device pointers, and count it; raises if the launch fails."""
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    args = (ctypes.c_int * len(ints))(*ints)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib = _lib_f32()
+        rc = getattr(lib, f"psnerf_rf32_{kernel}")(ptrs, args, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_radiance f32 {kernel} kernel launch "
+                           "failed: "
+                           + lib.psnerf_rf32_error_string(rc).decode())
+    f32_launches[kernel] += 1
+
+
+def f32_sizes(w: int, ke: int, kv: int, nt: int) -> dict:
+    """The f32 kernels' buffer sizes at one shape (from the library)."""
+    out = (ctypes.c_longlong * 6)()
+    rc = _lib_f32().psnerf_rf32_sizes((ctypes.c_int * 4)(w, ke, kv, nt), out)
+    if rc != 0:
+        raise ValueError(f"the f32 fused_radiance kernels do not take width "
+                         f"{w}, embedding widths {ke}/{kv}, {nt} layers")
+    sizes = dict(zip(["split_words", "ws_rows", "fwd_scratch",
+                      "sweep_scratch", "slot_floats", "wgrad_tiles"], out))
+    if sizes["ws_rows"] != ws_layout(w, ke, kv, nt)[1]:
+        raise RuntimeError("workspace layouts of the library and the "
+                           "wrapper differ")
+    return sizes
+
+
+def _f32_operands(packed: dict, names: list, dims: tuple, dev) -> list:
+    shapes = _GRAD_SHAPES(*dims)
+    out = []
+    for k in names:
+        x = packed[k].contiguous()
+        check_operand(k, x, torch.float32, shapes[k], dev)
+        out.append(x)
+    return out
+
+
+def split_weights(packed: dict, skip_pos: int) -> torch.Tensor:
+    """The prologue kernel: `split_weights_plain`'s [words, 4] int32 on
+    the card."""
+    dims = _dims(packed, skip_pos)
+    dev = packed["w0"].device
+    _need_cuda(dev)
+    srcs = _f32_operands(packed, _F32_WEIGHTS, dims, dev)
+    out = torch.empty((f32_sizes(*dims)["split_words"], 4), dtype=torch.int32,
+                      device=dev)
+    _launch_f32("split", dev, srcs + [out], list(dims))
+    return out
+
+
+def _point_operands(dims, n, dev, **t) -> list:
+    w, ke, kv, nt = dims
+    shapes = dict(em=(n, ke), de=(n, ke), vpe=(n, kv), p3=(n, 3),
+                  g_e=(n, ke), g_out=(n, 4))
+    out = []
+    for k, x in t.items():
+        x = x.contiguous()
+        check_operand(k, x, torch.float32, shapes[k], dev)
+        out.append(x)
+    return out
+
+
+def _slots(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def radiance_forward_f32(packed: dict, em, de, vpe, p3, skip_pos: int):
+    """The f32 form's forward (prologue, then the forward kernel):
+    (out [N, 4], g_e [N, ke])."""
+    dims = _dims(packed, skip_pos)
+    w, ke, kv, nt = dims
+    n, dev = em.shape[0], em.device
+    _need_cuda(dev)
+    frags = split_weights(packed, skip_pos)
+    slots = _slots(dev)
+    ins = _point_operands(dims, n, dev, em=em, de=de, vpe=vpe, p3=p3)
+    vec = _f32_operands(packed, _F32_VECTORS, dims, dev)
+    out = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    g_e = torch.empty((n, ke), dtype=torch.float32, device=dev)
+    scratch = torch.empty((slots * f32_sizes(*dims)["fwd_scratch"],),
+                          dtype=torch.float32, device=dev)
+    _launch_f32("fwd", dev, [*ins, frags, *vec, out, g_e, scratch],
+                [n, w, ke, kv, nt, skip_pos, slots])
+    return out, g_e
+
+
+def wgrad_splits(tiles: int, slots: int, most: int = 16) -> int:
+    """Split-K factor of the weight-gradient kernel (one CTA per SM): the
+    number of splits, at least enough to fill every SM once, whose CTAs
+    fill their last wave best (the smaller on a tie)."""
+    def fill(s):
+        waves = tiles * s / slots
+        return waves / -(-tiles * s // slots)
+    cands = [s for s in range(1, most + 1) if tiles * s >= slots] or [most]
+    return max(cands, key=lambda s: (fill(s), -s))
+
+
+class F32Backward:
+    """The f32 form's backward, kernel by kernel, on one batch: `split()`
+    (the prologue), then for each chunk c `sweep(c)` and `wgrad(c)`, then
+    `reduce()` returns the gradients. Allocates the workspace (ws_rows x
+    round_up(min(N, CHUNK), 64) f32), the split-K slots and the scratch
+    once; `run()` is all of it in order."""
+
+    def __init__(self, packed, em, de, vpe, p3, g_e, g_out, skip_pos):
+        self.dims = _dims(packed, skip_pos)
+        w, ke, kv, nt = self.dims
+        self.n, dev = em.shape[0], em.device
+        _need_cuda(dev)
+        self.dev, self.packed, self.skip_pos = dev, packed, skip_pos
+        self.ins = _point_operands(self.dims, self.n, dev, em=em, de=de,
+                                   vpe=vpe, p3=p3)
+        self.grad_ins = _point_operands(self.dims, self.n, dev, g_e=g_e,
+                                        g_out=g_out)
+        self.vec = _f32_operands(packed, _F32_VECTORS, self.dims, dev)
+        sz = f32_sizes(*self.dims)
+        self.slots = _slots(dev)
+        self.n_chunks = max(1, -(-self.n // CHUNK))
+        self.ld = round_up(max(1, min(self.n, CHUNK)), 64)
+        self.splits = wgrad_splits(sz["wgrad_tiles"], self.slots)
+        f32 = torch.float32
+        self.ws = torch.empty((sz["ws_rows"] * self.ld,), dtype=f32,
+                              device=dev)
+        self.partial = torch.empty(
+            (self.n_chunks * self.splits * sz["slot_floats"],), dtype=f32,
+            device=dev)
+        self.scratch = torch.empty((self.slots * sz["sweep_scratch"],),
+                                   dtype=f32, device=dev)
+        self.frags = None
+
+    def workspace_bytes(self) -> int:
+        return self.ws.numel() * 4 + self.partial.numel() * 4
+
+    def _chunk(self, c):
+        b = c * CHUNK
+        return b, min(CHUNK, self.n - b)
+
+    def split(self):
+        self.frags = split_weights(self.packed, self.skip_pos)
+
+    def sweep(self, c):
+        w, ke, kv, nt = self.dims
+        b, nc = self._chunk(c)
+        _launch_f32("sweep", self.dev,
+                    [*self.ins, self.frags, *self.vec, *self.grad_ins,
+                     self.ws, self.scratch],
+                    [nc, b, self.ld, w, ke, kv, nt, self.skip_pos,
+                     self.slots])
+
+    def wgrad(self, c):
+        w, ke, kv, nt = self.dims
+        _, nc = self._chunk(c)
+        _launch_f32("wgrad", self.dev, [self.ws, self.partial],
+                    [round_up(nc, 64), self.ld, w, ke, kv, nt, self.skip_pos,
+                     self.splits, c * self.splits])
+
+    def reduce(self) -> dict:
+        w, ke, kv, nt = self.dims
+        grads = {k: torch.empty(s, dtype=torch.float32, device=self.dev)
+                 for k, s in _GRAD_SHAPES(*self.dims).items()}
+        _launch_f32("reduce", self.dev,
+                    [self.partial, *[grads[k] for k in PACK_ORDER]],
+                    [w, ke, kv, nt, self.skip_pos,
+                     self.n_chunks * self.splits])
+        return grads
+
+    def workspace(self, c: int = 0) -> dict:
+        """Chunk c's workspace after its sweep, point-major as
+        radiance_sweep_plain returns it (a check; copies)."""
+        _, nc = self._chunk(c)
+        rows = self.ws.reshape(-1, self.ld)
+        lay, _ = ws_layout(*self.dims)
+        return {k: rows[o:o + r, :nc].T.contiguous()
+                for k, (o, r) in lay.items()}
+
+    def run(self) -> dict:
+        self.split()
+        for c in range(self.n_chunks):
+            self.sweep(c)
+            self.wgrad(c)
+        return self.reduce()
 
 
 _FWD_NAMES = ["em", "de", "vpe", "p3"] + _W_NAMES + ["out", "g_e"]
@@ -419,6 +771,10 @@ def radiance_forward(packed: dict, em, de, vpe, p3, skip_pos: int,
     """Kernel forward on CUDA tensors, operand form `compute`:
     (out [N, 4], g_e [N, ke])."""
     _check_form(compute)
+    if compute == "float32":
+        out, g_e = radiance_forward_f32(packed, em, de, vpe, p3, skip_pos)
+        radiance_forward.launches[compute] += 1
+        return out, g_e
     n = em.shape[0]
     dev = em.device
     op = _OP_DTYPE[compute]
@@ -428,7 +784,7 @@ def radiance_forward(packed: dict, em, de, vpe, p3, skip_pos: int,
              out=torch.empty((n, 4), dtype=torch.float32, device=dev),
              g_e=torch.empty((n, em.shape[1]), dtype=torch.float32,
                              device=dev))
-    _launch("fwd", compute, kw, t, _FWD_NAMES, n, skip_pos)
+    _launch("fwd", kw, t, _FWD_NAMES, n, skip_pos)
     radiance_forward.launches[compute] += 1
     return t["out"], t["g_e"]
 
@@ -439,10 +795,17 @@ radiance_forward.launches = dict.fromkeys(FORMS, 0)
 def radiance_backward(packed: dict, em, de, vpe, p3, g_e, g_out,
                       skip_pos: int, compute: str = "bfloat16") -> dict:
     """Kernel backward on CUDA tensors, operand form `compute`: f32
-    gradients of sum(out * g_out) in the packed shapes. The CTAs add their
-    tiles' sums into the zeroed gradients with f32 atomics, so the
-    summation order varies from run to run."""
+    gradients of sum(out * g_out) in the packed shapes. bf16: the CTAs add
+    their tiles' sums into the zeroed gradients with f32 atomics, so the
+    summation order varies from run to run. f32: the sweep, split-K
+    weight-gradient and fixed-order reduce kernels (`F32Backward`), the
+    same bits from run to run."""
     _check_form(compute)
+    if compute == "float32":
+        grads = F32Backward(packed, em, de, vpe, p3, g_e, g_out,
+                            skip_pos).run()
+        radiance_backward.launches[compute] += 1
+        return grads
     n = em.shape[0]
     dev = em.device
     op = _OP_DTYPE[compute]
@@ -455,7 +818,7 @@ def radiance_backward(packed: dict, em, de, vpe, p3, g_e, g_out,
              vpe=vpe.to(op).contiguous(), p3=p3.contiguous(),
              g_e=g_e.contiguous(), g_out=g_out.float().contiguous(),
              **{"d_" + k: v for k, v in grads.items()})
-    _launch("bwd", compute, kw, t, _BWD_NAMES, n, skip_pos)
+    _launch("bwd", kw, t, _BWD_NAMES, n, skip_pos)
     radiance_backward.launches[compute] += 1
     return grads
 
@@ -464,9 +827,11 @@ radiance_backward.launches = dict.fromkeys(FORMS, 0)
 
 
 def reset_launches() -> None:
-    """Set both kernels' counts of both forms to 0."""
+    """Set both kernels' counts of both forms, and the f32 form's per-kernel
+    counts, to 0."""
     for fn in (radiance_forward, radiance_backward):
         fn.launches = dict.fromkeys(FORMS, 0)
+    f32_launches.update(dict.fromkeys(F32_KERNELS, 0))
 
 
 class _RadianceOp(torch.autograd.Function):

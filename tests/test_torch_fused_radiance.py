@@ -152,22 +152,34 @@ def test_supports_and_f32_refused_on_cuda(setup, monkeypatch):
             compute_dtype=bf, hidden_dim=64, feat_size=64))
     launched = []
 
-    def fake_launch(which, compute, kw, tensors, names, n, skip_pos):
-        assert tensors["em"].dtype == tensors["trunk"].dtype == torch.float32
-        assert set(names) <= set(tensors)
-        launched.append((which, compute))
-        if which == "fwd":
-            tensors["out"].zero_()
-            tensors["g_e"].zero_()
+    def fake_launch(kernel, dev, tensors, ints):
+        assert all(x.dtype in (torch.float32, torch.int32) for x in tensors)
+        launched.append(kernel)
+        if kernel == "fwd":
+            tensors[-3].zero_()
+            tensors[-2].zero_()
+        if kernel == "reduce":
+            for x in tensors[1:]:
+                x.zero_()
+
+    def fake_sizes(w, ke, kv, nt):
+        return dict(split_words=8, ws_rows=fr.ws_layout(w, ke, kv, nt)[1],
+                    fwd_scratch=8, sweep_scratch=8, slot_floats=8,
+                    wgrad_tiles=4)
 
     monkeypatch.setattr(fr, "route", lambda x: "cuda")
-    monkeypatch.setattr(fr, "_launch", fake_launch)
+    monkeypatch.setattr(fr, "_need_cuda", lambda dev: None)
+    monkeypatch.setattr(fr, "_slots", lambda dev: 2)
+    monkeypatch.setattr(fr, "f32_sizes", fake_sizes)
+    monkeypatch.setattr(fr, "_launch_f32", fake_launch)
     fr.reset_launches()
     field.zero_grad()
     rgb, a = fr.fused_radiance_and_alpha(field, t(p), t(rd), cfg,
                                          compute="float32")
     (rgb.sum() + a.sum()).backward()
-    assert launched == [("fwd", "float32"), ("bwd", "float32")]
+    # forward: the prologue, then the forward kernel; backward: the
+    # prologue, one chunk's sweep and weight-gradient pass, the reduce
+    assert launched == ["split", "fwd", "split", "sweep", "wgrad", "reduce"]
     assert fr.radiance_forward.launches == {"bfloat16": 0, "float32": 1}
     assert fr.radiance_backward.launches == {"bfloat16": 0, "float32": 1}
     fr.reset_launches()
