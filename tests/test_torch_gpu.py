@@ -204,7 +204,8 @@ def _kink_free(fr, packed, em, de, vpe, p3, g_e, skip, margin=1e-4):
 def test_fused_radiance_f32_kernels_match_plain(width, layers, n):
     """The f32-operand form (3xTF32) against the plain f32 version at the
     JAX kernel tests' bars: rgb and alpha within 1e-5, each gradient leaf
-    within 2e-4 of its max, under both upstream gradients."""
+    within 2e-4 of its max, under both upstream gradients (past 1000
+    points as the comment below sets out)."""
     _need_gpu()
     from psnerf_torch.ops import fused_radiance as fr
 
@@ -228,30 +229,49 @@ def test_fused_radiance_f32_kernels_match_plain(width, layers, n):
                                atol=1e-5)
     assert (g_e - g_e_ref).abs().max() < 2e-4 * g_e_ref.abs().max()
     # an appearance pre-activation within ~1e-6 of the relu kink flips its
-    # mask under any f32 rounding; past 1000 points such points occur, so
-    # there the bar holds on the points that clear the kink by 1e-4
+    # mask under any f32 rounding; past 1000 points such points occur, and
+    # a leaf whose other factor changes sign over the points (wp above all)
+    # then cancels even under U(0.5, 1.5), so that plain f32 itself lies
+    # more than 2e-4 of the leaf's max from an f64 run. So past 1000 points
+    # the 2e-4 bar against plain f32 holds on the points that clear the
+    # kink by 1e-4, and every point under U(0.5, 1.5) is held against f64:
+    # within 2e-4, or within twice plain f32's own distance
     keep = _kink_free(fr, packed, em, de, vpe, p3, g_e_ref, skip)
+    every = torch.arange(n, device="cuda")
+    p64 = {k: v.double() for k, v in packed.items()}
     rng = np.random.default_rng(3)
     runs = chunks = 0
-    for g_out in (rng.uniform(0.5, 1.5, size=(n, 4)), rng.normal(size=(n, 4))):
+    for i, g_out in enumerate((rng.uniform(0.5, 1.5, size=(n, 4)),
+                               rng.normal(size=(n, 4)))):
         g_out = torch.as_tensor(g_out.astype(np.float32), device="cuda")
-        sets = [keep] if n > 1000 else [keep, torch.arange(n, device="cuda")]
+        sets = [keep, every] if n <= 1000 else [keep] + [every] * (i == 0)
         for rows in sets:
             runs += 1
             chunks += -(-rows.numel() // fr.CHUNK)
             sub = lambda x: x[rows].contiguous()
-            args = (packed, sub(em), sub(de), sub(vpe), sub(p3),
-                    sub(g_e_ref), sub(g_out), skip, "float32")
-            got = fr.radiance_backward(*args)
+            args = (sub(em), sub(de), sub(vpe), sub(p3), sub(g_e_ref),
+                    sub(g_out))
+            got = fr.radiance_backward(packed, *args, skip, "float32")
             torch.cuda.synchronize()
-            want = fr.radiance_backward_plain(*args)
+            want = fr.radiance_backward_plain(packed, *args, skip, "float32")
+            exact = None
+            if n > 1000 and rows is every:
+                exact = fr.radiance_backward_plain(
+                    p64, *[x.double() for x in args], skip, "float32")
             for k in fr.PACK_ORDER:
                 assert got[k].shape == want[k].shape, k
-                scale = want[k].abs().max().item() + 1e-12
-                assert (got[k] - want[k]).abs().max().item() / scale < 2e-4, k
+                if exact is None:
+                    scale = want[k].abs().max().item() + 1e-12
+                    assert (got[k] - want[k]).abs().max().item() / scale \
+                        < 2e-4, k
+                    continue
+                scale = exact[k].abs().max().item() + 1e-30
+                dist = lambda x: (x.double() - exact[k]).abs().max().item() \
+                    / scale
+                assert dist(got[k]) < max(2e-4, 2 * dist(want[k])), k
     grew = {k: fr.f32_launches[k] - k_before[k] for k in fr.F32_KERNELS}
     assert grew == {"split": 1 + runs, "fwd": 1, "sweep": chunks,
-                    "wgrad": chunks, "reduce": runs}
+                    "wgrad": chunks}
 
 
 def test_fused_radiance_f32_backward_is_deterministic():

@@ -10,8 +10,9 @@
   * the prologue's tf32 split (split_weights_plain): cvt.rna rounding,
     hi + lo within 2^-22 of each weight, and the slab layout;
   * the wrapper's launch sequence over chunks (split, then sweep and wgrad
-    per chunk with their row offsets and split-K slots, then reduce), with
-    the launches replaced by a recorder."""
+    per chunk with their row offsets and split-K slots, the last wgrad
+    summing every chunk's slots), with the launches replaced by a
+    recorder."""
 
 import jax
 import jax.numpy as jnp
@@ -58,10 +59,13 @@ def _assert_close(got, ref, atol):
 
 
 @pytest.mark.parametrize("chunk", [None, 100])
-def test_composition_matches_jax_interpret(setup, chunk):
+def test_composition_matches_jax_interpret(setup, chunk, monkeypatch):
     """The packed gradients of sum(rgb w_rgb) + sum(alpha w_a) by the
-    sweep and weight-gradient stages, chained to the field's weight-norm
-    leaves by autograd, against JAX's interpret-mode gradients."""
+    sweep and weight-gradient stages (whole, or over chunks of 100
+    points), chained to the field's weight-norm leaves by autograd, against
+    JAX's interpret-mode gradients."""
+    if chunk:
+        monkeypatch.setattr(fr, "CHUNK", chunk)
     s = setup
     field, cfg = s["field"], s["cfg"]
 
@@ -84,7 +88,7 @@ def test_composition_matches_jax_interpret(setup, chunk):
     g_logit = t(s["w_a"]) * sig * (1 - sig) * -10.0
     g_out = torch.cat([g_rgb, g_logit[:, None]], dim=1)
     d = fr.radiance_backward_plain(packed, em, de, vpe, p3, g_e, g_out, SKIP,
-                                   "float32", chunk=chunk)
+                                   "float32")
     torch.autograd.backward([packed[k] for k in fr.PACK_ORDER],
                             [d[k] for k in fr.PACK_ORDER])
     got = {k.replace(".", "/"): v.grad.numpy().copy()
@@ -93,10 +97,13 @@ def test_composition_matches_jax_interpret(setup, chunk):
 
 
 @pytest.mark.parametrize("chunk", [None, 64, 100])
-def test_composition_is_the_packed_autograd_gradient(setup, chunk):
+def test_composition_is_the_packed_autograd_gradient(setup, chunk,
+                                                     monkeypatch):
     """radiance_backward_plain (sweep then weight gradients, whole or
     chunked) returns d sum(out * g_out) / d packed, as autograd of the
     plain forward does."""
+    if chunk:
+        monkeypatch.setattr(fr, "CHUNK", chunk)
     em, de, vpe, p3 = setup["ins"]
     leaves = {k: v.detach().clone().requires_grad_(True)
               for k, v in setup["packed"].items()}
@@ -110,13 +117,13 @@ def test_composition_is_the_packed_autograd_gradient(setup, chunk):
         (out * g_out).sum(), list(leaves.values()))))
     got = fr.radiance_backward_plain(setup["packed"], em, de, vpe, p3,
                                      c["g_e"].detach(), g_out, SKIP,
-                                     "float32", chunk=chunk)
+                                     "float32")
     _assert_close({k: v.numpy() for k, v in got.items()},
                   {k: v.numpy() for k, v in ref.items()}, 2e-4)
 
 
 @pytest.mark.parametrize("chunk", [37, 100, 255])
-def test_chunks_sum_to_the_whole(setup, chunk):
+def test_chunks_sum_to_the_whole(setup, chunk, monkeypatch):
     """Ragged chunks (the last one short) give the whole batch's gradients
     up to f32 summation order."""
     em, de, vpe, p3 = setup["ins"]
@@ -124,8 +131,10 @@ def test_chunks_sum_to_the_whole(setup, chunk):
         0.5, 1.5, size=(N, 4)).astype(np.float32))
     args = (setup["packed"], em, de, vpe, p3, setup["g_e"], g_out, SKIP,
             "float32")
-    whole = fr.radiance_backward_plain(*args, chunk=N)
-    got = fr.radiance_backward_plain(*args, chunk=chunk)
+    monkeypatch.setattr(fr, "CHUNK", N)
+    whole = fr.radiance_backward_plain(*args)
+    monkeypatch.setattr(fr, "CHUNK", chunk)
+    got = fr.radiance_backward_plain(*args)
     _assert_close({k: v.numpy() for k, v in got.items()},
                   {k: v.numpy() for k, v in whole.items()}, 1e-5)
 
@@ -198,8 +207,8 @@ def _fake_f32(monkeypatch):
         if kernel == "fwd":
             tensors[-3].zero_()
             tensors[-2].zero_()
-        if kernel == "reduce":
-            for x in tensors[1:]:
+        if kernel == "wgrad" and ints[-1]:
+            for x in tensors[3:]:
                 x.zero_()
 
     def fake_sizes(w, ke, kv, nt):
@@ -218,7 +227,7 @@ def _fake_f32(monkeypatch):
 def test_f32_launch_sequence_over_chunks(setup, monkeypatch):
     """A batch of 256 points in chunks of 96: split; sweep and wgrad of
     rows 0, 96 and 192 (64 points, ragged), each chunk's split-K slots
-    after the last; one reduce over all slots."""
+    after the last; the last wgrad sums all slots."""
     launched = _fake_f32(monkeypatch)
     monkeypatch.setattr(fr, "CHUNK", 96)
     em, de, vpe, p3 = setup["ins"]
@@ -229,13 +238,13 @@ def test_f32_launch_sequence_over_chunks(setup, monkeypatch):
     assert set(grads) == set(fr.PACK_ORDER)
     splits = 3                       # ceil(2 x 6 SMs / 4 tiles)
     names = [k for k, _ in launched]
-    assert names == ["split"] + ["sweep", "wgrad"] * 3 + ["reduce"]
+    assert names == ["split"] + ["sweep", "wgrad"] * 3
     sweeps = [i for k, i in launched if k == "sweep"]
     wgrads = [i for k, i in launched if k == "wgrad"]
     assert [(i[0], i[1], i[2]) for i in sweeps] == \
         [(96, 0, 128), (96, 96, 128), (64, 192, 128)]
-    assert [(i[0], i[1], i[7], i[8]) for i in wgrads] == \
-        [(128, 128, splits, 0), (128, 128, splits, 3), (64, 128, splits, 6)]
-    assert launched[-1][1][-1] == 3 * splits
+    assert [(i[0], i[1], i[7], i[8], i[9]) for i in wgrads] == \
+        [(128, 128, splits, 0, 0), (128, 128, splits, 3, 0),
+         (64, 128, splits, 6, 1)]
     assert fr.radiance_backward.launches == {"bfloat16": 0, "float32": 1}
     fr.reset_launches()

@@ -1,35 +1,15 @@
 #!/usr/bin/env python3
-"""Attribution of the f32-operand fused_radiance kernels' time to the limits
-their design notes name, by timing patched copies of the sources. Run it on
-a card:
+"""Attribution of the f32-operand fused_radiance kernels' time
+(csrc/fused_radiance_f32.cu, and only that source) to the parts of their
+tile products, by timing patched copies of the source. Run it on a card:
 
-    python3 tools/attribute_radiance_f32.py --design split [--n 196608]
-    python3 tools/attribute_radiance_f32.py --design single   # see below
+    python3 tools/attribute_radiance_f32.py [--n 196608]
 
---design single: the single-kernel design of rad_fwd_kernel<float, W> and
-rad_bwd_kernel<float, W> (psnerf_torch/ops/csrc/fused_radiance.cu before
-fused_radiance_f32.cu took the f32 form). Run it from a checkout of a
-commit that still has that design (for example a `git archive` of it, with
-this script copied into its tools/), so that its own wrapper and csrc are
-the ones used. --design split: the tile products of fwd_kernel and
-sweep_kernel in csrc/fused_radiance_f32.cu, on this checkout.
-
-It copies csrc (or --src) into _chipcheck/attr/<variant>/, patches each copy
-as below, builds every copy with nvcc at once, and times the forward and the
-backward of each at the default field (OccFieldConfig(), random weights from
-seed 0) with CUDA events, in turns (variants in order, then reversed).
---design single variants (the forward and the whole backward):
-  * base:        unchanged;
-  * no_atomics:  every atomicAdd a plain store (the weight-gradient adds);
-  * no_dtn:      the backward's per-tile x^T y products (dtn_atomic) skipped,
-                 the transposed tiles and the scratch kept;
-  * presplit_b:  the weight fragments' tf32 split (2 cvt.rna + FSUB per
-                 element) replaced by one bit mask: what pre-split weights
-                 would save in instructions, at the same bytes;
-  * l2_scratch:  all CTAs share 8 scratch slots (a few MB, L2-resident)
-                 instead of one each (their values are then wrong: timing
-                 only).
---design split variants (the forward and the backward's sweep):
+It copies csrc (or --src) into _chipcheck/attr/<variant>/, patches each
+copy as below, builds every copy with nvcc at once, and times the forward
+(prologue and forward kernel) and the backward's prologue and sweeps of
+each at the default field (OccFieldConfig(), random weights from seed 0)
+with CUDA events, in turns (variants in order, then reversed). Variants:
   * base:          unchanged;
   * no_fadd:       each pair of k-steps' six wgmma chained into the
                    accumulator itself (no FADD): what the round-to-nearest
@@ -42,6 +22,7 @@ The variants' outputs are not checked: they exist only to be timed. Prints
 one JSON line per variant and one summary line with the card's name and
 power limit.
 """
+
 
 import argparse
 import ctypes
@@ -57,34 +38,6 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-PATCHES_SINGLE = {
-    "base": [],
-    "no_atomics": [("fused_radiance.cu", 'using namespace psnerf;',
-                    'using namespace psnerf;\n'
-                    '#define atomicAdd(p, v) (*(p) = (v))')],
-    "no_dtn": [("fused_radiance.cu",
-                "  for (int mc = 0; mc < a_rows; mc += TBM) {",
-                "  for (int mc = 0; mc < 0 * a_rows; mc += TBM) {")],
-    "presplit_b": [("mma_tile.cuh",
-                    "      split_tf32(B_GLOBAL ? __ldg(pb) : pb[0], "
-                    "bh[j][0], bl[j][0]);\n"
-                    "      split_tf32(B_GLOBAL ? __ldg(pb + 4) : pb[4], "
-                    "bh[j][1], bl[j][1]);",
-                    "      bh[j][0] = __float_as_uint(B_GLOBAL ? __ldg(pb) "
-                    ": pb[0]);\n"
-                    "      bl[j][0] = bh[j][0] & 0x1fffu;\n"
-                    "      bh[j][1] = __float_as_uint(B_GLOBAL ? __ldg(pb + 4)"
-                    " : pb[4]);\n"
-                    "      bl[j][1] = bh[j][1] & 0x1fffu;")],
-    "l2_scratch": [("fused_radiance.cu",
-                    "(size_t)blockIdx.x * N_F32_FWD * TILE",
-                    "(size_t)(blockIdx.x & 7) * N_F32_FWD * TILE"),
-                   ("fused_radiance.cu",
-                    "p.scratch + blockIdx.x * slot_bytes",
-                    "p.scratch + (blockIdx.x & 7) * slot_bytes")],
-}
-
-
 PRODUCTS = """      Wgmma<NW>::run(d, al, bh, h);
       Wgmma<NW>::run(d, ah, bl, 1);
       Wgmma<NW>::run(d, ah, bh, 1);"""
@@ -95,7 +48,7 @@ ADDS = """#pragma unroll
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[0][j][r] += d[4 * j + r];"""
 
-PATCHES_SPLIT = {
+PATCHES = {
     "base": [],
     "no_fadd": [("fused_radiance_f32.cu", FADD,
                  "    float (&d)[NW / 2] = reinterpret_cast<float (&)[NW / 2]>"
@@ -113,11 +66,11 @@ PATCHES_SPLIT = {
 }
 
 
-def build(src, out_root, patches, source):
+def build(src, out_root):
     from psnerf_torch.ops.build import NVCC_FLAGS, _nvcc
 
     procs = {}
-    for name, plist in patches.items():
+    for name, plist in PATCHES.items():
         d = os.path.join(out_root, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(src, d)
@@ -127,8 +80,9 @@ def build(src, out_root, patches, source):
             if old not in text:
                 raise RuntimeError(f"{name}: patch target not in {fname}")
             open(path, "w").write(text.replace(old, new))
-        lib = os.path.join(d, f"lib{source}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", lib, os.path.join(d, source + ".cu")]
+        lib = os.path.join(d, "libfused_radiance_f32.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", lib,
+               os.path.join(d, "fused_radiance_f32.cu")]
         procs[name] = (lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -148,7 +102,6 @@ def main():
         ROOT, "psnerf_torch", "ops", "csrc"))
     ap.add_argument("--n", type=int, default=196608)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--design", choices=("single", "split"), default="split")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -158,10 +111,7 @@ def main():
     from psnerf_torch.ops import fused_radiance as fr
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    split = args.design == "split"
-    patches = PATCHES_SPLIT if split else PATCHES_SINGLE
-    libs = build(args.src, os.path.join(ROOT, "_chipcheck", "attr"), patches,
-                 "fused_radiance_f32" if split else "fused_radiance")
+    libs = build(args.src, os.path.join(ROOT, "_chipcheck", "attr"))
     cfg = OccFieldConfig()
     field = init_occupancy_field(
         cfg, generator=torch.Generator().manual_seed(0), device="cuda")
@@ -179,23 +129,10 @@ def main():
                                            "float32")
 
     def use(name):
-        if split:
-            fr._lib_f32_handle[:] = []
-            fr.load_library = lambda _: ctypes.CDLL(libs[name][0])
-            fr._lib_f32()
-            return
-        lib = ctypes.CDLL(libs[name][0])
-        fr._lib_handle[:] = []
-        fr._lib_handle.append(lib)
-        for fn in (lib.psnerf_radiance_fwd, lib.psnerf_radiance_bwd,
-                   lib.psnerf_radiance_fwd_f32, lib.psnerf_radiance_bwd_f32):
-            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.psnerf_radiance_scratch_bytes.argtypes = [ctypes.c_int] * 3
-        lib.psnerf_radiance_scratch_bytes.restype = ctypes.c_longlong
-        lib.psnerf_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.psnerf_cuda_error_string.restype = ctypes.c_char_p
+        # the wrapper binds the variant's library on its next launch
+        fr._lib_f32_handle[:] = []
+        fr.load_library = lambda _: ctypes.CDLL(libs[name][0])
+        fr._lib_f32()
 
     def ms(fn, reps):
         fn()
@@ -211,17 +148,14 @@ def main():
 
     fwd = lambda: fr.radiance_forward(packed, em, de, vpe, p3, skip,
                                       "float32")
-    bwd = lambda: fr.radiance_backward(packed, em, de, vpe, p3, g_e, g_out,
-                                       skip, "float32")
-    if split:                        # the backward's sweeps alone
-        b = fr.F32Backward(packed, em, de, vpe, p3, g_e, g_out, skip)
+    b = fr.F32Backward(packed, em, de, vpe, p3, g_e, g_out, skip)
 
-        def bwd():
-            b.split()
-            for c in range(b.n_chunks):
-                b.sweep(c)
-    got = {k: {"fwd": [], "bwd": []} for k in patches}
-    order = list(patches) + list(patches)[::-1]
+    def bwd():                       # the backward's prologue and sweeps
+        b.split()
+        for c in range(b.n_chunks):
+            b.sweep(c)
+    got = {k: {"fwd": [], "bwd": []} for k in PATCHES}
+    order = list(PATCHES) + list(PATCHES)[::-1]
     with torch.no_grad():
         for name in order:
             use(name)
@@ -231,7 +165,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     res = {}
-    for name in patches:
+    for name in PATCHES:
         res[name] = {"fwd_ms": float(np.mean(got[name]["fwd"])),
                      "bwd_ms": float(np.mean(got[name]["bwd"])),
                      "fwd_turns": got[name]["fwd"],
