@@ -27,8 +27,8 @@ Phases (any failure exits non-zero; nothing is caught):
      same way (yardstick: the f32 autograd route); an f64 run of the plain
      version shows how far f32 itself is from exact where ReLU kinks flip;
      at 2048 x 96 each of its kernels (prologue split, sweep, weight-
-     gradient pass with its fixed-order sum of the splits) is held against
-     its plain version and timed alone, with the workspace's bytes;
+     gradient pass, reduce) is held against its plain version and timed
+     alone, with the workspace's bytes;
   6. stage-2 main path: a 512x512 synthetic scene under 96 lights (2 train
      views, 1 test view) with its analytic stage-1 export; a full-width
      PSNet made from a seed, checkpointed, resumed by a fresh Stage2Runner,
@@ -638,7 +638,7 @@ def time_radiance(field, cfg, p, rd, packed, inputs, g_e, g_out, skip,
     TFLOP/s; f32 three TF32 passes (3xTF32, the least work that meets the
     f32 form's bars) at 495 TFLOP/s. Each kernel time is all of the form's
     launches of one call (the f32 form: prologue and forward; prologue,
-    sweeps and weight-gradient passes). Returns the forward's and
+    sweeps, weight-gradient passes and reduce). Returns the forward's and
     the backward's dicts."""
     from psnerf_torch.fields.occupancy import radiance_and_alpha
     from psnerf_torch.ops import fused_radiance as fr
@@ -963,13 +963,15 @@ def f32_stage_flops(n, w, ke, kv, nt):
 
 def time_f32_stages(packed, inputs, g_e, g_out, skip):
     """The f32 backward kernel by kernel (prologue, sweeps, weight-gradient
-    passes, the last one summing the splits: F32Backward), each held
-    against its plain version on the same inputs and timed in turns with it
-    (plain, kernel, kernel, plain): split_weights_plain;
-    radiance_sweep_plain per chunk (held on the points clear of the relu
-    kinks, where no f32 rounding flips a mask); weight_grads_plain on the
-    kernel's own workspace, summed over the chunks. No single PyTorch call
-    computes any of the three, so their library_ms is null."""
+    passes, reduce: F32Backward), each held against its plain version on
+    the same inputs and timed in turns with it (plain, kernel, kernel,
+    plain): split_weights_plain; radiance_sweep_plain per chunk (held on
+    the points clear of the relu kinks, where no f32 rounding flips a
+    mask); weight_grads_plain on the kernel's own workspace, summed over
+    the chunks (held for wgrad and reduce together); for the reduce, the
+    slots summed in order one by one. Its library_ms is torch.sum over the
+    slots (the leaves are views of that sum); no single PyTorch call
+    computes any of the other three, so theirs is null."""
     from psnerf_torch.ops import fused_radiance as fr
 
     em, de, vpe, p3 = inputs
@@ -1000,7 +1002,14 @@ def time_f32_stages(packed, inputs, g_e, g_out, skip):
                 .item() for k, x in want.items()))
             ws_kernel.append(got)
             del want
-        grads = b.grads
+        grads = b.reduce()
+        slots = b.partial.view(b.n_chunks * b.splits, -1)
+
+        def reduce_plain():          # the kernel's order: slot by slot
+            acc = slots[0].clone()
+            for x in slots[1:]:
+                acc += x
+            return acc
         torch.cuda.synchronize()
         wg_plain = None
         for ws in ws_kernel:
@@ -1019,12 +1028,17 @@ def time_f32_stages(packed, inputs, g_e, g_out, skip):
              "wgrad": lambda: [b.wgrad(c) for c in chunks],
              "wgrad_plain": lambda: [fr.weight_grads_plain(ws, skip,
                                                            "float32")
-                                     for ws in ws_kernel]},
+                                     for ws in ws_kernel],
+             "reduce": b.reduce, "reduce_plain": reduce_plain,
+             "reduce_library": lambda: torch.sum(slots, 0)},
             {"split": 20, "split_plain": 3, "sweep": 3, "sweep_plain": 2,
-             "wgrad": 3, "wgrad_plain": 2},
+             "wgrad": 3, "wgrad_plain": 2, "reduce": 20, "reduce_plain": 20,
+             "reduce_library": 20},
             ["split_plain", "split", "split", "split_plain",
              "sweep_plain", "sweep", "sweep", "sweep_plain",
-             "wgrad_plain", "wgrad", "wgrad", "wgrad_plain"])
+             "wgrad_plain", "wgrad", "wgrad", "wgrad_plain",
+             "reduce_library", "reduce_plain", "reduce", "reduce",
+             "reduce_plain", "reduce_library"])
     del ws_kernel
     f_sweep, f_wgrad = f32_stage_flops(n, w, ke, kv, nt)
     ws_bytes = n * fr.ws_layout(w, ke, kv, nt)[1] * 4
@@ -1036,19 +1050,24 @@ def time_f32_stages(packed, inputs, g_e, g_out, skip):
     for name, flops, nbytes_, err in (
             ("split", 0, w_bytes + b.frags.numel() * 4, float(split_err)),
             ("sweep", 3 * f_sweep, in_bytes + w_bytes + ws_bytes, sweep_err),
-            ("wgrad", 3 * f_wgrad, ws_bytes + grad_bytes, wgrad_err)):
+            ("wgrad", 3 * f_wgrad, ws_bytes + slot_bytes, wgrad_err),
+            ("reduce", 0, slot_bytes + grad_bytes, wgrad_err)):
         bnd, by = bound_ms(flops, nbytes_, PEAK_TF32_FLOPS)
         out[name] = dict(ms=t[name], plain_ms=t[name + "_plain"],
-                         bound_ms=bnd, bound_by=by, library_ms=None,
+                         bound_ms=bnd, bound_by=by,
+                         library_ms=t.get(name + "_library"),
                          max_abs_err=err, flops=flops, n=n)
-    for v in out.values():
-        v["library_note"] = ("null: no single PyTorch call computes this "
-                             "stage")
+    for k in ("split", "sweep", "wgrad"):
+        out[k]["library_note"] = ("null: no single PyTorch call computes "
+                                  "this stage")
+    out["reduce"]["library_note"] = ("torch.sum over the split-K slots; "
+                                     "the gradients are views of it")
     out["split"]["err_is"] = "words differing from split_weights_plain"
     out["sweep"]["err_is"] = ("max over arrays of max |diff| / max |plain|, "
                               "on the points clear of the relu kinks")
-    out["wgrad"]["err_is"] = ("max over leaves of max |diff| / max |plain|, "
-                              "all chunks' passes together")
+    for k in ("wgrad", "reduce"):
+        out[k]["err_is"] = ("max over leaves of max |diff| / max |plain|, "
+                            "wgrad and reduce together")
     out["workspace"] = {"bytes": b.workspace_bytes(), "ws_bytes": ws_bytes,
                         "slot_bytes": slot_bytes, "chunk": fr.CHUNK,
                         "chunks": b.n_chunks, "splits": b.splits,
@@ -1181,8 +1200,8 @@ def phase_stage1_main(scene, compute, steps, steps96, vis_every=0):
         # every kernel of the f32 form: a prologue per forward and per
         # backward, a sweep and a weight-gradient pass per chunk
         check(f32k["fwd"] >= steps and f32k["split"] >= 2 * steps
-              and f32k["sweep"] >= steps and f32k["wgrad"] >= steps,
-              f"f32 kernels {f32k}")
+              and f32k["sweep"] >= steps and f32k["wgrad"] >= steps
+              and f32k["reduce"] >= steps, f"f32 kernels {f32k}")
     else:
         check(not any(f32k.values()), f"f32 kernels at the bf16 field {f32k}")
     recs = read_losses(wd)
@@ -1510,7 +1529,7 @@ def main():
               "psnerf_tpu/ops/fused_radiance.py:390", k2f,
               launches1["fused_radiance_fwd"]["float32"]),
         entry("fused_radiance_and_alpha (backward, f32 operands: prologue, "
-              "sweeps, weight-gradient passes)",
+              "sweeps, weight-gradient passes, reduce)",
               "fused_radiance_f32.cu", "psnerf_tpu/ops/fused_radiance.py:410",
               k3f, launches1["fused_radiance_bwd"]["float32"]),
         *[entry(f"fused_radiance_and_alpha f32 {name}",
@@ -1521,8 +1540,8 @@ def main():
           for kern, name in (
               ("split", "weight split (prologue of forward and backward)"),
               ("sweep", "backward sweep (writes the workspace)"),
-              ("wgrad", "weight-gradient products (split-K; the last "
-               "chunk's pass sums the splits in fixed order)"))],
+              ("wgrad", "weight-gradient products (split-K)"),
+              ("reduce", "weight-gradient reduce (fixed order)"))],
         entry("fused_visibility", "fused_vis.cu",
               "psnerf_tpu/ops/fused_vis.py:219", k4,
               launches["fused_visibility"]),

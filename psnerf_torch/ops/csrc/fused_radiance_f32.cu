@@ -14,7 +14,7 @@
 // the weight gradients) starts from zero and FADD adds it into the
 // accumulator.
 //
-// Four kernels, launched by ops/fused_radiance.py:
+// Five kernels, launched by ops/fused_radiance.py:
 //   * split_kernel (prologue, once per forward and per backward): every
 //     product weight, in each orientation the products read (w and w^T),
 //     split into tf32 hi and lo with the same cvt.rna as the products, and
@@ -34,11 +34,9 @@
 //     bias-like column sums of y) as 3xTF32 wgmma products of depth K =
 //     points, split-K over CTAs: each CTA writes its partial tile to its
 //     own slot, with no atomics. Each 32-point stage's twelve wgmma chain
-//     in the tensor core and FADD adds the stage into the accumulator. In
-//     the last chunk's launch, the last split of each output tile to
-//     finish sums that tile's slots of every chunk, in slot order, into
-//     the gradients: no reduce launch, and the f32 backward is
-//     deterministic from run to run.
+//     in the tensor core and FADD adds the stage into the accumulator.
+//   * reduce_kernel (K3, part 3): sums the slots in fixed order into the
+//     gradients. The f32 backward is deterministic from run to run.
 //
 // What bounds it: operations. Per point the forward runs ~19 and the
 // backward ~57 products of 2 W^2 FLOPs (W = 256), three tf32 products each:
@@ -1076,58 +1074,6 @@ __host__ WPlan wplan(int w, int ke, int kv, int nt, int skip) {
   return P;
 }
 
-// Where each part of a job's slot block goes: its rows [row0, row0 + rows)
-// and columns [col0, col0 + cols), at src in a slot (row stride src_ld =
-// the job's columns), into dst (row stride dst_ld). A rect starting at row
-// J.r is the job's bias row.
-struct Rect {
-  long long src; float* dst; int src_ld, rows, cols, dst_ld, job, row0, col0;
-};
-// slots = 0: the launch sums nothing (a chunk before the last)
-struct RPlan { Rect r[40]; int n, slots; };
-
-// grads in the packed order: w0, b0, wskip, trunk_w, trunk_b, w8f, b8f,
-// w8l, b8l, wp, wv, wn, wf, ba0, wa, bab, wa4, ba4
-__host__ RPlan rplan(const WPlan& P, float* const* d, int w, int kv, int nt,
-                     int slots) {
-  RPlan R = {};
-  R.slots = slots;
-  auto add = [&](int job, int row0, int col0, int rows, int cols, float* dst,
-                 int dst_ld) {
-    const WJob& J = P.job[job];
-    Rect& x = R.r[R.n++];
-    x.job = job; x.row0 = row0; x.col0 = col0; x.rows = rows; x.cols = cols;
-    x.src = J.out + (long long)row0 * J.c + col0; x.src_ld = J.c;
-    x.dst = dst; x.dst_ld = dst_ld;
-  };
-  const long long ww = (long long)w * w;
-  int k = 0;
-  for (int i = 0; i < nt; ++i, ++k) {
-    add(k, 0, 0, w, w, d[3] + i * ww, w);                      // trunk_w
-    add(k, w, 0, 1, w, d[4] + (size_t)i * w, w);              // trunk_b
-  }
-  const int ke = P.job[k].r;
-  add(k, 0, 0, ke, w, d[0], w);                                // w0
-  add(k++, ke, 0, 1, w, d[1], w);                              // b0
-  add(k++, 0, 0, ke, w, d[2], w);                              // wskip
-  add(k, 0, 0, w, w, d[5], w);                                 // w8f
-  add(k++, w, 0, 1, w, d[6], w);                               // b8f
-  for (int j = 0; j < 3; ++j, ++k) {
-    add(k, 0, 0, w, w, d[14] + j * ww, w);                     // wa
-    add(k, w, 0, 1, w, d[15] + (size_t)j * w, w);             // bab
-  }
-  add(k, 0, 0, w, w, d[12], w);                                // wf
-  add(k, w, 0, kv, w, d[10], w);                               // wv
-  add(k, w + kv, 0, 3, w, d[9], w);                            // wp
-  add(k, w + kv + 3, 0, 3, w, d[11], w);                       // wn
-  add(k++, w + kv + 6, 0, 1, w, d[13], w);                     // ba0
-  add(k++, 0, 0, 1, w, d[7], w);                               // w8l
-  add(k, 0, 0, w, 3, d[16], 3);                                // wa4
-  add(k, w, 0, 1, 3, d[17], 3);                                // ba4
-  add(k, w, 3, 1, 1, d[8], 1);                                 // b8l
-  return R;
-}
-
 constexpr int GSTAGES = 2;           // raw f32 stages in flight
 constexpr int RLD = GK + 4;          // raw stage row stride (floats)
 constexpr int TQ = GB * GK / 4;      // float4s of one split tile
@@ -1135,82 +1081,13 @@ constexpr int TQ = GB * GK / 4;      // float4s of one split tile
 // (row r, points 4 kg .. 4 kg + 3) is (r / 8) * 64 + kg * 8 + r % 8
 constexpr uint32_t CM_LBO = 128, CM_SBO = 1024;
 
-constexpr int SB = 8;                // float4s a thread sums at once
-
-// Sum one output tile's part of rect X over slots 0 .. slots - 1, in slot
-// order (the same bits whichever CTA sums), into the gradient: SB float4s
-// per thread at a time, so that SB loads per slot are in flight, where the
-// part's rows are whole float4s (every W-wide rect); else one element at a
-// time. The slots were written by other CTAs of this launch: read through
-// L2 (ld.cg), not the non-coherent path. Not inlined: the products' loop
-// keeps its own register allocation.
-__device__ __noinline__ void sum_slots(const Rect& X, const float* partial,
-                                       long long slot_floats, int slots,
-                                       int r0, int r1, int c0, int c1) {
-  const int nr = r1 - r0, nc = c1 - c0, tid = threadIdx.x;
-  const float* src0 = partial + X.src + (size_t)(r0 - X.row0) * X.src_ld +
-                      (c0 - X.col0);
-  float* dst0 = X.dst + (size_t)(r0 - X.row0) * X.dst_ld + (c0 - X.col0);
-  const bool vec = nc % 4 == 0 && X.src_ld % 4 == 0 && X.dst_ld % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(src0) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dst0) % 16 == 0 &&
-                   slot_floats % 4 == 0;
-  if (vec) {
-    const int nc4 = nc / 4, total = nr * nc4;
-    const size_t slot4 = (size_t)slot_floats / 4;
-    for (int e0 = tid; e0 < total; e0 += NTHREADS * SB) {
-      const float4* src[SB];
-      float4 s[SB];
-#pragma unroll
-      for (int j = 0; j < SB; ++j) {
-        const int e = min(e0 + j * NTHREADS, total - 1);
-        const int row = e / nc4, col = (e - row * nc4) * 4;
-        src[j] = reinterpret_cast<const float4*>(
-            src0 + (size_t)row * X.src_ld + col);
-        s[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll 2
-      for (int slot = 0; slot < slots; ++slot) {
-#pragma unroll
-        for (int j = 0; j < SB; ++j) {
-          const float4 v = __ldcg(src[j] + slot * slot4);
-          s[j].x += v.x; s[j].y += v.y; s[j].z += v.z; s[j].w += v.w;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < SB; ++j) {
-        const int e = e0 + j * NTHREADS;
-        if (e < total) {
-          const int row = e / nc4, col = (e - row * nc4) * 4;
-          *reinterpret_cast<float4*>(dst0 + (size_t)row * X.dst_ld + col) =
-              s[j];
-        }
-      }
-    }
-    return;
-  }
-  for (int e = tid; e < nr * nc; e += NTHREADS) {
-    const int row = e / nc, col = e - row * nc;
-    const float* src = src0 + (size_t)row * X.src_ld + col;
-    float s = 0.f;
-#pragma unroll 9
-    for (int slot = 0; slot < slots; ++slot)
-      s += __ldcg(src + (size_t)slot * slot_floats);
-    dst0[(size_t)row * X.dst_ld + col] = s;
-  }
-}
-
 // Each CTA: one GB x GB output tile of one job over its split's points, 32
 // points a stage. Stage it + 1 is split into the second pair of tiles
-// while the warpgroups' wgmma run on stage it. In the last chunk's launch
-// (red.slots > 0) the tile's last split to finish (its count in
-// `arrivals`) sums every chunk's slots of the tile into the gradients and
-// sets the count back to 0.
+// while the warpgroups' wgmma run on stage it.
 __global__ void __launch_bounds__(NTHREADS, 1)
     wgrad_kernel(const __grid_constant__ WPlan plan,
-                 const __grid_constant__ RPlan red,
                  const float* __restrict__ ws, int ld, int kpts,
-                 float* partial, int slot0, int* arrivals) {
+                 float* partial, int slot0) {
   extern __shared__ __align__(128) unsigned char smem[];
   // two sets of x hi, x lo, y hi, y lo tiles, then the raw stages
   float4* tiles = reinterpret_cast<float4*>(smem);
@@ -1361,31 +1238,92 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       if (c < J.c) out[(size_t)J.r * J.c + c] = v;
     }
   }
-  if (red.slots == 0) return;
-  // the last split of this tile to arrive sums the tile's slots
-  __shared__ int arrived;
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) arrived = atomicAdd(arrivals + blockIdx.x, 1);
-  __syncthreads();
-  if (arrived != S - 1) return;
-  __threadfence();
-  if (tid == 0) arrivals[blockIdx.x] = 0;
-  // the tile owns rows [rt GB, rt GB + GB) of the job's weights, the bias
-  // row (row J.r) if rt = 0, and columns [ct GB, ct GB + GB)
-  for (int k = 0; k < red.n; ++k) {
-    const Rect& X = red.r[k];
-    if (X.job != jb) continue;
-    int r0 = X.row0, r1 = X.row0 + X.rows;
-    if (X.row0 < J.r) {
-      r0 = max(r0, rt * GB);
-      r1 = min(r1, rt * GB + GB);
-    } else if (rt != 0) {
-      continue;
+}
+
+// Where each part of a slot goes: rows x cols of the slot at src (row
+// stride src_ld) into dst (row stride dst_ld).
+struct Rect { long long src; float* dst; int src_ld, rows, cols, dst_ld; };
+struct RPlan { Rect r[40]; int n, slots; long long slot_floats; };
+
+// grads in the packed order: w0, b0, wskip, trunk_w, trunk_b, w8f, b8f,
+// w8l, b8l, wp, wv, wn, wf, ba0, wa, bab, wa4, ba4
+__host__ RPlan rplan(const WPlan& P, float* const* d, int w, int ke, int kv,
+                     int nt, int slots) {
+  RPlan R = {};
+  R.slots = slots;
+  R.slot_floats = P.slot_floats;
+  auto add = [&](long long src, int src_ld, int rows, int cols, float* dst,
+                 int dst_ld) {
+    Rect& x = R.r[R.n++];
+    x.src = src; x.src_ld = src_ld; x.rows = rows; x.cols = cols;
+    x.dst = dst; x.dst_ld = dst_ld;
+  };
+  const long long ww = (long long)w * w;
+  int k = 0;
+  for (int i = 0; i < nt; ++i, ++k) {
+    add(P.job[k].out, w, w, w, d[3] + i * ww, w);
+    add(P.job[k].out + ww, w, 1, w, d[4] + (size_t)i * w, w);
+  }
+  add(P.job[k].out, w, ke, w, d[0], w);
+  add(P.job[k].out + (long long)ke * w, w, 1, w, d[1], w);
+  ++k;
+  add(P.job[k++].out, w, ke, w, d[2], w);
+  add(P.job[k].out, w, w, w, d[5], w);
+  add(P.job[k++].out + ww, w, 1, w, d[6], w);
+  for (int j = 0; j < 3; ++j, ++k) {
+    add(P.job[k].out, w, w, w, d[14] + j * ww, w);
+    add(P.job[k].out + ww, w, 1, w, d[15] + (size_t)j * w, w);
+  }
+  const long long o = P.job[k++].out;
+  add(o, w, w, w, d[12], w);                                   // wf
+  add(o + ww, w, kv, w, d[10], w);                             // wv
+  add(o + ww + (long long)kv * w, w, 3, w, d[9], w);           // wp
+  add(o + ww + (long long)(kv + 3) * w, w, 3, w, d[11], w);    // wn
+  add(o + ww + (long long)(kv + 6) * w, w, 1, w, d[13], w);    // ba0
+  add(P.job[k++].out, w, 1, w, d[7], w);                       // w8l
+  const long long o4 = P.job[k].out;
+  add(o4, 8, w, 3, d[16], 3);                                  // wa4
+  add(o4 + (long long)w * 8, 8, 1, 3, d[17], 3);               // ba4
+  add(o4 + (long long)w * 8 + 3, 8, 1, 1, d[8], 1);            // b8l
+  return R;
+}
+
+// one row of blocks per rect (blockIdx.y), four elements per thread where
+// the rect's rows are whole float4s (every W-wide rect), else one; the
+// slots summed in order
+__global__ void reduce_kernel(const __grid_constant__ RPlan plan,
+                              const float* __restrict__ partial) {
+  const Rect& R = plan.r[blockIdx.y];
+  const int total = R.rows * R.cols;
+  const int stride = gridDim.x * blockDim.x;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool vec = R.cols % 4 == 0 && R.src_ld % 4 == 0 &&
+                   R.dst_ld % 4 == 0 && R.src % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(R.dst) % 16 == 0;
+  if (vec) {
+    const size_t slot4 = (size_t)plan.slot_floats / 4;
+    for (int e = tid * 4; e < total; e += stride * 4) {
+      const int row = e / R.cols, col = e - row * R.cols;
+      const float4* src = reinterpret_cast<const float4*>(
+          partial + R.src + (size_t)row * R.src_ld + col);
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 9
+      for (int slot = 0; slot < plan.slots; ++slot) {
+        const float4 v = __ldg(src + slot * slot4);
+        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+      }
+      *reinterpret_cast<float4*>(R.dst + (size_t)row * R.dst_ld + col) = s;
     }
-    const int c0 = max(X.col0, ct * GB), c1 = min(X.col0 + X.cols, ct * GB + GB);
-    if (r0 < r1 && c0 < c1)
-      sum_slots(X, partial, plan.slot_floats, red.slots, r0, r1, c0, c1);
+    return;
+  }
+  for (int e = tid; e < total; e += stride) {
+    const int row = e / R.cols, col = e - row * R.cols;
+    const float* src = partial + R.src + (size_t)row * R.src_ld + col;
+    float s = 0.f;
+#pragma unroll 9
+    for (int slot = 0; slot < plan.slots; ++slot)
+      s += __ldg(src + (size_t)slot * plan.slot_floats);
+    R.dst[(size_t)row * R.dst_ld + col] = s;
   }
 }
 
@@ -1526,30 +1464,43 @@ extern "C" int psnerf_rf32_sweep(void* const* ptrs, const int* ints,
                         : launch_tiles<256, false>(p, ints[8], s));
 }
 
-// ptrs: the workspace, the slots, the per-tile arrival counts (int32, 0
-// before the first launch; each last launch leaves them 0), then the 18
-// gradients in the packed order. ints: kpts (the chunk's points rounded up
-// to 64), ld_ws, width, ke, kv, n_trunk, skip_pos, splits, slot0, last
-// (1: the last chunk, whose launch also sums slots 0 .. slot0 + splits - 1
-// into the gradients).
+// ptrs: the workspace, the slots. ints: kpts (the chunk's points rounded
+// up to 64), ld_ws, width, ke, kv, n_trunk, skip_pos, splits, slot0.
 extern "C" int psnerf_rf32_wgrad(void* const* ptrs, const int* ints,
                                  void* stream) {
   const int w = ints[2], ke = ints[3], kv = ints[4], nt = ints[5];
   if (!dims_ok(w, ke, kv, nt) || ints[0] % 64 || ints[0] > ints[1] ||
-      ints[7] < 1 || ints[6] < 0 || ints[6] >= nt || ints[8] < 0)
+      ints[7] < 1 || ints[6] < 0 || ints[6] >= nt)
     return (int)cudaErrorInvalidValue;
   const WPlan P = wplan(w, ke, kv, nt, ints[6]);
-  float* d[18];
-  for (int i = 0; i < 18; ++i) d[i] = static_cast<float*>(ptrs[3 + i]);
-  const RPlan R = rplan(P, d, w, kv, nt, ints[9] ? ints[8] + ints[7] : 0);
   cudaError_t err = cudaFuncSetAttribute(
       wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)WGRAD_SMEM);
   if (err != cudaSuccess) return (int)err;
   wgrad_kernel<<<dim3(P.n_tiles, ints[7]), NTHREADS, WGRAD_SMEM,
            static_cast<cudaStream_t>(stream)>>>(
-      P, R, static_cast<const float*>(ptrs[0]), ints[1], ints[0],
-      static_cast<float*>(ptrs[1]), ints[8], static_cast<int*>(ptrs[2]));
+      P, static_cast<const float*>(ptrs[0]), ints[1], ints[0],
+      static_cast<float*>(ptrs[1]), ints[8]);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: the slots, then the 18 gradients in the packed order. ints: width,
+// ke, kv, n_trunk, skip_pos, slots.
+extern "C" int psnerf_rf32_reduce(void* const* ptrs, const int* ints,
+                                  void* stream) {
+  const int w = ints[0], ke = ints[1], kv = ints[2], nt = ints[3];
+  if (!dims_ok(w, ke, kv, nt) || ints[5] < 1)
+    return (int)cudaErrorInvalidValue;
+  const WPlan P = wplan(w, ke, kv, nt, ints[4]);
+  float* d[18];
+  for (int i = 0; i < 18; ++i) d[i] = static_cast<float*>(ptrs[1 + i]);
+  const RPlan R = rplan(P, d, w, ke, kv, nt, ints[5]);
+  int most = 1;                      // four elements per thread of a rect
+  for (int k = 0; k < R.n; ++k)
+    if (R.r[k].rows * R.r[k].cols > most) most = R.r[k].rows * R.r[k].cols;
+  reduce_kernel<<<dim3((most / 4 + 255) / 256, R.n), 256, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      R, static_cast<const float*>(ptrs[0]));
   return (int)cudaGetLastError();
 }
 

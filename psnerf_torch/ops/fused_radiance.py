@@ -25,9 +25,9 @@ Both come in the two operand forms of the TPU kernels:
     a prologue splits the weights into tf32 hi/lo fragments (`split`),
     then the forward (`fwd`); the backward is a sweep over chunks of at
     most CHUNK points that writes every weight-gradient operand to a
-    device workspace (`sweep`) and a split-K product of those operands per
-    chunk (`wgrad`), whose last launch sums the partial products in fixed
-    order: deterministic from run to run. Each of the four counts its
+    device workspace (`sweep`), a split-K product of those operands per
+    chunk (`wgrad`), and a fixed-order sum of the partial products
+    (`reduce`): deterministic from run to run. Each of the five counts its
     launches in `f32_launches`.
 
 Weight norm and the layout (skip row split, split geometry head,
@@ -51,6 +51,7 @@ they launch the kernels or raise. Launches are counted per form in
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -65,7 +66,7 @@ _OP_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 FORMS = tuple(_OP_DTYPE)        # the operand forms, by `compute` name
 PACK_ORDER = ["w0", "b0", "wskip", "trunk_w", "trunk_b", "w8f", "b8f", "w8l",
               "b8l", "wp", "wv", "wn", "wf", "ba0", "wa", "bab", "wa4", "ba4"]
-F32_KERNELS = ("split", "fwd", "sweep", "wgrad")
+F32_KERNELS = ("split", "fwd", "sweep", "wgrad", "reduce")
 CHUNK = 65536        # points per backward sweep of the f32 form
 _lib_handle = []
 _lib_f32_handle = []
@@ -671,12 +672,11 @@ def wgrad_splits(tiles: int, slots: int, most: int = 16) -> int:
 
 class F32Backward:
     """The f32 form's backward, kernel by kernel, on one batch: `split()`
-    (the prologue), then for each chunk c `sweep(c)` and `wgrad(c)`; the
-    last chunk's `wgrad` also sums every chunk's split-K slots, in fixed
-    order, into `grads`. Allocates the workspace (ws_rows x
-    round_up(min(N, CHUNK), 64) f32), the split-K slots, the tiles'
-    arrival counts, the scratch and the gradients once; `run()` is all of
-    it in order and returns the gradients."""
+    (the prologue), then for each chunk c `sweep(c)` and `wgrad(c)`, then
+    `reduce()` sums the split-K slots into `grads` and returns them.
+    Allocates the workspace (ws_rows x round_up(min(N, CHUNK), 64) f32),
+    the split-K slots, the scratch and the gradients (one buffer) once;
+    `run()` is all of it in order."""
 
     def __init__(self, packed, em, de, vpe, p3, g_e, g_out, skip_pos):
         self.dims = _dims(packed, skip_pos)
@@ -702,10 +702,11 @@ class F32Backward:
             device=dev)
         self.scratch = torch.empty((self.slots * sz["sweep_scratch"],),
                                    dtype=f32, device=dev)
-        self.arrivals = torch.zeros((sz["wgrad_tiles"],), dtype=torch.int32,
-                                    device=dev)
-        self.grads = {k: torch.empty(s, dtype=f32, device=dev)
-                      for k, s in _GRAD_SHAPES(*self.dims).items()}
+        shapes = _GRAD_SHAPES(*self.dims)
+        sizes = [math.prod(shapes[k]) for k in PACK_ORDER]
+        flat = torch.empty((sum(sizes),), dtype=f32, device=dev)
+        self.grads = {k: x.view(shapes[k]) for k, x in
+                      zip(PACK_ORDER, flat.split(sizes))}
         self.frags = None
 
     def workspace_bytes(self) -> int:
@@ -730,12 +731,17 @@ class F32Backward:
     def wgrad(self, c):
         w, ke, kv, nt = self.dims
         _, nc = self._chunk(c)
-        _launch_f32("wgrad", self.dev,
-                    [self.ws, self.partial, self.arrivals,
-                     *[self.grads[k] for k in PACK_ORDER]],
+        _launch_f32("wgrad", self.dev, [self.ws, self.partial],
                     [round_up(nc, 64), self.ld, w, ke, kv, nt, self.skip_pos,
-                     self.splits, c * self.splits,
-                     int(c == self.n_chunks - 1)])
+                     self.splits, c * self.splits])
+
+    def reduce(self) -> dict:
+        w, ke, kv, nt = self.dims
+        _launch_f32("reduce", self.dev,
+                    [self.partial, *[self.grads[k] for k in PACK_ORDER]],
+                    [w, ke, kv, nt, self.skip_pos,
+                     self.n_chunks * self.splits])
+        return self.grads
 
     def workspace(self, c: int = 0) -> dict:
         """Chunk c's workspace after its sweep, point-major as
@@ -751,7 +757,7 @@ class F32Backward:
         for c in range(self.n_chunks):
             self.sweep(c)
             self.wgrad(c)
-        return self.grads
+        return self.reduce()
 
 
 _FWD_NAMES = ["em", "de", "vpe", "p3"] + _W_NAMES + ["out", "g_e"]
@@ -795,9 +801,9 @@ def radiance_backward(packed: dict, em, de, vpe, p3, g_e, g_out,
     """Kernel backward on CUDA tensors, operand form `compute`: f32
     gradients of sum(out * g_out) in the packed shapes. bf16: the CTAs add
     their tiles' sums into the zeroed gradients with f32 atomics, so the
-    summation order varies from run to run. f32: the prologue, sweep and
-    split-K weight-gradient kernels, the last summing the splits in fixed
-    order (`F32Backward`): the same bits from run to run."""
+    summation order varies from run to run. f32: the sweep, split-K
+    weight-gradient and fixed-order reduce kernels (`F32Backward`), the
+    same bits from run to run."""
     _check_form(compute)
     if compute == "float32":
         grads = F32Backward(packed, em, de, vpe, p3, g_e, g_out,

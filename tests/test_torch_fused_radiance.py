@@ -158,8 +158,8 @@ def test_supports_and_f32_refused_on_cuda(setup, monkeypatch):
         if kernel == "fwd":
             tensors[-3].zero_()
             tensors[-2].zero_()
-        if kernel == "wgrad" and ints[-1]:
-            for x in tensors[3:]:
+        if kernel == "reduce":
+            for x in tensors[1:]:
                 x.zero_()
 
     def fake_sizes(w, ke, kv, nt):
@@ -178,9 +178,8 @@ def test_supports_and_f32_refused_on_cuda(setup, monkeypatch):
                                          compute="float32")
     (rgb.sum() + a.sum()).backward()
     # forward: the prologue, then the forward kernel; backward: the
-    # prologue, one chunk's sweep and weight-gradient pass (which sums the
-    # split-K slots)
-    assert launched == ["split", "fwd", "split", "sweep", "wgrad"]
+    # prologue, one chunk's sweep and weight-gradient pass, the reduce
+    assert launched == ["split", "fwd", "split", "sweep", "wgrad", "reduce"]
     assert fr.radiance_forward.launches == {"bfloat16": 0, "float32": 1}
     assert fr.radiance_backward.launches == {"bfloat16": 0, "float32": 1}
     fr.reset_launches()

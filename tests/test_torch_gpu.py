@@ -271,7 +271,7 @@ def test_fused_radiance_f32_kernels_match_plain(width, layers, n):
                 assert dist(got[k]) < max(2e-4, 2 * dist(want[k])), k
     grew = {k: fr.f32_launches[k] - k_before[k] for k in fr.F32_KERNELS}
     assert grew == {"split": 1 + runs, "fwd": 1, "sweep": chunks,
-                    "wgrad": chunks}
+                    "wgrad": chunks, "reduce": runs}
 
 
 def test_fused_radiance_f32_backward_is_deterministic():

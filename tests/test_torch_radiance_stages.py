@@ -10,9 +10,8 @@
   * the prologue's tf32 split (split_weights_plain): cvt.rna rounding,
     hi + lo within 2^-22 of each weight, and the slab layout;
   * the wrapper's launch sequence over chunks (split, then sweep and wgrad
-    per chunk with their row offsets and split-K slots, the last wgrad
-    summing every chunk's slots), with the launches replaced by a
-    recorder."""
+    per chunk with their row offsets and split-K slots, then reduce), with
+    the launches replaced by a recorder."""
 
 import jax
 import jax.numpy as jnp
@@ -207,8 +206,8 @@ def _fake_f32(monkeypatch):
         if kernel == "fwd":
             tensors[-3].zero_()
             tensors[-2].zero_()
-        if kernel == "wgrad" and ints[-1]:
-            for x in tensors[3:]:
+        if kernel == "reduce":
+            for x in tensors[1:]:
                 x.zero_()
 
     def fake_sizes(w, ke, kv, nt):
@@ -227,7 +226,7 @@ def _fake_f32(monkeypatch):
 def test_f32_launch_sequence_over_chunks(setup, monkeypatch):
     """A batch of 256 points in chunks of 96: split; sweep and wgrad of
     rows 0, 96 and 192 (64 points, ragged), each chunk's split-K slots
-    after the last; the last wgrad sums all slots."""
+    after the last; one reduce over all slots."""
     launched = _fake_f32(monkeypatch)
     monkeypatch.setattr(fr, "CHUNK", 96)
     em, de, vpe, p3 = setup["ins"]
@@ -238,13 +237,13 @@ def test_f32_launch_sequence_over_chunks(setup, monkeypatch):
     assert set(grads) == set(fr.PACK_ORDER)
     splits = 3                       # ceil(2 x 6 SMs / 4 tiles)
     names = [k for k, _ in launched]
-    assert names == ["split"] + ["sweep", "wgrad"] * 3
+    assert names == ["split"] + ["sweep", "wgrad"] * 3 + ["reduce"]
     sweeps = [i for k, i in launched if k == "sweep"]
     wgrads = [i for k, i in launched if k == "wgrad"]
     assert [(i[0], i[1], i[2]) for i in sweeps] == \
         [(96, 0, 128), (96, 96, 128), (64, 192, 128)]
-    assert [(i[0], i[1], i[7], i[8], i[9]) for i in wgrads] == \
-        [(128, 128, splits, 0, 0), (128, 128, splits, 3, 0),
-         (64, 128, splits, 6, 1)]
+    assert [(i[0], i[1], i[7], i[8]) for i in wgrads] == \
+        [(128, 128, splits, 0), (128, 128, splits, 3), (64, 128, splits, 6)]
+    assert launched[-1][1][-1] == 3 * splits
     assert fr.radiance_backward.launches == {"bfloat16": 0, "float32": 1}
     fr.reset_launches()
