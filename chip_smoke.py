@@ -14,9 +14,14 @@ Phases (any failure exits non-zero; nothing is caught):
      kernel, plain), beside a chain of bf16 torch.matmul calls over the
      same trunk (a yardstick only; the port never calls it) and the least
      time the card could take (tensor-core FLOPs over 989 TFLOP/s; input
-     and output bytes over 3.35 TB/s are far less);
+     and output bytes over 3.35 TB/s are far less); the light sum's bits
+     are held from run to run;
   4. stage-1 kernels at the bear field (8x256, bf16 operands): fused_occ
-     at the march's 2048 x 256 points, fused_radiance forward and backward
+     at the march's 2048 x 256 points and at a secant pass's 2048 (its
+     bound the larger of the tensor time and its softplus epilogue's MUFU
+     and FP32 instructions, counted in the built kernel's SASS with
+     cuobjdump, at the card's highest SM clock), fused_radiance forward
+     and backward
      at the integration batch of 2048 x 96 samples, each held against its
      plain version and timed the same way (yardsticks: the bf16 matmul
      chain for fused_occ, the plain autograd route for fused_radiance);
@@ -74,14 +79,17 @@ PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_TF32_FLOPS = 495e12          # dense TF32 tensor cores
 PEAK_F32_FLOPS = 67e12            # f32 FFMA outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
+FP32_LANES, MUFU_LANES = 128, 16  # per SM and clock (sm_90 throughput table)
 N_KERNEL, L_KERNEL = 65536, 96
 HW, N_LIGHTS = (512, 512), 96
 RAW_REL, RAW_CORR = 0.05, 0.999   # raw vis bars (tests/test_fused_vis.py)
 RGB_MAX, RGB_MEAN = 2e-2, 2e-3    # rgb bars (tests/test_fused_vis.py)
 N_RAYS, MARCH_STEPS = 2048, 256  # stage-1 rays per step, march steps
 N_OCC = N_RAYS * MARCH_STEPS      # the march's proposal points per step
+N_SECANT = N_RAYS                 # the points of one secant pass
 N_RAD = N_RAYS * 96               # the integration batch after it > 5000
 OCC_MAX, OCC_CORR = 0.05, 0.9999  # logit bars (tests/test_fused_occ.py)
+OCC_PR4_MAX = 5.5e-3              # the mma.sync kernel's max error (PERF.md)
 GRAD_REL, GRAD_CORR = 2e-2, 0.999   # per-leaf gradient bars
 # f32-operand form: tests/test_fused_radiance.py:39-42 and :73-75
 F32_RGB, F32_GRAD_REL = 1e-5, 2e-4
@@ -169,8 +177,14 @@ def phase_card():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
     info = {"kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
+            "max_sm_clock_mhz": float(clock),
+            "sms": torch.cuda.get_device_properties(0).multi_processor_count,
             "torch": torch.__version__, "cuda": torch.version.cuda}
     log(json.dumps({"card": info}))
     return info
@@ -204,8 +218,8 @@ def kernel_name(sym):
         name = sym[j:j + int(m.group(0))]
         if name.endswith("kernel"):
             rest = sym[j + len(name):j + len(name) + 40]
-            w = re.search(r"Li(\d+)E", rest)
-            return (name + (f"<{w.group(1)}>" if w else "")
+            w = re.findall(r"Li(\d+)E", rest.split("EEv")[0])
+            return (name + (f"<{','.join(w)}>" if w else "")
                     + (" bf16" if "bfloat16" in rest else ""))
         i = j + max(len(name), 1)
     return sym
@@ -236,6 +250,55 @@ def ptxas_registers():
                 rows[kern]["registers"] = int(m.group(1))
         out[name] = rows
     return out
+
+
+def sass_counts(lib_path, kernel, width):
+    """Static SASS instruction counts (cuobjdump -sass) of the kernel
+    instantiation named `kernel` at `width`: special-function (MUFU), FP32
+    pipe (FADD, FMUL, FFMA, FMNMX, FSEL, FSETP, FSET and the F2FP packs),
+    tensor (HGMMA, HMMA) and all instructions, and the MUFU and FP32 counts
+    per MUFU.EX2 (one per softplus in fused_occ)."""
+    import re
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    fp32 = {"FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET", "F2FP"}
+    c = {"mufu": 0, "mufu_ex2": 0, "fp32": 0, "tensor": 0, "total": 0}
+    inside = False
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            inside = kernel in m.group(1) and f"Li{width}E" in m.group(1)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                     r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)", line)
+        if not (inside and m):
+            continue
+        op, mods = m.group(1), m.group(2)
+        c["total"] += 1
+        c["mufu"] += op == "MUFU"
+        c["mufu_ex2"] += op == "MUFU" and ".EX2" in mods
+        c["fp32"] += op in fp32
+        c["tensor"] += op in ("HGMMA", "HMMA")
+    check(c["total"] > 0, f"no SASS of {kernel}<{width}> in {lib_path}")
+    sites = max(c["mufu_ex2"], 1)
+    c["mufu_per_softplus"] = c["mufu"] / sites
+    c["fp32_per_softplus"] = c["fp32"] / sites
+    return c
+
+
+def occ_epilogue_ms(n, ops, counts, card):
+    """The least time of fused_occ's epilogue instructions: per softplus
+    (W of them per point and layer, 1 + n_trunk layers) the SASS's MUFU
+    and FP32 counts, over the SMs' MUFU and FP32 lanes at the card's
+    highest SM clock."""
+    elems = n * ops["width"] * (1 + ops["trunk_wT"].shape[0])
+    per_s = card["sms"] * card["max_sm_clock_mhz"] * 1e6
+    return {"fp32_ms": elems * counts["fp32_per_softplus"]
+            / (FP32_LANES * per_s) * 1e3,
+            "mufu_ms": elems * counts["mufu_per_softplus"]
+            / (MUFU_LANES * per_s) * 1e3}
 
 
 def raw_errors(got, ref):
@@ -331,6 +394,10 @@ def phase_kernels():
         if name == "sum":       # a sum of L values: the bars scale with L
             m["max_abs_err_per_light"] = m["max_abs_err"] / n_l
             m["mean_abs_err_per_light"] = m["mean_abs_err"] / n_l
+            # the light sum's order is fixed: the same bits from run to run
+            m["rerun_bitwise"] = bool(torch.equal(
+                got, fv.fused_vis_shade(*args, **kw)))
+            check(m["rerun_bitwise"], "light sum bitwise from run to run")
         log(json.dumps({f"fused_vis_shade_{name}": m}))
         check(torch.isfinite(got).all(), f"{name} rgb finite")
         scale = n_l if name == "sum" else 1
@@ -358,7 +425,8 @@ def phase_kernels():
               library_ms=lnc["library"], flops=flops,
               modes={k: {kk: v[kk] for kk in ("kernel", "max_abs_err",
                                                "mean_abs_err", "bound_ms")}
-                     for k, v in modes.items()})
+                     for k, v in modes.items()},
+              rerun_bitwise=modes["sum"]["rerun_bitwise"])
     log(json.dumps({"fused_vis_shade_ms": k5}))
     return k4, k5
 
@@ -693,7 +761,7 @@ def time_radiance(field, cfg, p, rd, packed, inputs, g_e, g_out, skip,
     return k2, k3
 
 
-def phase_stage1_kernels():
+def phase_stage1_kernels(card):
     from psnerf_torch.fields.occupancy import (OccFieldConfig,
                                                init_occupancy_field)
     from psnerf_torch.ops import fused_occ as fo
@@ -705,41 +773,62 @@ def phase_stage1_kernels():
     rng = np.random.default_rng(SEED)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=DEV)
 
-    # ---- K1 fused_occ_logit at the march's points
+    # ---- K1 fused_occ_logit at the march's points and a secant pass's;
+    # its bound: the larger of the tensor (or byte) time and the epilogue's
+    # MUFU and FP32 instructions, counted in the built kernel's SASS
+    from psnerf_torch.ops.build import library_path
+
+    sass = sass_counts(library_path("fused_occ"), "occ_kernel",
+                       cfg.hidden_dim)
+    log(json.dumps({"fused_occ_sass": sass}))
+    k1 = None
     with torch.no_grad():
-        p = f(rng.normal(size=(N_OCC, 3)) * 0.6)
         ops = fo.pack_occ_operands(field, cfg)
-        em = fo.occ_embed(p, ops)
-        out = torch.empty((N_OCC,), dtype=torch.float32, device=DEV)
-        got = fo.fused_occ_logit(field, p, cfg)
-        torch.cuda.synchronize()
-        ref = fo._logit_plain(ops, em)
-        err = (got - ref).abs()
-        m1 = {"max_abs_err": err.max().item(),
-              "mean_abs_err": err.mean().item(),
-              "corr": float(np.corrcoef(got.cpu().numpy(),
-                                        ref.cpu().numpy())[0, 1]),
-              "library_max_abs_err": (library_occ(ops, em) - ref).abs().max()
-              .item()}
-        log(json.dumps({"fused_occ_logit": m1}))
-        check(torch.isfinite(got).all(), "fused_occ finite")
-        check(m1["max_abs_err"] < OCC_MAX and m1["corr"] > OCC_CORR,
-              f"fused_occ {m1}")
-        t = in_turns({"plain": lambda: fo._logit_plain(ops, em),
-                      "kernel": lambda: fo._launch(ops, em, out),
-                      "library": lambda: library_occ(ops, em)},
-                     {"plain": 3, "kernel": 10, "library": 5},
-                     ["plain", "kernel", "library", "library", "kernel",
-                      "plain"])
-        flops = occ_flops(N_OCC, ops)
-        op_bytes = nbytes(em, *(ops[k] for k in (
-            "w0T", "b0", "wskipT", "trunk_wT", "trunk_b", "w8", "b8")))
-        b, by = bound_ms(flops, op_bytes + out.numel() * 4)
-        k1 = dict(max_abs_err=m1["max_abs_err"], ms=t["kernel"],
-                  plain_ms=t["plain"], bound_ms=b, bound_by=by,
-                  library_ms=t["library"], flops=flops, n=N_OCC)
-        log(json.dumps({"fused_occ_logit_ms": k1}))
-        del p, em, out, got, ref
+        for n in (N_OCC, N_SECANT):
+            p = f(rng.normal(size=(n, 3)) * 0.6)
+            em = fo.occ_embed(p, ops)
+            out = torch.empty((n,), dtype=torch.float32, device=DEV)
+            got = fo.fused_occ_logit(field, p, cfg)
+            torch.cuda.synchronize()
+            ref = fo._logit_plain(ops, em)
+            err = (got - ref).abs()
+            m1 = {"n": n, "max_abs_err": err.max().item(),
+                  "mean_abs_err": err.mean().item(),
+                  "corr": float(np.corrcoef(got.cpu().numpy(),
+                                            ref.cpu().numpy())[0, 1]),
+                  "library_max_abs_err": (library_occ(ops, em) - ref).abs()
+                  .max().item()}
+            log(json.dumps({"fused_occ_logit": m1}))
+            check(torch.isfinite(got).all(), "fused_occ finite")
+            check(m1["max_abs_err"] < OCC_MAX and m1["corr"] > OCC_CORR
+                  and m1["max_abs_err"] <= 2 * OCC_PR4_MAX, f"fused_occ {m1}")
+            big = n == N_OCC
+            t = in_turns({"plain": lambda: fo._logit_plain(ops, em),
+                          "kernel": lambda: fo._launch(ops, em, out),
+                          "library": lambda: library_occ(ops, em)},
+                         {"plain": 3 if big else 20,
+                          "kernel": 10 if big else 200,
+                          "library": 5 if big else 50},
+                         ["plain", "kernel", "library", "library", "kernel",
+                          "plain"])
+            flops = occ_flops(n, ops)
+            op_bytes = nbytes(em, ops["slabs"], *(ops[k] for k in (
+                "b0", "trunk_b", "w8", "b8")))
+            b_tc, by = bound_ms(flops, op_bytes + out.numel() * 4)
+            epi = occ_epilogue_ms(n, ops, sass, card)
+            b = max(b_tc, epi["fp32_ms"], epi["mufu_ms"])
+            row = dict(max_abs_err=m1["max_abs_err"], ms=t["kernel"],
+                       plain_ms=t["plain"], bound_ms=b,
+                       bound_by=by if b == b_tc else "operations",
+                       library_ms=t["library"], flops=flops, n=n,
+                       bound_parts={"tensor_or_bytes_ms": b_tc,
+                                    "tensor_or_bytes_by": by, **epi})
+            log(json.dumps({"fused_occ_logit_ms": row}))
+            if big:
+                k1 = dict(row, sass=sass)
+            else:
+                k1["at_secant_pass"] = row
+            del p, em, out, got, ref
 
     # ---- K2 / K3 fused_radiance_and_alpha at the integration batch
     p = f(rng.normal(size=(N_RAD, 3)) * 0.5)
@@ -1478,7 +1567,7 @@ def main():
             card = phase_card()
             regs = phase_build()
             k4, k5 = phase_kernels()
-        k1, k2, k3 = phase_stage1_kernels()
+        k1, k2, k3 = phase_stage1_kernels(card)
         k2f, k3f, stages = phase_radiance_f32()
         scene = make_scene()
         with torch.no_grad():
@@ -1504,7 +1593,8 @@ def main():
                                      "bound_tf32_single_ms", "random_sign",
                                      "rerun_bitwise_equal", "stages_ms",
                                      "err_is", "library_note",
-                                     "at_64_samples")
+                                     "at_64_samples", "at_secant_pass",
+                                     "bound_parts", "sass", "rerun_bitwise")
                    if x in k}}
 
     log(json.dumps({"card": card["nvidia_smi"], "main_path": e2e,

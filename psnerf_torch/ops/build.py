@@ -8,7 +8,9 @@ source, all at once, and waits for them; the builds use no PyTorch headers
 (seconds, not minutes), and a failed build raises with nvcc's output.
 
 It also holds what every kernel wrapper shares at the ctypes boundary:
-device routing and the operand checks made before each launch.
+device routing, the operand checks made before each launch, and the k-step
+slab layout in which the trunk kernels (csrc/trunk_wgmma.cuh) stream their
+weights.
 """
 
 from __future__ import annotations
@@ -98,6 +100,33 @@ def load_library(name: str) -> ctypes.CDLL:
 
 def round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def pack_slabs(mats) -> torch.Tensor:
+    """Weights [W, K] (out, in) as one flat run of k-step slabs, in the
+    given order: slab ks of a matrix holds w[n][16 ks + k] at element
+    (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8, wgmma's K-major
+    core-matrix layout without swizzle (8 rows x 16 bytes per core
+    matrix). K is a multiple of 16, W of 8."""
+    runs = []
+    for w in mats:
+        n, k = w.shape
+        runs.append(w.reshape(n // 8, 8, k // 16, 2, 8)
+                    .permute(2, 0, 3, 1, 4).reshape(-1))
+    return torch.cat(runs).contiguous()
+
+
+def unpack_slabs(slabs: torch.Tensor, width: int, depths) -> list:
+    """The matrices [width, K] of a pack_slabs run, K from `depths`."""
+    out, at = [], 0
+    for k in depths:
+        size = width * k
+        out.append(slabs[at:at + size].reshape(k // 16, width // 8, 2, 8, 8)
+                   .permute(1, 3, 0, 2, 4).reshape(width, k))
+        at += size
+    if at != slabs.numel():
+        raise ValueError(f"{slabs.numel()} slab elements, {at} unpacked")
+    return out
 
 
 def route(t: torch.Tensor) -> str:

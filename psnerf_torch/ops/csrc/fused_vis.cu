@@ -3,41 +3,48 @@
 //
 // Replaces the Pallas TPU kernels of psnerf_tpu/ops/fused_vis.py:
 //   * fused_visibility (_vis_kernel over _accumulate_vis): raw, pre-clip
-//     visibility [L, N] of the relu 8x256 trunk with a skip at layer 4;
+//     visibility [L, N] of the relu 8x256 trunk with a skip at layer 4
+//     (mode RAW below);
 //   * fused_vis_shade (_vis_shade_kernel): that trunk, then clip to [0, 1]
 //     and the SG shading epilogue, as rgb [L, N, 3], [3, N, L] or the light
-//     sum [N, 3].
+//     sum [N, 3] (modes LNC, CNL, SUM).
 //
-// What bounds it: operations. Each (light, pixel) pair runs seven dependent
-// 256x256 bf16 products (about 0.92 MFLOP); a 512x512 x 96-light frame is
-// about 23 TFLOP against well under 1 GB of inputs and outputs, so the
-// tensor cores, not memory, are the limit.
+// What bounds it: the tensor cores. Each (light, pixel) pair runs seven
+// dependent 256x256 bf16 products (about 0.92 MFLOP); a 65,536-pixel x
+// 96-light frame is 5.8 ms of them at 989 TFLOP/s, against well under
+// 1 GB of inputs and outputs. Next comes L2: the ~0.9 MB trunk is read
+// once for every group of rows that shares it.
 //
-// Design: one CTA of 8 warps owns 64 pixel rows and loops over every light,
-// as the TPU grid step does. The light-independent halves of layer 0 and of
-// the skip layer (A0 = em @ W0x, B5 = em @ W5x) are computed once per CTA
-// and kept in shared memory as f32. A [64, W] bf16 activation tile stays in
-// shared memory across the layers; each warp owns W/8 output columns and
-// runs bf16 mma.sync (m16n8k16, f32 accumulators) over the whole tile, with
-// its weight fragments read straight from global memory: the ~1 MB trunk
-// stays resident in the 50 MB L2. The last layer's dot with w8 is reduced in
-// f32 from the relu output, without rounding it to bf16. Every output
-// element has exactly one writer, so nothing needs atomics. wgmma, TMA and
-// warp specialisation are left for later.
+// Design (the engine of trunk_wgmma.cuh): a CTA owns 64 pixels, and a
+// cluster of two CTAs walks pairs of pixel tiles persistently; each CTA's
+// two consumer warpgroups take the tile's lights in turn (warpgroup w the
+// lights w, w + 2, ...), as the TPU kernel stacks light pairs along its
+// rows, and the two CTAs share every slab load (multicast), so each weight
+// byte read from L2 serves 256 (pixel, light) rows. The light-independent
+// halves of layer 0 and of the skip layer (A0 = em @ W0x, B5 = em @ W5x, A
+// from the embedding tile in shared memory) are computed once per tile and
+// kept in shared memory as f32, in the accumulator layout (each thread
+// reads its own values, conflict-free). Each layer is wgmma m64nWk16 with A from
+// registers; the relu epilogue writes the next layer's bf16 A fragments in
+// registers. The last layer's dot with w8 is reduced in f32 from the relu
+// output, without rounding it to bf16; the shading epilogue runs per
+// (pixel, light) on the lanes that hold the row's sum. The light sum adds
+// each warpgroup's lights in order, then warpgroup 0's partial and
+// warpgroup 1's, so it is the same from run to run. Every output element
+// has one writer. The relu epilogue is short, so the warpgroups share the
+// ring without a ping-pong (the W = 256 ring, beside A0 and B5, holds less
+// than one layer of slabs).
 //
 // Rounding points, as in the TPU kernel: activations are rounded to bf16
 // before each trunk product; A0 + r0 and (acc + B5) + r5 are added in f32;
 // the skip layer's bias lives in r5.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "trunk_wgmma.cuh"
+
+using namespace trunk;
 
 namespace {
 
-constexpr int BM = 64;             // pixel rows per CTA
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
 constexpr int PIXW = 40;           // floats per pixel of shading inputs
 constexpr int MAX_BASIS = 9;
 
@@ -50,11 +57,9 @@ enum Mode { RAW = 0, LNC = 1, CNL = 2, SUM = 3 };
 
 struct Params {
   const __nv_bfloat16* em;       // [N, ke] bf16 point embedding (zero-padded)
-  const __nv_bfloat16* w0xT;     // [W, ke] layer-0 point rows, transposed
-  const __nv_bfloat16* w5xT;     // [W, ke] skip-layer point rows, transposed
+  const unsigned char* slabs;    // w0x | w5x | trunk, packed (ops/fused_vis.py)
   const float* r0;               // [L, W] layer-0 light rows + bias
   const float* r5;               // [L, W] skip-layer light rows + bias
-  const __nv_bfloat16* trunk_wT; // [n_trunk, W, W] (out, in)
   const float* trunk_b;          // [n_trunk, W] (skip row unused)
   const float* w8;               // [W] bf16-rounded output row
   const float* b8;               // [1] output bias (read on the device)
@@ -63,249 +68,241 @@ struct Params {
   const float* lint;             // [L, 3] per-channel intensity
   float* out;
   float lobes[MAX_BASIS];
-  int n, ke, n_lights, n_trunk, n_pre, nbasis, specular_rgb;
+  int n, ke, n_lights, n_trunk, n_pre, nbasis, specular_rgb, ring;
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0,
-                                               uint32_t a1, uint32_t a2,
-                                               uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// acc[i][j] = act[i*16.., :K] @ wT[n_base + j*8.., :K]^T for this warp's
-// columns. act: shared [BM][W + 8] bf16; wT: global [W][K] bf16.
-// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A regs: (row g, k 2t..) (row g+8, k 2t..) (row g, k 2t+8..) (row g+8, k 2t+8..)
-//   B regs: (k 2t.., col g) (k 2t+8.., col g)
-//   C: c0,c1 row g cols 2t, 2t+1; c2,c3 row g+8.
+// acc (the accumulator layout) <-> a [W/8 x 128] float4 tile in shared
+// memory, element (j, thread) at j * 128 + thread
 template <int W>
-__device__ __forceinline__ void warp_gemm(const __nv_bfloat16* act, int K,
-                                          const __nv_bfloat16* __restrict__ wT,
-                                          float (&acc)[4][W / 64][4],
-                                          int n_base, int g, int t) {
-  constexpr int NT = W / 64;
-  constexpr int LDA = W + 8;
+__device__ __forceinline__ void store_frag(float4* dst, const float (&acc)[W / 2]) {
+  const int tw = threadIdx.x & 127;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+  for (int j = 0; j < W / 8; ++j)
+    dst[j * 128 + tw] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                                    acc[4 * j + 3]);
+}
 
-#pragma unroll 4
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t b[NT][2];
+// SG shading of one (pixel, light): rgb in [0, 1], 1.0 off the mask
+__device__ __forceinline__ void shade(const Params& p, const float* px, int l,
+                                      float raw, float (&rgb)[3]) {
+  const float lx = __ldg(p.ld + l * 3), ly = __ldg(p.ld + l * 3 + 1),
+              lz = __ldg(p.ld + l * 3 + 2);
+  const float cosv = px[0] * lx + px[1] * ly + px[2] * lz;
+  const float lv = px[3] * lx + px[4] * ly + px[5] * lz;
+  const float vis = fminf(fmaxf(raw, 0.f), 1.f);
+  // h.n = (l.n + v.n) / max(|l + v|, eps), |l + v|^2 = 2 + 2 l.v for unit
+  // l, v; the clamps keep near-antipodal lights finite
+  const float hn = (cosv + px[PIX_VN]) /
+                   fmaxf(sqrtf(fmaxf(2.f + 2.f * lv, 0.f)), 1e-12f);
+  const float em1 = fminf(hn - 1.f, 0.f);
+  float ds[MAX_BASIS];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* p = wT + (size_t)(n_base + j * 8 + g) * K + k0 + 2 * t;
-      b[j][0] = ldg_u32(p);
-      b[j][1] = ldg_u32(p + 8);
+  for (int b = 0; b < MAX_BASIS; ++b)
+    ds[b] = b < p.nbasis ? expf(p.lobes[b] * em1) : 0.f;
+  const float cv = cosv * vis;
+  const bool inside = px[PIX_MASK] > 0.5f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float s_c = 0.f;
+#pragma unroll
+    for (int b = 0; b < MAX_BASIS; ++b) {
+      if (b < p.nbasis) {
+        const int col = p.specular_rgb ? c * p.nbasis + b : b;
+        s_c = s_c + px[PIX_W + col] * ds[b];
+      }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat16* pa = act + (i * 16 + g) * LDA + k0 + 2 * t;
-      const uint32_t a0 = ld_u32(pa);
-      const uint32_t a1 = ld_u32(pa + 8 * LDA);
-      const uint32_t a2 = ld_u32(pa + 8);
-      const uint32_t a3 = ld_u32(pa + 8 * LDA + 8);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        mma_bf16_16816(acc[i][j], a0, a1, a2, a3, b[j][0], b[j][1]);
-    }
+    s_c = fmaxf(s_c, 0.f);
+    const float v = fminf(
+        fmaxf((px[PIX_ALB + c] + s_c) * __ldg(p.lint + l * 3 + c) * cv, 0.f),
+        1.f);
+    rgb[c] = inside ? v : 1.f;
   }
 }
 
 template <int W, int MODE>
-__global__ void __launch_bounds__(NTHREADS, 1) fused_vis_kernel(const Params p) {
-  constexpr int NT = W / 64;
-  constexpr int LDA = W + 8;     // bf16 activation row stride (bank spread)
-  constexpr int LDF = W + 8;     // f32 A0/B5 row stride
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* a0s = reinterpret_cast<float*>(smem);                 // [BM][LDF]
-  float* b5s = a0s + BM * LDF;                                 // [BM][LDF]
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(b5s + BM * LDF);
-  float* red = reinterpret_cast<float*>(act + BM * LDA);       // [NWARPS][BM]
-  float* pixs = red + NWARPS * BM;                             // [BM][PIXW]
+__global__ void __launch_bounds__(NTHREADS, 1) vis_kernel(const Params p) {
+  constexpr int KS = W / 16;
+  constexpr uint32_t SLAB = W * 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kes = p.ke / 16;
+  RingSpec rs;
+  rs.ring = p.ring;
+  rs.slab = SLAB;
+  rs.slots = smem;
+  rs.rank = cluster_rank();
+  float4* a0s = reinterpret_cast<float4*>(smem + (size_t)p.ring * SLAB);
+  float4* b5s = a0s + (W / 8) * 128;
+  unsigned char* emt = reinterpret_cast<unsigned char*>(b5s + (W / 8) * 128);
+  float* pixs = reinterpret_cast<float*>(emt + kes * A_KSTEP);  // [ROWS][PIXW]
+  float* tb = pixs + ROWS * PIXW;                               // [n_trunk][W]
+  float* w8s = tb + (size_t)p.n_trunk * W;                      // [W]
+  float* xsum = w8s + W;                                        // [ROWS][4]
+  rs.full = reinterpret_cast<uint64_t*>(xsum + ROWS * 4);
+  rs.empty = rs.full + MAX_RING;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_base = warp * (W / NWARPS);
-  const int row0 = blockIdx.x * BM;
+  for (int i = threadIdx.x; i < p.n_trunk * W; i += NTHREADS) tb[i] = p.trunk_b[i];
+  for (int i = threadIdx.x; i < W; i += NTHREADS) w8s[i] = p.w8[i];
+  ring_init(rs);
+  cluster_sync();                          // the barriers, before any copy
+
+  const int wg = threadIdx.x >> 7;
   const int N = p.n, L = p.n_lights;
+  const int tiles = (N + ROWS - 1) / ROWS;
+  const int pairs = (L + NCONS - 1) / NCONS;       // light turns per warpgroup
+  // the cluster walks tile pairs in step: CTA rank r takes tile base + r
+  // (past the last tile it computes masked rows and writes nothing)
+  const int first = (int)blockIdx.x - (int)rs.rank;
+  const int steps = (tiles - first + (int)gridDim.x - 1) / (int)gridDim.x;
+
+  if (wg == NCONS) {                       // producer
+    set_max_regs_dec<24>();
+    if ((threadIdx.x & 127) == 0) {
+      Producer pr;
+      pr.s = rs;
+      pr.src = p.slabs;
+      for (int k = 0; k < steps; ++k) {
+        pr.stream(0, 2 * kes);
+        for (int lp = 0; lp < pairs; ++lp) pr.stream(2 * kes, p.n_trunk * KS);
+      }
+    }
+    cluster_sync();                        // no CTA leaves while its peer
+    return;                                // may still signal it
+  }
+
+  set_max_regs_inc<240>();
+  Consumer c;
+  c.s = rs;
+  const int tc = threadIdx.x;                      // 0..255 over consumers
+  const int tw = threadIdx.x & 127, t = threadIdx.x & 3;
+  const int rl = row_lo() + (t == 1 ? 8 : 0);      // the row this lane shades
   const float b8 = __ldg(p.b8);
+  float acc[W / 2];
+  uint32_t a[KS][4];
 
-  // point embedding tile -> act (rows past N are zero)
-  const int kw = p.ke / 2;
-  for (int idx = tid; idx < BM * kw; idx += NTHREADS) {
-    const int r = idx / kw, c = (idx % kw) * 2;
-    uint32_t v = 0;
-    if (row0 + r < N) v = ld_u32(p.em + (size_t)(row0 + r) * p.ke + c);
-    *reinterpret_cast<uint32_t*>(act + r * LDA + c) = v;
-  }
-  if (MODE != RAW) {
-    for (int idx = tid; idx < BM * PIXW; idx += NTHREADS) {
-      const int r = idx / PIXW;
-      pixs[idx] = (row0 + r < N) ? p.pix[(size_t)row0 * PIXW + idx] : 0.f;
-    }
-  }
-  __syncthreads();
-
-  float acc[4][NT][4];
-  // A0 and B5: the light-independent halves, once per tile
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    warp_gemm<W>(act, p.ke, pass == 0 ? p.w0xT : p.w5xT, acc, n_base, g, t);
-    float* dst = pass == 0 ? a0s : b5s;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = i * 16 + g + (r >> 1) * 8;
-          const int col = n_base + j * 8 + 2 * t + (r & 1);
-          dst[row * LDF + col] = acc[i][j][r];
-        }
-  }
-  __syncthreads();
-
-  float rgb_sum[3] = {0.f, 0.f, 0.f};
-  for (int l = 0; l < L; ++l) {
-    // layer 0: relu(A0 + r0[l]), rounded to bf16 for the first trunk product
-    const float* r0l = p.r0 + (size_t)l * W;
-    for (int idx = tid; idx < BM * W; idx += NTHREADS) {
-      const int r = idx / W, c = idx % W;
-      act[r * LDA + c] = __float2bfloat16_rn(fmaxf(a0s[r * LDF + c] + r0l[c], 0.f));
-    }
-    __syncthreads();
-
-    for (int li = 0; li < p.n_trunk; ++li) {
-      warp_gemm<W>(act, W, p.trunk_wT + (size_t)li * W * W, acc, n_base, g, t);
-      __syncthreads();  // every warp has finished reading act
-      const bool skip = li == p.n_pre;
-      const bool last = li == p.n_trunk - 1;
-      const float* bias = p.trunk_b + (size_t)li * W;
-      const float* r5l = p.r5 + (size_t)l * W;
-      float part[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = i * 16 + g + h * 8;
-            const int col = n_base + j * 8 + 2 * t;
-            float y[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float a = acc[i][j][h * 2 + e];
-              const float pre = skip ? (a + b5s[row * LDF + col + e]) + r5l[col + e]
-                                     : a + bias[col + e];
-              y[e] = fmaxf(pre, 0.f);
-            }
-            if (last) {
-              part[i][h] += y[0] * p.w8[col] + y[1] * p.w8[col + 1];
-            } else {
-              *reinterpret_cast<__nv_bfloat162*>(act + row * LDA + col) =
-                  __floats2bfloat162_rn(y[0], y[1]);
-            }
-          }
-      if (last) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float v = part[i][h];
-            v += __shfl_xor_sync(0xffffffffu, v, 1);
-            v += __shfl_xor_sync(0xffffffffu, v, 2);
-            if (t == 0) red[warp * BM + i * 16 + g + h * 8] = v;
-          }
+  for (int k = 0; k < steps; ++k) {
+    const int tile = first + k * (int)gridDim.x + (int)rs.rank;
+    const int row0 = tile * ROWS;
+    bar_sync(BAR_CONS, NCONS * 128);     // the previous tile is done with smem
+    load_a_tile(emt, p.em, row0, N, p.ke, tc, NCONS * 128);
+    if (MODE != RAW) {
+      for (int idx = tc; idx < ROWS * PIXW; idx += NCONS * 128) {
+        const int r = idx / PIXW;
+        pixs[idx] = (row0 + r < N) ? p.pix[(size_t)row0 * PIXW + idx] : 0.f;
       }
-      __syncthreads();
     }
+    fence_async_shared();
+    bar_sync(BAR_CONS, NCONS * 128);
 
-    if (tid < BM && row0 + tid < N) {
-      float s = 0.f;
+    // A0 and B5, the light-independent halves, once per tile
+    c.product_smem<W>(acc, emt, kes, false);
+    c.drain(acc);
+    if (wg == 0) store_frag<W>(a0s, acc);
+    c.product_smem<W>(acc, emt, kes, false);
+    c.drain(acc);
+    if (wg == 1) store_frag<W>(b5s, acc);
+    bar_sync(BAR_CONS, NCONS * 128);
+
+    float rgb_sum[3] = {0.f, 0.f, 0.f};
+#pragma unroll 1
+    for (int lp = 0; lp < pairs; ++lp) {
+      const int l_real = lp * NCONS + wg;
+      const bool live = l_real < L;      // the last turn may have no light
+      const int l = live ? l_real : L - 1;
+
+      // layer 0: relu(A0 + r0[l]), rounded to bf16 for the first product
+      const float* r0l = p.r0 + (size_t)l * W;
 #pragma unroll
-      for (int w = 0; w < NWARPS; ++w) s += red[w * BM + tid];
-      const float raw = s + b8;
-      const int n = row0 + tid;
-      if (MODE == RAW) {
-        p.out[(size_t)l * N + n] = raw;
-      } else {
-        const float* px = pixs + tid * PIXW;
-        const float lx = p.ld[l * 3], ly = p.ld[l * 3 + 1], lz = p.ld[l * 3 + 2];
-        const float cosv = px[0] * lx + px[1] * ly + px[2] * lz;
-        const float lv = px[3] * lx + px[4] * ly + px[5] * lz;
-        const float vis = fminf(fmaxf(raw, 0.f), 1.f);
-        // h.n = (l.n + v.n) / max(|l + v|, eps), |l + v|^2 = 2 + 2 l.v for
-        // unit l, v; the clamps keep near-antipodal lights finite
-        const float hn = (cosv + px[PIX_VN]) /
-                         fmaxf(sqrtf(fmaxf(2.f + 2.f * lv, 0.f)), 1e-12f);
-        const float em1 = fminf(hn - 1.f, 0.f);
-        float ds[MAX_BASIS];
+      for (int j = 0; j < W / 8; ++j) {
+        const float4 v = a0s[j * 128 + tw];
+        const float2 r = __ldg(reinterpret_cast<const float2*>(r0l + 8 * j + 2 * t));
+        acc[4 * j + 0] = fmaxf(v.x + r.x, 0.f);
+        acc[4 * j + 1] = fmaxf(v.y + r.y, 0.f);
+        acc[4 * j + 2] = fmaxf(v.z + r.x, 0.f);
+        acc[4 * j + 3] = fmaxf(v.w + r.y, 0.f);
+      }
+      to_afrag<W>(acc, a);
+
+#pragma unroll 1
+      for (int li = 0; li < p.n_trunk; ++li) {
+        c.product<W>(acc, a, false);
+        c.drain(acc);
+        if (li == p.n_pre) {
+          const float* r5l = p.r5 + (size_t)l * W;
 #pragma unroll
-        for (int b = 0; b < MAX_BASIS; ++b)
-          ds[b] = b < p.nbasis ? expf(p.lobes[b] * em1) : 0.f;
-        const float cv = cosv * vis;
-        const bool inside = px[PIX_MASK] > 0.5f;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          float s_c = 0.f;
-#pragma unroll
-          for (int b = 0; b < MAX_BASIS; ++b) {
-            if (b < p.nbasis) {
-              const int col = p.specular_rgb ? c * p.nbasis + b : b;
-              s_c = s_c + px[PIX_W + col] * ds[b];
-            }
+          for (int j = 0; j < W / 8; ++j) {
+            const float4 v = b5s[j * 128 + tw];
+            const float2 r = __ldg(reinterpret_cast<const float2*>(r5l + 8 * j + 2 * t));
+            acc[4 * j + 0] = fmaxf((acc[4 * j + 0] + v.x) + r.x, 0.f);
+            acc[4 * j + 1] = fmaxf((acc[4 * j + 1] + v.y) + r.y, 0.f);
+            acc[4 * j + 2] = fmaxf((acc[4 * j + 2] + v.z) + r.x, 0.f);
+            acc[4 * j + 3] = fmaxf((acc[4 * j + 3] + v.w) + r.y, 0.f);
           }
-          s_c = fmaxf(s_c, 0.f);
-          float v = fminf(fmaxf((px[PIX_ALB + c] + s_c) * p.lint[l * 3 + c] * cv, 0.f), 1.f);
-          v = inside ? v : 1.f;
-          if (MODE == LNC) p.out[((size_t)l * N + n) * 3 + c] = v;
-          if (MODE == CNL) p.out[((size_t)c * N + n) * L + l] = v;
-          if (MODE == SUM) rgb_sum[c] += v;
+        } else {
+          const float* bias = tb + (size_t)li * W;
+#pragma unroll
+          for (int j = 0; j < W / 8; ++j) {
+            const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);
+            acc[4 * j + 0] = fmaxf(acc[4 * j + 0] + b.x, 0.f);
+            acc[4 * j + 1] = fmaxf(acc[4 * j + 1] + b.y, 0.f);
+            acc[4 * j + 2] = fmaxf(acc[4 * j + 2] + b.x, 0.f);
+            acc[4 * j + 3] = fmaxf(acc[4 * j + 3] + b.y, 0.f);
+          }
+        }
+        if (li < p.n_trunk - 1) to_afrag<W>(acc, a);
+      }
+
+      float lo, hi;
+      row_dot<W>(acc, w8s, lo, hi);
+      const int n = row0 + rl;
+      if (t < 2 && live && n < N) {
+        const float raw = (t == 0 ? lo : hi) + b8;
+        if (MODE == RAW) {
+          p.out[(size_t)l * N + n] = raw;
+        } else {
+          float rgb[3];
+          shade(p, pixs + rl * PIXW, l, raw, rgb);
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            if (MODE == LNC) p.out[((size_t)l * N + n) * 3 + ch] = rgb[ch];
+            if (MODE == CNL) p.out[((size_t)ch * N + n) * L + l] = rgb[ch];
+            if (MODE == SUM) rgb_sum[ch] += rgb[ch];
+          }
         }
       }
     }
-  }
-  if (MODE == SUM && tid < BM && row0 + tid < N) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) p.out[(size_t)(row0 + tid) * 3 + c] = rgb_sum[c];
-  }
-}
 
-template <int W>
-constexpr size_t smem_bytes(int mode) {
-  return 2 * (size_t)BM * (W + 8) * sizeof(float) +
-         (size_t)BM * (W + 8) * sizeof(__nv_bfloat16) +
-         (size_t)NWARPS * BM * sizeof(float) +
-         (mode == RAW ? 0 : (size_t)BM * PIXW * sizeof(float));
+    if (MODE == SUM) {                   // warpgroup 0's lights, then 1's
+      if (wg == 1 && t < 2) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) xsum[rl * 4 + ch] = rgb_sum[ch];
+      }
+      bar_sync(BAR_CONS, NCONS * 128);
+      const int n = row0 + rl;
+      if (wg == 0 && t < 2 && n < N) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          p.out[(size_t)n * 3 + ch] = rgb_sum[ch] + xsum[rl * 4 + ch];
+      }
+    }
+  }
+  cluster_sync();
 }
 
 template <int W, int MODE>
-cudaError_t launch_mode(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<W>(MODE);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_vis_kernel<W, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int grid = (p.n + BM - 1) / BM;
-  fused_vis_kernel<W, MODE><<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+cudaError_t launch_mode(Params p, cudaStream_t stream) {
+  const int kes = p.ke / 16;
+  const size_t fixed = 2 * (size_t)ROWS * W * sizeof(float) +
+                       (size_t)kes * A_KSTEP +
+                       (size_t)ROWS * PIXW * sizeof(float) +
+                       (size_t)(p.n_trunk + 1) * W * sizeof(float) +
+                       (size_t)ROWS * 4 * sizeof(float);
+  p.ring = ring_slots(fixed, (size_t)W * 32);
+  if (p.ring < LAG + 1) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)p.ring * W * 32 + fixed +
+                      2 * MAX_RING * sizeof(uint64_t);
+  const int tiles = (p.n + ROWS - 1) / ROWS;
+  cudaError_t err = launch_clusters(vis_kernel<W, MODE>, p, tiles, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int W>
@@ -324,25 +321,23 @@ cudaError_t launch_width(int mode, const Params& p, cudaStream_t stream) {
 // Returns a cudaError_t (0 = cudaSuccess). mode: 0 raw vis [L, N];
 // 1 rgb [L, N, 3]; 2 rgb [3, N, L]; 3 light-sum rgb [N, 3].
 // width must be 64, 128 or 256; ke a multiple of 16 no larger than width;
-// nbasis at most 9. Shading pointers may be null in mode 0.
+// nbasis at most 9. slabs: w0x, w5x and the trunk packed as k-step slabs
+// (trunk_wgmma.cuh). Shading pointers may be null in mode 0.
 extern "C" int psnerf_fused_vis(
-    int mode, int width, const void* em, int n, int ke, const void* w0xT,
-    const void* w5xT, const void* r0, const void* r5, int n_lights,
-    const void* trunk_wT, const void* trunk_b, int n_trunk, int n_pre,
-    const void* w8, const void* b8, const void* pix, const void* ld,
-    const void* lint, const float* lobes, int nbasis, int specular_rgb,
-    void* out, void* stream) {
+    int mode, int width, const void* em, int n, int ke, const void* slabs,
+    const void* r0, const void* r5, int n_lights, const void* trunk_b,
+    int n_trunk, int n_pre, const void* w8, const void* b8, const void* pix,
+    const void* ld, const void* lint, const float* lobes, int nbasis,
+    int specular_rgb, void* out, void* stream) {
   if (n <= 0 || n_lights <= 0) return cudaSuccess;
   if (ke <= 0 || ke % 16 != 0 || ke > width || nbasis < 0 ||
       nbasis > MAX_BASIS || n_trunk < 1 || n_pre < 0 || n_pre >= n_trunk)
     return cudaErrorInvalidValue;
   Params p;
   p.em = static_cast<const __nv_bfloat16*>(em);
-  p.w0xT = static_cast<const __nv_bfloat16*>(w0xT);
-  p.w5xT = static_cast<const __nv_bfloat16*>(w5xT);
+  p.slabs = static_cast<const unsigned char*>(slabs);
   p.r0 = static_cast<const float*>(r0);
   p.r5 = static_cast<const float*>(r5);
-  p.trunk_wT = static_cast<const __nv_bfloat16*>(trunk_wT);
   p.trunk_b = static_cast<const float*>(trunk_b);
   p.w8 = static_cast<const float*>(w8);
   p.pix = static_cast<const float*>(pix);

@@ -30,8 +30,8 @@ import torch
 
 from psnerf_torch.core.encoding import nerf_embed
 from psnerf_torch.fields.mlp import wn_weight
-from psnerf_torch.ops.build import (check_operand, load_library, round_up,
-                                    route)
+from psnerf_torch.ops.build import (check_operand, load_library, pack_slabs,
+                                    round_up, route)
 
 KERNEL_WIDTHS = (128, 256)
 _lib_handle = []
@@ -84,6 +84,14 @@ def pack_occ_operands(field, cfg) -> dict:
         trunk_b=c(g["trunk_b"].float()),
         w8=c(g["w_out"][:, 0].to(torch.bfloat16).float()),
         b8=c(g["b_out"][0:1].float()))
+
+
+def occ_slabs(ops: dict) -> torch.Tensor:
+    """The kernel's packing of the products' weights: k-step slabs
+    (build.pack_slabs) in the order the kernel reads them: w0, trunk 0 ..
+    n_pre, wskip, the rest of the trunk."""
+    trunk, k = list(ops["trunk_wT"]), ops["n_pre"] + 1
+    return pack_slabs([ops["w0T"], *trunk[:k], ops["wskipT"], *trunk[k:]])
 
 
 def occ_embed(p: torch.Tensor, ops: dict) -> torch.Tensor:
@@ -144,15 +152,15 @@ def _launch(ops: dict, em: torch.Tensor, out: torch.Tensor) -> None:
         raise ValueError(f"the fused_occ kernel takes embeddings up to 64 "
                          f"wide, got {ops['e']}")
     nt = ops["trunk_wT"].shape[0]
+    if "slabs" not in ops:                 # once per packing
+        ops["slabs"] = occ_slabs(ops)
     bf, f32 = torch.bfloat16, torch.float32
-    names = ("em", "w0T", "b0", "wskipT", "trunk_wT", "trunk_b", "w8", "b8",
-             "out")
+    names = ("em", "slabs", "b0", "trunk_b", "w8", "b8", "out")
     tensors = dict(ops, em=em, out=out)
     for name, dtype, shape in (
-            ("em", bf, (n, ke)), ("w0T", bf, (w, ke)), ("b0", f32, (w,)),
-            ("wskipT", bf, (w, ke)), ("trunk_wT", bf, (nt, w, w)),
-            ("trunk_b", f32, (nt, w)), ("w8", f32, (w,)), ("b8", f32, (1,)),
-            ("out", f32, (n,))):
+            ("em", bf, (n, ke)), ("slabs", bf, (w * (2 * ke + nt * w),)),
+            ("b0", f32, (w,)), ("trunk_b", f32, (nt, w)), ("w8", f32, (w,)),
+            ("b8", f32, (1,)), ("out", f32, (n,))):
         check_operand(name, tensors[name], dtype, shape, dev)
     ptrs = (ctypes.c_void_p * len(names))(
         *[tensors[k].data_ptr() for k in names])

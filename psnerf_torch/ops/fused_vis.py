@@ -31,8 +31,8 @@ import ctypes
 import torch
 
 from psnerf_torch.fields.brdf import SG_LOBES
-from psnerf_torch.ops.build import (check_operand, load_library, round_up,
-                                    route)
+from psnerf_torch.ops.build import (check_operand, load_library, pack_slabs,
+                                    round_up, route)
 
 KERNEL_WIDTHS = (64, 128, 256)
 MAX_BASIS = 9
@@ -96,6 +96,12 @@ def pack_vis_operands(layers, point_emb: torch.Tensor,
         w8=layers[-1].w[:, 0].to(bf).float().contiguous(),
         b8=layers[-1].b.reshape(1).float().contiguous(),
     )
+
+
+def vis_slabs(ops: dict) -> torch.Tensor:
+    """The kernel's packing of w0xT, w5xT and the trunk, in that order, as
+    k-step slabs (build.pack_slabs)."""
+    return pack_slabs([ops["w0xT"], ops["w5xT"], *ops["trunk_wT"]])
 
 
 def pack_shade_operands(normal, view, albedo, weights, mask, light_dirs,
@@ -171,7 +177,13 @@ def _shade_plain(raw: torch.Tensor, sh: dict, mode: str) -> torch.Tensor:
                           0.0, 1.0)
         chans.append(torch.where(inside, rgb, torch.ones_like(rgb)))
     if mode == "sum":
-        return torch.stack(chans, dim=-1).sum(dim=0)       # [N, 3]
+        # the kernel's order: lights 0, 2, 4, ... and 1, 3, 5, ... each
+        # added in turn, then the two partial sums
+        rgb = torch.stack(chans, dim=-1)                   # [L, N, 3]
+        part = [torch.zeros_like(rgb[0]), torch.zeros_like(rgb[0])]
+        for i in range(rgb.shape[0]):
+            part[i % 2] = part[i % 2] + rgb[i]
+        return part[0] + part[1]                           # [N, 3]
     if mode == "cnl":
         return torch.stack(chans, dim=0).permute(0, 2, 1).contiguous()
     return torch.stack(chans, dim=-1)                      # [L, N, 3]
@@ -207,7 +219,7 @@ def _lib():
         lib = load_library("fused_vis")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.psnerf_fused_vis.argtypes = [
-            i, i, p, i, i, p, p, p, p, i, p, p, i, i, p, p, p, p, p,
+            i, i, p, i, i, p, p, p, i, p, i, i, p, p, p, p, p,
             ctypes.POINTER(ctypes.c_float), i, i, p, p]
         lib.psnerf_fused_vis.restype = ctypes.c_int
         lib.psnerf_cuda_error_string.argtypes = [ctypes.c_int]
@@ -228,12 +240,13 @@ def _launch(mode: str, ops: dict, sh: dict | None, out: torch.Tensor) -> None:
         raise ValueError(f"embedding width {ops['e']} exceeds the trunk "
                          f"width {w}")
     nt = ops["trunk_wT"].shape[0]
+    if "slabs" not in ops:
+        ops["slabs"] = vis_slabs(ops)
     bf, f32 = torch.bfloat16, torch.float32
     for name, dtype, shape in (
-            ("em", bf, (n, ke)), ("w0xT", bf, (w, ke)), ("w5xT", bf, (w, ke)),
+            ("em", bf, (n, ke)), ("slabs", bf, (w * (2 * ke + nt * w),)),
             ("r0", f32, (n_l, w)), ("r5", f32, (n_l, w)),
-            ("trunk_wT", bf, (nt, w, w)), ("trunk_b", f32, (nt, w)),
-            ("w8", f32, (w,)), ("b8", f32, (1,))):
+            ("trunk_b", f32, (nt, w)), ("w8", f32, (w,)), ("b8", f32, (1,))):
         check_operand(name, ops[name], dtype, shape, dev)
     if sh is not None:
         check_operand("pix", sh["pix"], f32, (n, PIXW), dev)
@@ -246,9 +259,9 @@ def _launch(mode: str, ops: dict, sh: dict | None, out: torch.Tensor) -> None:
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib = _lib()
         rc = lib.psnerf_fused_vis(
-            _MODES[mode], w, ptr(ops["em"]), n, ke, ptr(ops["w0xT"]),
-            ptr(ops["w5xT"]), ptr(ops["r0"]), ptr(ops["r5"]), n_l,
-            ptr(ops["trunk_wT"]), ptr(ops["trunk_b"]), nt, ops["n_pre"],
+            _MODES[mode], w, ptr(ops["em"]), n, ke, ptr(ops["slabs"]),
+            ptr(ops["r0"]), ptr(ops["r5"]), n_l, ptr(ops["trunk_b"]), nt,
+            ops["n_pre"],
             ptr(ops["w8"]), ptr(ops["b8"]),
             ptr(sh and sh["pix"]), ptr(sh and sh["ld"]),
             ptr(sh and sh["lint"]), lobes, sh["nbasis"] if sh else 0,

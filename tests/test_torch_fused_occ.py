@@ -75,3 +75,34 @@ def test_packing_refuses_two_skips():
     field = occ.init_occupancy_field(cfg)
     with pytest.raises(ValueError, match="one skip"):
         fo.pack_occ_operands(field, cfg)
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_slab_packing_unpacks_to_the_operands(width):
+    """The kernel's k-step slabs, unpacked by the plain inverse of their
+    layout, give back pack_occ_operands' matrices bit for bit, in the
+    order the kernel reads them; and one slab element sits where
+    trunk_wgmma.cuh says."""
+    from psnerf_torch.ops.build import unpack_slabs
+
+    cfg = occ.OccFieldConfig(num_layers=6, hidden_dim=width,
+                             feat_size=width, skips=(3,))
+    field = occ.init_occupancy_field(
+        cfg, generator=torch.Generator().manual_seed(width))
+    ops = fo.pack_occ_operands(field, cfg)
+    slabs = fo.occ_slabs(ops)
+    ke, k = ops["ke"], ops["n_pre"] + 1
+    nt = ops["trunk_wT"].shape[0]
+    assert slabs.dtype == torch.bfloat16
+    assert slabs.numel() == width * (2 * ke + nt * width)
+    got = unpack_slabs(slabs, width, [ke] + [width] * k + [ke]
+                       + [width] * (nt - k))
+    trunk = list(ops["trunk_wT"])
+    want = [ops["w0T"], *trunk[:k], ops["wskipT"], *trunk[k:]]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # w0T[n][ks * 16 + kk] at (n // 8) * 128 + (kk // 8) * 64 + (n % 8) * 8
+    # + kk % 8 of slab ks (slabs of 16 * width elements)
+    n, kk, ks = 13, 11, 1
+    at = ks * 16 * width + (n // 8) * 128 + (kk // 8) * 64 + (n % 8) * 8 + kk % 8
+    assert slabs[at] == ops["w0T"][n, ks * 16 + kk]

@@ -170,3 +170,42 @@ def test_wrappers_reject_bad_inputs():
                            specular_rgb=False)
     with pytest.raises(ValueError, match="float32"):
         fv.fused_visibility(port, pe.double(), le.double())
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_slab_packing_unpacks_to_the_operands(width):
+    """The kernel's k-step slabs give back pack_vis_operands' w0xT, w5xT and
+    trunk bit for bit under the plain inverse of their layout."""
+    from psnerf_torch.ops.build import unpack_slabs
+
+    layers = skip_mlp_init(2 * E, 1, width, DEPTH, (SKIP,),
+                           generator=torch.Generator().manual_seed(width))
+    rng = np.random.default_rng(width)
+    ops = fv.pack_vis_operands(
+        layers, nerf_embed(t(rng.normal(size=(40, 3)).astype(np.float32)), 10),
+        nerf_embed(t(unit(rng, (3, 3))), 10))
+    slabs = fv.vis_slabs(ops)
+    nt = ops["trunk_wT"].shape[0]
+    got = unpack_slabs(slabs, width, [ops["ke"]] * 2 + [width] * nt)
+    want = [ops["w0xT"], ops["w5xT"], *ops["trunk_wT"]]
+    assert len(got) == len(want) == 2 + nt
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("l", [1, 5, 12])
+def test_light_sum_follows_the_kernel_order(l):
+    """The plain light sum adds lights 0, 2, 4, ... and 1, 3, 5, ... in
+    turn, then the two partials (the kernel's fixed order); it agrees with
+    the [L, N, 3] form summed over lights to f32 rounding."""
+    layers, port, d = _setup(l=l)
+    args = [t(x) for x in _shade_args(d)]
+    pe, le = nerf_embed(t(d["pts"]), 10), nerf_embed(t(d["ldirs"]), 10)
+    per_light = fv.fused_vis_shade(port, pe, le, *args)
+    got = fv.fused_vis_shade(port, pe, le, *args, sum_lights=True)
+    want = [torch.zeros(N, 3), torch.zeros(N, 3)]
+    for i in range(l):
+        want[i % 2] = want[i % 2] + per_light[i]
+    assert torch.equal(got, want[0] + want[1])
+    np.testing.assert_allclose(got.numpy(), per_light.sum(0).numpy(),
+                               rtol=1e-6, atol=1e-5)

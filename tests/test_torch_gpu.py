@@ -47,7 +47,11 @@ def _setup(n, l, width=256, depth=8, skip=4, specular_rgb=True, seed=0):
     return layers, nerf_embed(pts, 10), nerf_embed(ld, 10), shade
 
 
-@pytest.mark.parametrize("width,n,l", [(256, 1000, 7), (128, 640, 3)])
+# widths 64, 128 and 256; L of 1, 7 and 96; N ragged against the kernel's
+# 64-pixel tile and its 128-row CTA
+@pytest.mark.parametrize("width,n,l", [
+    (256, 1000, 7), (128, 640, 3), (64, 333, 1), (256, 130, 96),
+    (128, 1001, 96), (64, 4097, 7), (256, 63, 1)])
 def test_fused_visibility_kernel_matches_plain(width, n, l):
     _need_gpu()
     layers, pe, le, _ = _setup(n, l, width=width)
@@ -62,14 +66,19 @@ def test_fused_visibility_kernel_matches_plain(width, n, l):
     assert err.max().item() < 1e-3, err.max().item()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(), dict(layout="cnl"), dict(sum_lights=True),
-    dict(specular_rgb=False), dict(per_channel=True)])
-def test_fused_vis_shade_kernel_matches_plain(kw):
+@pytest.mark.parametrize("kw,width,n,l", [
+    (dict(), 256, 1000, 12), (dict(layout="cnl"), 256, 1000, 12),
+    (dict(sum_lights=True), 256, 1000, 12),
+    (dict(specular_rgb=False), 256, 1000, 12),
+    (dict(per_channel=True), 256, 1000, 12),
+    (dict(), 64, 333, 1), (dict(layout="cnl"), 128, 1001, 7),
+    (dict(sum_lights=True), 256, 130, 96), (dict(sum_lights=True), 64, 77, 7),
+    (dict(), 128, 4097, 96), (dict(layout="cnl"), 256, 200, 96)])
+def test_fused_vis_shade_kernel_matches_plain(kw, width, n, l):
     _need_gpu()
     kw = dict(kw)
     spec_rgb = kw.get("specular_rgb", True)
-    layers, pe, le, sh = _setup(1000, 12, specular_rgb=spec_rgb)
+    layers, pe, le, sh = _setup(n, l, width=width, specular_rgb=spec_rgb)
     if kw.pop("per_channel", False):
         li = sh["light_ints"]
         sh["light_ints"] = torch.stack([li, li * 0.5, li * 0.25], dim=-1)
@@ -84,6 +93,19 @@ def test_fused_vis_shade_kernel_matches_plain(kw):
     assert torch.isfinite(got).all()
     err = (got - ref).abs()
     assert err.max().item() < 1e-3, err.max().item()
+
+
+@pytest.mark.parametrize("width,n,l", [(256, 1000, 96), (64, 333, 7)])
+def test_fused_vis_shade_light_sum_is_bitwise_reproducible(width, n, l):
+    """The light sum adds each warpgroup's lights in order, then the two
+    partials: the same bits on every run."""
+    _need_gpu()
+    layers, pe, le, sh = _setup(n, l, width=width)
+    args = (layers, pe, le, sh["normal"], sh["view"], sh["albedo"],
+            sh["weights"], sh["mask"], sh["light_dirs"], sh["light_ints"])
+    runs = [fv.fused_vis_shade(*args, sum_lights=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
 
 
 def test_kernel_refuses_unsupported_width():
@@ -111,7 +133,10 @@ def _corr(a, b):
                              b.flatten().cpu().numpy())[0, 1])
 
 
-@pytest.mark.parametrize("width,layers,n", [(256, 8, 3000), (128, 6, 640)])
+@pytest.mark.parametrize("width,layers,n", [
+    (256, 8, 3000), (128, 6, 640),
+    *[(256, 8, n) for n in (1, 63, 2048, 70001)],
+    *[(128, 6, n) for n in (1, 63, 2048, 70001)]])
 def test_fused_occ_kernel_matches_plain(width, layers, n):
     _need_gpu()
     from psnerf_torch.ops import fused_occ as fo
@@ -128,7 +153,8 @@ def test_fused_occ_kernel_matches_plain(width, layers, n):
     assert got.shape == ref.shape == (n,)
     # same rounding points; only f32 summation order differs
     assert (got - ref).abs().max().item() < 1e-2
-    assert _corr(got, ref) > 0.9999
+    if n > 2:
+        assert _corr(got, ref) > 0.9999
 
 
 def _radiance_inputs(cfg, n, seed=2):
