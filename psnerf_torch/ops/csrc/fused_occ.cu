@@ -15,12 +15,11 @@
 // the products. Inputs and outputs are ~50 MB: memory is not the limit.
 //
 // Design (the engine of trunk_wgmma.cuh): a CTA owns 128 points, 64 per
-// consumer warpgroup, and a cluster of two CTAs walks pairs of 128-point
-// tiles persistently. The producers stream the packed weights (layer 0's
-// point rows, the trunk, the skip layer's PE rows after its trunk matrix)
-// once per tile pair through the slab rings, each half multicast to both
-// CTAs: every weight byte read from L2 serves 256 points. Each layer is
-// wgmma m64nWk16 with A from registers; the softplus epilogue writes the
+// consumer warpgroup, and walks tiles of 128 points persistently. The
+// producer streams the packed weights (layer 0's point rows, the trunk, the
+// skip layer's PE rows after its trunk matrix) once per tile through the
+// slab ring; every weight byte read from L2 serves 128 points. Each layer
+// is wgmma m64nWk16 with A from registers; the softplus epilogue writes the
 // next layer's bf16 A fragments in registers. The two consumer warpgroups
 // take turns at the tensor cores (ping-pong), so one warpgroup's softplus
 // runs under the other's products. The skip layer's PE half (em @ wskip,
@@ -94,7 +93,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) occ_kernel(const OccParams p) {
   rs.ring = p.ring;
   rs.slab = SLAB;
   rs.slots = smem;
-  rs.rank = cluster_rank();
   unsigned char* ems = smem + (size_t)p.ring * SLAB;          // [NCONS] A tiles
   float* bias = reinterpret_cast<float*>(ems + NCONS * kes * A_KSTEP);
   // bias: b0 [W], trunk_b [n_trunk, W], then w8 [W]
@@ -109,15 +107,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) occ_kernel(const OccParams p) {
   for (int i = threadIdx.x; i < p.n_trunk * W; i += NTHREADS)
     bias[W + i] = p.trunk_b[i];
   ring_init(rs);
-  cluster_sync();                          // the barriers, before any copy
+  __syncthreads();
 
   const int wg = threadIdx.x >> 7;
   const int tiles = (p.n + NCONS * ROWS - 1) / (NCONS * ROWS);
   const int per_tile = 2 * kes + p.n_trunk * KS;
-  // the cluster walks tile pairs in step: CTA rank r takes tile base + r
-  // (past the last tile it computes masked rows and writes nothing)
-  const int first = (int)blockIdx.x - (int)rs.rank;
-  const int steps = (tiles - first + (int)gridDim.x - 1) / (int)gridDim.x;
 
   if (wg == NCONS) {                       // producer
     set_max_regs_dec<24>();
@@ -125,16 +119,18 @@ __global__ void __launch_bounds__(NTHREADS, 1) occ_kernel(const OccParams p) {
       Producer pr;
       pr.s = rs;
       pr.src = p.slabs;
-      for (int k = 0; k < steps; ++k) pr.stream(0, per_tile);
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        pr.stream(0, per_tile);
     }
-    cluster_sync();                        // no CTA leaves while its peer
-    return;                                // may still signal it
+    return;
   }
 
   set_max_regs_inc<240>();
   Consumer c;
   c.s = rs;
-  PingPong pp{wg, steps * (1 + p.n_trunk)};
+  const int my_tiles =
+      (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  PingPong pp{wg, my_tiles * (1 + p.n_trunk)};
   pp.open();
   unsigned char* emt = ems + wg * kes * A_KSTEP;
   const float b8 = __ldg(p.b8);
@@ -142,8 +138,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) occ_kernel(const OccParams p) {
   float acc[W / 2];
   uint32_t a[KS][4];
 
-  for (int k = 0; k < steps; ++k) {
-    const int tile = first + k * (int)gridDim.x + (int)rs.rank;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * NCONS * ROWS + wg * ROWS;
     load_a_tile(emt, p.em, row0, p.n, p.ke, tw, 128);
     fence_async_shared();
@@ -174,7 +169,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) occ_kernel(const OccParams p) {
       }
     }
   }
-  cluster_sync();
 }
 
 template <int W>
@@ -189,9 +183,13 @@ cudaError_t launch(OccParams p, cudaStream_t stream) {
   if (p.ring < KS + kes + LAG) return cudaErrorInvalidValue;
   const size_t smem = (size_t)p.ring * W * 32 + fixed +
                       2 * MAX_RING * sizeof(uint64_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      occ_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   const int tiles = (p.n + NCONS * ROWS - 1) / (NCONS * ROWS);
-  cudaError_t err = launch_clusters(occ_kernel<W>, p, tiles, smem, stream);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  occ_kernel<W><<<grid, NTHREADS, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -15,13 +15,11 @@
 // 1 GB of inputs and outputs. Next comes L2: the ~0.9 MB trunk is read
 // once for every group of rows that shares it.
 //
-// Design (the engine of trunk_wgmma.cuh): a CTA owns 64 pixels, and a
-// cluster of two CTAs walks pairs of pixel tiles persistently; each CTA's
-// two consumer warpgroups take the tile's lights in turn (warpgroup w the
-// lights w, w + 2, ...), as the TPU kernel stacks light pairs along its
-// rows, and the two CTAs share every slab load (multicast), so each weight
-// byte read from L2 serves 256 (pixel, light) rows. The light-independent
-// halves of layer 0 and of the skip layer (A0 = em @ W0x, B5 = em @ W5x, A
+// Design (the engine of trunk_wgmma.cuh): a CTA owns 64 pixels and walks
+// pixel tiles persistently; its two consumer warpgroups take the tile's
+// lights in turn (warpgroup w the lights w, w + 2, ...), so each weight
+// byte read from L2 serves 128 (pixel, light) rows, as the TPU kernel
+// stacks light pairs along its rows. The light-independent halves of layer 0 and of the skip layer (A0 = em @ W0x, B5 = em @ W5x, A
 // from the embedding tile in shared memory) are computed once per tile and
 // kept in shared memory as f32, in the accumulator layout (each thread
 // reads its own values, conflict-free). Each layer is wgmma m64nWk16 with A from
@@ -129,7 +127,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) vis_kernel(const Params p) {
   rs.ring = p.ring;
   rs.slab = SLAB;
   rs.slots = smem;
-  rs.rank = cluster_rank();
   float4* a0s = reinterpret_cast<float4*>(smem + (size_t)p.ring * SLAB);
   float4* b5s = a0s + (W / 8) * 128;
   unsigned char* emt = reinterpret_cast<unsigned char*>(b5s + (W / 8) * 128);
@@ -143,16 +140,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) vis_kernel(const Params p) {
   for (int i = threadIdx.x; i < p.n_trunk * W; i += NTHREADS) tb[i] = p.trunk_b[i];
   for (int i = threadIdx.x; i < W; i += NTHREADS) w8s[i] = p.w8[i];
   ring_init(rs);
-  cluster_sync();                          // the barriers, before any copy
+  __syncthreads();
 
   const int wg = threadIdx.x >> 7;
   const int N = p.n, L = p.n_lights;
   const int tiles = (N + ROWS - 1) / ROWS;
   const int pairs = (L + NCONS - 1) / NCONS;       // light turns per warpgroup
-  // the cluster walks tile pairs in step: CTA rank r takes tile base + r
-  // (past the last tile it computes masked rows and writes nothing)
-  const int first = (int)blockIdx.x - (int)rs.rank;
-  const int steps = (tiles - first + (int)gridDim.x - 1) / (int)gridDim.x;
 
   if (wg == NCONS) {                       // producer
     set_max_regs_dec<24>();
@@ -160,13 +153,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) vis_kernel(const Params p) {
       Producer pr;
       pr.s = rs;
       pr.src = p.slabs;
-      for (int k = 0; k < steps; ++k) {
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         pr.stream(0, 2 * kes);
         for (int lp = 0; lp < pairs; ++lp) pr.stream(2 * kes, p.n_trunk * KS);
       }
     }
-    cluster_sync();                        // no CTA leaves while its peer
-    return;                                // may still signal it
+    return;
   }
 
   set_max_regs_inc<240>();
@@ -179,8 +171,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) vis_kernel(const Params p) {
   float acc[W / 2];
   uint32_t a[KS][4];
 
-  for (int k = 0; k < steps; ++k) {
-    const int tile = first + k * (int)gridDim.x + (int)rs.rank;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * ROWS;
     bar_sync(BAR_CONS, NCONS * 128);     // the previous tile is done with smem
     load_a_tile(emt, p.em, row0, N, p.ke, tc, NCONS * 128);
@@ -285,7 +276,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) vis_kernel(const Params p) {
       }
     }
   }
-  cluster_sync();
 }
 
 template <int W, int MODE>
@@ -300,9 +290,14 @@ cudaError_t launch_mode(Params p, cudaStream_t stream) {
   if (p.ring < LAG + 1) return cudaErrorInvalidValue;
   const size_t smem = (size_t)p.ring * W * 32 + fixed +
                       2 * MAX_RING * sizeof(uint64_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      vis_kernel<W, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
   const int tiles = (p.n + ROWS - 1) / ROWS;
-  cudaError_t err = launch_clusters(vis_kernel<W, MODE>, p, tiles, smem, stream);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  vis_kernel<W, MODE><<<grid, NTHREADS, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <int W>

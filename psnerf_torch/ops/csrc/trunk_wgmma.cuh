@@ -7,12 +7,8 @@
 // inputs, bf16, 32 W bytes), through a ring of slabs in shared memory by
 // 1-D cp.async.bulk copies, each completing on the slot's `full` mbarrier.
 // The other two are consumers: each owns 64 rows, and both read every slab
-// of the ring, so each weight byte that reaches the SM serves 128 rows. A
-// consumer frees a slot on its `empty` mbarrier once its wgmma on it has
-// completed. Two CTAs form a cluster and walk their tiles in step: each
-// producer loads half of every slab and multicasts it into both CTAs'
-// rings, so each weight byte read from L2 serves 256 rows; a slot is
-// refilled once the consumers of both CTAs have freed it.
+// of the ring, so each weight byte read from L2 serves 128 rows. A consumer
+// frees a slot on its `empty` mbarrier once its wgmma on it has completed.
 //
 // The weights are packed once per packing on the host (ops/fused_occ.py,
 // ops/fused_vis.py: `pack_slabs`) in wgmma's K-major core-matrix layout
@@ -48,8 +44,6 @@ namespace trunk {
 
 constexpr int ROWS = 64;                   // rows of one consumer warpgroup
 constexpr int NCONS = 2;                   // consumer warpgroups per CTA
-constexpr int CLUSTER = 2;                 // CTAs that share each slab load
-static_assert(CLUSTER == 1 || CLUSTER == 2, "a CTA signals one peer");
 constexpr int NTHREADS = 128 * (NCONS + 1);
 constexpr int LAG = 2;                     // wgmma groups kept in flight
 constexpr int MAX_RING = 32;               // slots at most
@@ -110,41 +104,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 }
 
 // bytes (a multiple of 16) from global src to shared dst, both 16-byte
-// aligned, into the same offset of every CTA in the cluster mask `ctas`;
-// completion is counted on the barrier at bar's offset in each of them
-__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src,
-                                                    uint32_t bytes,
-                                                    uint64_t* bar,
-                                                    uint16_t ctas) {
+// aligned; completion is counted on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(ctas)
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
-}
-
-// arrive on the barrier at the same offset in the cluster's CTA `cta`
-__device__ __forceinline__ void mbar_arrive_cta(uint64_t* bar, uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
-          smem_u32(bar)),
-      "r"(cta)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// every thread of every CTA in the cluster
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void bar_sync(int id, int n) {
@@ -345,22 +312,20 @@ struct RingSpec {
   uint64_t* empty;           // [ring]
   int ring;
   uint32_t slab;
-  uint32_t rank;             // of this CTA in its cluster
 };
 
 __device__ __forceinline__ void ring_init(const RingSpec& s) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < s.ring; ++i) {
       mbar_init(s.full + i, 1);
-      mbar_init(s.empty + i, NCONS * CLUSTER);
+      mbar_init(s.empty + i, NCONS);
     }
     mbar_fence_init();
   }
 }
 
 // The producer thread: slabs [begin, begin + count) of the packed weights,
-// in order, into the ring: this CTA's half of each slab, multicast to the
-// cluster. `it` counts the slabs it has issued.
+// in order, into the ring. `it` counts the slabs it has issued.
 struct Producer {
   RingSpec s;
   const unsigned char* src;
@@ -371,11 +336,9 @@ struct Producer {
   __device__ __forceinline__ void stream(int begin, int count) {
     for (int k = 0; k < count; ++k) {
       if (it >= (uint32_t)s.ring) mbar_wait(s.empty + slot, phase ^ 1);
-      const uint32_t half = s.slab / CLUSTER, at = s.rank * half;
       mbar_expect_tx(s.full + slot, s.slab);
-      bulk_load_multicast(s.slots + (size_t)slot * s.slab + at,
-                          src + (size_t)(begin + k) * s.slab + at, half,
-                          s.full + slot, (1u << CLUSTER) - 1);
+      bulk_load(s.slots + (size_t)slot * s.slab,
+                src + (size_t)(begin + k) * s.slab, s.slab, s.full + slot);
       ++it;
       if (++slot == s.ring) {
         slot = 0;
@@ -405,10 +368,7 @@ struct Consumer {
   }
 
   __device__ __forceinline__ void release_one() {
-    if ((threadIdx.x & 127) == 0) {
-      mbar_arrive(s.empty + rel);
-      if (CLUSTER > 1) mbar_arrive_cta(s.empty + rel, s.rank ^ 1);
-    }
+    if ((threadIdx.x & 127) == 0) mbar_arrive(s.empty + rel);
     if (++rel == s.ring) rel = 0;
     --pending;
   }
@@ -488,45 +448,6 @@ __host__ inline int sm_count() {
     cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
   }
   return cached;
-}
-
-// Launches kernel(p) on clusters of CLUSTER CTAs, as many clusters as can
-// be resident at once (at most one per pair of tiles): a persistent grid.
-template <typename P>
-__host__ inline cudaError_t launch_clusters(void (*kernel)(P), const P& p,
-                                           int tiles, size_t smem,
-                                           cudaStream_t stream) {
-  struct Fit { void* k; size_t smem; int clusters; };
-  static Fit fits[32];
-  static int n_fits = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(sm_count() / CLUSTER * CLUSTER);
-  cfg.blockDim = dim3(NTHREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  for (int i = 0; i < n_fits; ++i)
-    if (fits[i].k == (void*)kernel && fits[i].smem == smem)
-      clusters = fits[i].clusters;
-  if (clusters == 0) {
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorInvalidConfiguration;
-    if (n_fits < 32) fits[n_fits++] = Fit{(void*)kernel, smem, clusters};
-  }
-  const int want = (tiles + CLUSTER - 1) / CLUSTER;
-  cfg.gridDim = dim3(CLUSTER * (want < clusters ? want : clusters));
-  return cudaLaunchKernelEx(&cfg, kernel, p);
 }
 
 // slots of a ring that fit beside `fixed` bytes of shared memory

@@ -22,9 +22,7 @@ _chipcheck/attr_trunk/<variant>/ by one nvcc each, all at once. Variants:
     * eng_base:        unchanged;
     * eng_precise:     K1's softplus from expf and log1pf;
     * eng_no_pingpong: K1's warpgroups without turns;
-    * eng_relu:        K1's softplus replaced by relu;
-    * eng_no_cluster:  clusters of one CTA: every CTA loads whole slabs
-                       (no multicast), K1 and K4/K5.
+    * eng_relu:        K1's softplus replaced by relu.
 
 K1 runs at the march's N = 524,288 and at a secant pass's N = 2,048 (the
 bf16 bear field, random weights from seed 0); K4 (raw) and K5 (lnc) at N =
@@ -310,10 +308,8 @@ ENGINE = {
                         ("fused_occ.cu", "pp.end();", ""),
                         ("fused_occ.cu", "pp.open();", "")],
     "eng_relu": [("fused_occ.cu", ENG_SP, "  return fmaxf(x, 0.f);")],
-    "eng_no_cluster": [("trunk_wgmma.cuh", "constexpr int CLUSTER = 2;",
-                        "constexpr int CLUSTER = 1;")],
 }
-VIS_VARIANTS = ("eng_base", "eng_no_cluster")   # the others change K1 only
+VIS_VARIANTS = ("eng_base",)          # the others change K1 only
 
 L2_SRC = r"""
 #include <cuda_runtime.h>
