@@ -9,11 +9,13 @@
 //     and the SG shading epilogue, as rgb [L, N, 3], [3, N, L] or the light
 //     sum [N, 3] (modes LNC, CNL, SUM).
 //
-// What bounds it: the tensor cores. Each (light, pixel) pair runs seven
-// dependent 256x256 bf16 products (about 0.92 MFLOP); a 65,536-pixel x
-// 96-light frame is 5.8 ms of them at 989 TFLOP/s, against well under
-// 1 GB of inputs and outputs. Next comes L2: the ~0.9 MB trunk is read
-// once for every group of rows that shares it.
+// What bounds it: the tensor cores, and about as much each SM's intake of
+// weights. Each (light, pixel) pair runs seven dependent 256x256 bf16
+// products (about 0.92 MFLOP); a 65,536-pixel x 96-light frame is 5.8 ms
+// of them at 989 TFLOP/s, against well under 1 GB of inputs and outputs.
+// But the ~0.9 MB trunk reaches an SM once for every 128 rows that share
+// it: ~45 GB of L2 reads per such frame, ~6 ms at the ~7 TB/s the card's
+// L2 delivers (tools/attribute_trunk.py measures both).
 //
 // Design (the engine of trunk_wgmma.cuh): a CTA owns 64 pixels and walks
 // pixel tiles persistently; its two consumer warpgroups take the tile's

@@ -10,9 +10,10 @@
 // of the ring, so each weight byte read from L2 serves 128 rows. A consumer
 // frees a slot on its `empty` mbarrier once its wgmma on it has completed.
 //
-// The weights are packed once per packing on the host (ops/fused_occ.py,
-// ops/fused_vis.py: `pack_slabs`) in wgmma's K-major core-matrix layout
-// without swizzle: slab ks holds w[n][16 ks + k] at byte
+// The weights are packed once per packing on the host (ops/build.py
+// `pack_slabs`, called by ops/fused_occ.py and ops/fused_vis.py) in wgmma's
+// K-major core-matrix layout without swizzle: slab ks holds w[n][16 ks + k]
+// at byte
 //   (n / 8) * 256 + (k / 8) * 128 + (n % 8) * 16 + (k % 8) * 2,
 // the matrices one after another in the order the consumers read them. A
 // narrow point product (K = ke, the zero-padded embedding width) is ke / 16

@@ -22,7 +22,12 @@ _chipcheck/attr_trunk/<variant>/ by one nvcc each, all at once. Variants:
     * eng_base:        unchanged;
     * eng_precise:     K1's softplus from expf and log1pf;
     * eng_no_pingpong: K1's warpgroups without turns;
-    * eng_relu:        K1's softplus replaced by relu.
+    * eng_relu:        K1's softplus replaced by relu;
+    * eng_vis_no_bias_relu: K4/K5's bias and relu left out of the six
+                       plain layers' epilogues (the bf16 packing stays);
+    * eng_vis_no_mma:  K4/K5's trunk products left out (the ring's copies,
+                       barriers and waits stay; the epilogues that only
+                       feed the products are then dead code too).
 
 K1 runs at the march's N = 524,288 and at a secant pass's N = 2,048 (the
 bf16 bear field, random weights from seed 0); K4 (raw) and K5 (lnc) at N =
@@ -38,7 +43,6 @@ import argparse
 import ctypes
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -301,6 +305,11 @@ PARENT = {
 ENG_SP = """  const float e = ex2_approx(fabsf(bx) * -1.4426950408889634f);
   const float l = lg2_approx(1.f + e) * 0.6931471805599453f;
   return bx > 20.f ? x : (fmaxf(bx, 0.f) + l) * 0.01f;"""
+VIS_BIAS_RELU = """            acc[4 * j + 0] = fmaxf(acc[4 * j + 0] + b.x, 0.f);
+            acc[4 * j + 1] = fmaxf(acc[4 * j + 1] + b.y, 0.f);
+            acc[4 * j + 2] = fmaxf(acc[4 * j + 2] + b.x, 0.f);
+            acc[4 * j + 3] = fmaxf(acc[4 * j + 3] + b.y, 0.f);"""
+ENG_MMA = """      Mma<W>::rs(acc, a[ks], desc(acquire()), (ks > 0 || accumulate) ? 1 : 0);"""
 ENGINE = {
     "eng_base": [],
     "eng_precise": [("fused_occ.cu", ENG_SP, OCC_SP)],
@@ -308,8 +317,10 @@ ENGINE = {
                         ("fused_occ.cu", "pp.end();", ""),
                         ("fused_occ.cu", "pp.open();", "")],
     "eng_relu": [("fused_occ.cu", ENG_SP, "  return fmaxf(x, 0.f);")],
+    "eng_vis_no_bias_relu": [("fused_vis.cu", VIS_BIAS_RELU, "            (void)b;")],
+    "eng_vis_no_mma": [("trunk_wgmma.cuh", ENG_MMA, "      (void)acquire();")],
 }
-VIS_VARIANTS = ("eng_base",)          # the others change K1 only
+VIS_VARIANTS = ("eng_base", "eng_vis_no_bias_relu", "eng_vis_no_mma")
 
 L2_SRC = r"""
 #include <cuda_runtime.h>
@@ -578,7 +589,7 @@ def main():
         return run
     for name in VIS_VARIANTS:
         fns[f"{name}_raw"] = eng_vis(name, "raw", raw)
-        fns[f"{name}_lnc"] = eng_vis(name, "lnc", rgb)
+    fns["eng_base_lnc"] = eng_vis("eng_base", "lnc", rgb)
     mean, turns = in_turns(fns, 2)
     print(json.dumps({"K4_K5": {"n": 65536, "lights": 96, "ms": mean,
                                 "turns": turns}}), flush=True)
