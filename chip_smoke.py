@@ -25,6 +25,9 @@ Phases (any failure exits non-zero; nothing is caught):
      at the integration batch of 2048 x 96 samples, each held against its
      plain version and timed the same way (yardsticks: the bf16 matmul
      chain for fused_occ, the plain autograd route for fused_radiance);
+     the bf16 backward bit for bit over three launches, at most
+     K3_BF16_MAX_MS and faster than autograd, and its slot sum (the CTA
+     slots added in fixed order) against its plain version and torch.sum;
   5. the f32-operand form of fused_radiance (the default field's) at 2048
      x 64 and 2048 x 96 points, held against its plain f32 version at the
      JAX kernel tests' bars (rgb and alpha 1e-5, each gradient leaf 2e-4
@@ -40,7 +43,16 @@ Phases (any failure exits non-zero; nothing is caught):
      which runs evaluate(split="test") and render_view for the rgb and
      rgb_sum routes, with the kernels' launch counts set to 0 just before
      and read just after; the kernel route is held against the plain route;
-  7. stage-1 main path on the same scene, twice: at the bf16 field (10 + 5
+  7. stage-2 training on the same scene: Stage2Runner.train at the full
+     bear PSNet (8,192 pixels x 10 lights, a vis_plus pool of 8) for 20
+     warm-up and 20 more steps, with one plot_to_disk (fused_vis_shade's
+     launches set to 0 just before and read just after); albedo, rough and
+     the light tables bit for bit in the warm-up; a fresh runner's resume
+     restores it, the params and the optimizer state bit for bit; ms per
+     step and it/s, one profiled step; the card's step against the CPU's
+     from identical params, batch and draws, in f32 and in f64 (loss,
+     gradients, params);
+  8. stage-1 main path on the same scene, twice: at the bf16 field (10 + 5
      steps) and at the default f32 field (20 + 10 steps, with the
      visualisation strip): Stage1Runner.train (2048 rays, 256 march steps,
      64 samples), counts of each kernel and form set to 0 just before and
@@ -48,13 +60,13 @@ Phases (any failure exits non-zero; nothing is caught):
      that trains at 96 samples; ms per step at 64 and 96 samples; one
      profiled step; the kernel route's step held against the plain
      route's from identical params, batch and noise;
-  8. stage-1 eval and export on the trained default field: render_view of
+  9. stage-1 eval and export on the trained default field: render_view of
      the test view, eval_views("test"), and the faithful shape_extract of
      all three views toward the 96 training lights and 32 vis_plus
      directions, with fused_occ's launches counted; a self-shadow check,
      and the kernel route's export of one view toward 4 lights held
      against the plain route's;
-  9. one JSON line of kernels, then the last line
+ 10. one JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It needs no network and writes only inside the checkout (a work directory
@@ -95,6 +107,21 @@ GRAD_REL, GRAD_CORR = 2e-2, 0.999   # per-leaf gradient bars
 F32_RGB, F32_GRAD_REL = 1e-5, 2e-4
 KINK = 1e-4          # appearance pre-activations this close to 0 may flip
 TILE = 4096          # the runners' pixel tile
+K3_BF16_MAX_MS = 40.0   # the bf16 backward at N_RAD, with its slot sum
+K3_SPREAD_RUNS = 10     # single launches of it timed for its spread
+# stage-2 training at the bear config (configs/stage2/bear.conf) with
+# bench.py's batch: 8,192 pixels x 10 lights, a vis_plus pool of 8
+S2_PIXELS, S2_LIGHTS, S2_VIS, S2_WARMUP, S2_STEPS = 8192, 10, 8, 20, 40
+# the card's stage-2 step against the CPU's (tests/test_torch_gpu.py's
+# bars): loss relative; each gradient leaf over its scale; params where
+# |g| > big_grad (a near-zero gradient's param moves by up to lr under
+# Adam, so there only 2 lr holds). f32 gradients within 1e-3: the f32 sin
+# and cos of the positional encoding differ by an ulp between the card's
+# and the CPU's math libraries (tools/stage2_grad_precision.py)
+S2_F32_BARS = {"loss_rel": 1e-4, "grad_rel": 1e-3, "param_abs": 1e-5,
+               "big_grad": 1e-6}
+S2_F64_BARS = {"loss_rel": 1e-12, "grad_rel": 1e-9, "param_abs": 1e-10,
+               "big_grad": 1e-6}
 
 
 def log(msg):
@@ -581,6 +608,205 @@ def phase_main_path(scene):
         **breakdown}
 
 
+def stage2_train_config(scene):
+    """The full bear PSNet (PSNetConfig()) and train config, at bench.py's
+    stage-2 batch (8,192 pixels, 10 lights, a vis_plus pool of 8; bear.conf's
+    train_all_pixels off as bench.py sets it), the warm-up cut to
+    S2_WARMUP steps."""
+    from psnerf_torch.config import Stage2Config
+    from psnerf_torch.fields.psnet import PSNetConfig
+    from psnerf_torch.train.stage2 import Stage2TrainConfig
+
+    return Stage2Config(
+        net=PSNetConfig(), train=Stage2TrainConfig(warmup_iters=S2_WARMUP),
+        data_dir=scene, stage1_shape_path=os.path.join(scene, "exports"),
+        inten_normalize=None, light_bs=S2_LIGHTS, vis_train_num=S2_VIS,
+        num_pixels=S2_PIXELS, train_all_pixels=False, ckpt_freq=10 ** 9)
+
+
+def stage2_leaves(runner):
+    """{name: a copy} of the PSNet's leaves and the light tables."""
+    from psnerf_torch.train.stage2 import model_params
+
+    out = {k: v.detach().clone()
+           for k, v in model_params(runner.params["model"]).items()}
+    out.update({k: runner.params[k].clone()
+                for k in ("light_dirs", "light_ints")})
+    return out
+
+
+def stage2_step_ms(runner, reps=10, warmup=5):
+    """Median ms of one stage-2 training step (the batch and jitter draws
+    included), host clock around synchronize, after `warmup` steps; the
+    runner's parameters keep training, its `it` stays."""
+    times = []
+    for _ in range(warmup + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch, noise = runner.sample()
+        runner.step_fn(runner.params, runner.opt_state, batch, runner.it,
+                       noise)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[warmup:])), times[warmup:]
+
+
+def phase_stage2_train(scene):
+    """Stage2Runner.train at the full bear width on the stage-2 scene: a
+    warm-up of S2_WARMUP steps (albedo, rough and the light tables held bit
+    for bit), then to S2_STEPS with one plot_to_disk (K5's launches counted
+    just around the run), a resume that restores it, the params and the
+    optimizer state bit for bit, ms per step, one profiled step, and the
+    card's step against the CPU's from identical params, batch and draws
+    (f32 and f64)."""
+    from psnerf_torch.ops import fused_vis as fv
+    from psnerf_torch.runners.stage2 import Stage2Runner
+
+    cfg = stage2_train_config(scene)
+    wd = os.path.join(WORK, "stage2_train")
+    runner = Stage2Runner(cfg, wd, seed=SEED, resume=False, device=DEV)
+    check(runner.device.type == "cuda" and runner.num_pixels == S2_PIXELS
+          and runner.light_bs == S2_LIGHTS, "stage-2 runner on the card")
+    before = stage2_leaves(runner)
+    frozen = [k for k in before if k.split("/")[0] in
+              ("albedo", "rough", "light_dirs", "light_ints")]
+
+    # ---- the main path: counts set to 0 just before, read just after
+    fv.fused_visibility.launches = 0
+    fv.fused_vis_shade.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.train(S2_WARMUP, log_every=S2_WARMUP // 2)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    after_warm = stage2_leaves(runner)
+    kept = all(torch.equal(before[k], after_warm[k]) for k in frozen)
+    moved = [k for k in before if not torch.equal(before[k], after_warm[k])]
+    t0 = time.perf_counter()
+    runner.train(S2_STEPS, log_every=S2_WARMUP // 2,
+                 plot_every=S2_WARMUP + S2_WARMUP // 2)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {"fused_visibility": fv.fused_visibility.launches,
+                "fused_vis_shade": fv.fused_vis_shade.launches}
+    recs = read_losses(wd)
+    losses = [r["loss"] for r in recs if "loss" in r]
+    plots = [r for r in recs if "train_psnr" in r]
+    after = stage2_leaves(runner)
+    moved_after = [k for k in frozen
+                   if not torch.equal(after_warm[k], after[k])]
+    out = {"steps": [S2_WARMUP, S2_STEPS], "warmup_wall_s": warm_s,
+           "train_wall_s": train_s, "launches": launches, "losses": losses,
+           "plot": plots, "frozen_kept_in_warmup": kept,
+           "moved_in_warmup": len(moved), "frozen_moved_after": moved_after}
+    log(json.dumps({"stage2_train": out}))
+    check(kept, "albedo, rough and the light tables bit for bit in warm-up")
+    check(any(k.startswith("visibility/") for k in moved),
+          "the visibility net trains in the warm-up")
+    check(len(losses) == S2_STEPS // (S2_WARMUP // 2)
+          and np.isfinite(losses).all(), f"losses {losses}")
+    check(any(k.startswith("albedo/") for k in moved_after),
+          f"albedo trains after the warm-up: {moved_after}")
+    check(len(plots) == 1 and os.path.exists(os.path.join(
+        wd, "plots", f"it_{S2_WARMUP + S2_WARMUP // 2}.png")),
+        f"plot_to_disk {plots}")
+    check(launches["fused_vis_shade"] >= 2, f"K5 in plot_to_disk {launches}")
+
+    # ---- the end-of-run checkpoint, resumed by a fresh runner
+    resumed = Stage2Runner(cfg, wd, seed=SEED + 1, device=DEV)
+    check(resumed.it == S2_STEPS, f"resumed at it={resumed.it}")
+    got = stage2_leaves(resumed)
+    check(all(torch.equal(after[k], got[k]) for k in after),
+          "resumed params bit for bit")
+    from psnerf_torch.train.checkpoints import flatten_tree
+    a, b = (flatten_tree(r.opt_state) for r in (runner, resumed))
+    check(set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a),
+          "resumed optimizer state bit for bit")
+    del resumed
+
+    # ---- ms per step, one profiled step
+    ms, times = stage2_step_ms(runner)
+    batch, noise = runner.sample()
+    prof = profile_device(lambda: runner.step_fn(
+        runner.params, runner.opt_state, batch, runner.it, noise))
+
+    # ---- the card's step against the CPU's from identical params, batch
+    # and draws, in f32 (the runner's precision) and in f64 (the card's
+    # backward itself): the loss, every gradient leaf (loss_and_grads) and
+    # every param after the step
+    route = {}
+    for dt, bars in ((torch.float32, S2_F32_BARS), (torch.float64,
+                                                    S2_F64_BARS)):
+        route[str(dt).removeprefix("torch.")] = stage2_step_vs_cpu(
+            runner, cfg, batch, noise, dt, bars)
+    e2e = {"ms_per_step": ms, "it_per_s": 1e3 / ms, "step_ms": times,
+           "step_profiled": prof, "card_vs_cpu": route, **out}
+    log(json.dumps({"stage2_train_main_path": e2e}))
+    for dt, bars in (("float32", S2_F32_BARS), ("float64", S2_F64_BARS)):
+        r = route[dt]
+        check(r["leaves_match"], f"card and CPU gradient leaves ({dt})")
+        check(r["loss_rel_diff"] <= bars["loss_rel"],
+              f"card vs CPU loss ({dt}) {r}")
+        check(r["grad_max_diff_over_scale"] <= bars["grad_rel"],
+              f"card vs CPU gradients ({dt}) {r}")
+        check(r["param_max_diff_where_grad_big"] <= bars["param_abs"],
+              f"card vs CPU params where the gradient is not near 0 ({dt}) "
+              f"{r}")
+        check(r["param_max_diff_over_lr"] <= 2 * (1 + 1e-4),
+              f"card vs CPU params within 2 lr ({dt}) {r}")
+    return launches, e2e
+
+
+def stage2_step_vs_cpu(runner, cfg, batch, noise, dt, bars):
+    """One stage-2 step (loss_and_grads, then the step from a fresh
+    optimizer state) from the runner's params on the card and on the CPU
+    in dtype dt; the distances between the two."""
+    import copy
+
+    from psnerf_torch.train import stage2
+
+    tcfg = runner.tcfg
+    steps = {}
+    for dev in (DEV, "cpu"):
+        params = {"model": copy.deepcopy(runner.params["model"]).to(dev, dt),
+                  **{k: runner.params[k].to(dev, dt, copy=True)
+                     for k in ("light_dirs", "light_ints")}}
+        cast = lambda v: v.to(dev, dt) if v.is_floating_point() \
+            else v.to(dev)
+        b = {k: cast(v) for k, v in batch.items()}
+        nz = {k: cast(v) for k, v in noise.items()}
+        init, step = stage2.make_stage2_train_step(cfg.net, tcfg)
+        _, grads = step.loss_and_grads(params, b, runner.it, nz)
+        t = step(params, init(params), b, runner.it, nz)
+        flat = {k: v.detach().cpu() for k, v in
+                stage2.model_params(params["model"]).items()}
+        flat.update({k: params[k].cpu() for k in ("light_dirs",
+                                                  "light_ints")})
+        steps[dev] = (float(t["loss"]), {k: g.cpu() for k, g in
+                                         grads.items()}, flat)
+    (loss_g, g_g, p_g), (loss_c, g_c, p_c) = steps[DEV], steps["cpu"]
+    lrs = {"light_dirs": tcfg.light_learning_rate,
+           "light_ints": tcfg.light_inten_lr}
+    grad_rel, p_big, over = {}, {}, {}
+    for k, v in p_c.items():
+        grad_rel[k] = ((g_g[k] - g_c[k]).abs().max().item()
+                       / (g_c[k].abs().max().item() + 1e-8))
+        big = g_c[k].abs() > bars["big_grad"]
+        diff = (p_g[k] - v).abs()
+        p_big[k] = diff[big].max().item() if big.any() else 0.0
+        over[k] = diff.max().item() / lrs.get(k, tcfg.sg_learning_rate)
+    worst = lambda d: max(d, key=d.get)
+    return {"loss_card": loss_g, "loss_cpu": loss_c,
+            "loss_rel_diff": abs(loss_g - loss_c) / abs(loss_c),
+            "leaves_match": set(g_g) == set(g_c) == set(p_c),
+            "grad_max_diff_over_scale": max(grad_rel.values()),
+            "grad_worst_leaf": worst(grad_rel),
+            "param_max_diff_where_grad_big": max(p_big.values()),
+            "param_big_worst_leaf": worst(p_big),
+            "param_max_diff_over_lr": max(over.values()),
+            "worst_leaf": worst(over)}
+
+
 def check_k4_at_view(runner, data, dirs, tile=4096):
     """fused_visibility on the operands evaluate gives it for view 0 (the
     surface-mask pixels, padded to the tile with pixel 0 as render_view
@@ -875,23 +1101,71 @@ def phase_stage1_kernels(card):
                 if name == "positive":
                     check(e["rel"] < GRAD_REL, f"K3 {name} {k} {e}")
             del got, want
+        # each CTA's own gradient slot, the slots summed in fixed order:
+        # the same bits from run to run
         rerun = [fr.radiance_backward(packed, em, de, vpe, p3, g_e_ref,
-                                      g_pos, skip) for _ in range(2)]
-        spread = max((rerun[0][k] - rerun[1][k]).abs().max().item()
-                     / (rerun[0][k].abs().max().item() + 1e-30)
-                     for k in rerun[0])
+                                      g_pos, skip) for _ in range(3)]
+        bitwise = all(torch.equal(rerun[0][k], r[k])
+                      for r in rerun[1:] for k in rerun[0])
         del rerun
         log(json.dumps({"fused_radiance_backward": errs,
-                        "atomics_rerun_spread_rel": spread}))
+                        "rerun_bitwise_equal": bitwise}))
+        check(bitwise, "K3 bf16: three launches agree bit for bit")
         g_out = g_pos
 
     k2, k3 = time_radiance(field, cfg, p, rd, packed, (em, de, vpe, p3),
                            g_e_ref, g_out, skip, "bfloat16")
     k2.update(max_abs_err=m2["rgb_alpha_max_abs_err"])
+    # the spread of K3's time: single launches, each timed on its own
+    with torch.no_grad():
+        single = [cuda_ms(lambda: fr.radiance_backward(
+            packed, em, de, vpe, p3, g_e_ref, g_out, skip), 1)
+            for _ in range(K3_SPREAD_RUNS)]
     k3.update(max_abs_err=max(e["abs"] for e in errs["positive"].values()),
-              max_rel_err=max(e["rel"] for e in errs["positive"].values()))
+              max_rel_err=max(e["rel"] for e in errs["positive"].values()),
+              rerun_bitwise_equal=bitwise,
+              single_launch_ms={"min": min(single),
+                                "median": float(np.median(single)),
+                                "max": max(single), "runs": single})
     log(json.dumps({"fused_radiance_ms": {"forward": k2, "backward": k3}}))
-    return k1, k2, k3
+    check(k3["ms"] <= K3_BF16_MAX_MS and k3["ms"] < k3["library_ms"],
+          f"K3 bf16 at most {K3_BF16_MAX_MS} ms and faster than autograd: "
+          f"{k3['ms']} ms, autograd {k3['library_ms']} ms")
+    sums = time_slot_sum(packed, skip)
+    return k1, k2, k3, sums
+
+
+def time_slot_sum(packed, skip):
+    """The bf16 backward's slot sum at the integration batch's grid (one
+    slot per CTA, min(tiles, SMs)) over random slots, against its plain
+    version (the same order: bitwise) and torch.sum over the slots."""
+    from psnerf_torch.ops import fused_radiance as fr
+
+    total = sum(fr.bf16_slot_layout(*fr._dims(packed, skip))[1])
+    grid = min(-(-N_RAD // fr.BF16_TILE),
+               torch.cuda.get_device_properties(0).multi_processor_count)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    slots = torch.randn((grid, total), generator=gen, device=DEV)
+    before = fr.slot_sum.launches
+    got = fr.slot_sum(slots)
+    torch.cuda.synchronize()
+    check(fr.slot_sum.launches == before + 1, "slot_sum counted its launch")
+    err = (got - fr.slot_sum_plain(slots)).abs().max().item()
+    check(err == 0.0, f"slot sum against its plain version: {err}")
+    t = in_turns({"plain": lambda: fr.slot_sum_plain(slots),
+                  "kernel": lambda: fr.slot_sum(slots),
+                  "library": lambda: torch.sum(slots, 0)},
+                 {"plain": 3, "kernel": 20, "library": 20},
+                 ["plain", "kernel", "library", "library", "kernel",
+                  "plain"])
+    b, by = bound_ms(grid * total, (grid + 1) * total * 4, PEAK_F32_FLOPS)
+    row = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+               bound_ms=b, bound_by=by, library_ms=t["library"],
+               flops=grid * total, n=N_RAD, slots=grid, slot_floats=total,
+               library_max_abs_err=(torch.sum(slots, 0) - got).abs().max()
+               .item())
+    log(json.dumps({"fused_radiance_slot_sum_ms": row}))
+    return row
 
 
 def kink_free(packed, em, de, vpe, p3, g_e, skip):
@@ -1271,7 +1545,8 @@ def phase_stage1_main(scene, compute, steps, steps96, vis_every=0):
     launches = {"fused_occ_logit": fo.fused_occ_logit.launches,
                 "fused_radiance_fwd": dict(fr.radiance_forward.launches),
                 "fused_radiance_bwd": dict(fr.radiance_backward.launches),
-                "fused_radiance_f32": dict(fr.f32_launches)}
+                "fused_radiance_f32": dict(fr.f32_launches),
+                "fused_radiance_slot_sum": fr.slot_sum.launches}
     if vis_every:
         # the strip's render_view of 2 views: a march (proposal pass and 8
         # secant passes) per pixel tile
@@ -1292,8 +1567,13 @@ def phase_stage1_main(scene, compute, steps, steps96, vis_every=0):
         check(f32k["fwd"] >= steps and f32k["split"] >= 2 * steps
               and f32k["sweep"] >= steps and f32k["wgrad"] >= steps
               and f32k["reduce"] >= steps, f"f32 kernels {f32k}")
+        check(launches["fused_radiance_slot_sum"] == 0,
+              f"the bf16 slot sum at the f32 field {launches}")
     else:
         check(not any(f32k.values()), f"f32 kernels at the bf16 field {f32k}")
+        check(launches["fused_radiance_slot_sum"]
+              == launches["fused_radiance_bwd"]["bfloat16"],
+              f"one slot sum per bf16 backward {launches}")
     recs = read_losses(wd)
     check(runner.it == steps
           and [r["it"] for r in recs] == [steps // 2, steps],
@@ -1568,11 +1848,12 @@ def main():
             card = phase_card()
             regs = phase_build()
             k4, k5 = phase_kernels()
-        k1, k2, k3 = phase_stage1_kernels(card)
+        k1, k2, k3, sums = phase_stage1_kernels(card)
         k2f, k3f, stages = phase_radiance_f32()
         scene = make_scene()
         with torch.no_grad():
             launches, e2e = phase_main_path(scene)
+        launches_s2, e2e_s2 = phase_stage2_train(scene)
         launches_bf, e2e_bf, _ = phase_stage1_main(scene, "bfloat16", 10, 5)
         launches1, e2e1, trained = phase_stage1_main(scene, "float32", 20, 10,
                                                      vis_every=10)
@@ -1595,10 +1876,14 @@ def main():
                                      "rerun_bitwise_equal", "stages_ms",
                                      "err_is", "library_note",
                                      "at_64_samples", "at_secant_pass",
-                                     "bound_parts", "sass", "rerun_bitwise")
+                                     "bound_parts", "sass", "rerun_bitwise",
+                                     "slots", "slot_floats",
+                                     "single_launch_ms",
+                                     "launches_stage2_train")
                    if x in k}}
 
     log(json.dumps({"card": card["nvidia_smi"], "main_path": e2e,
+                    "stage2_train_main_path": e2e_s2,
                     "stage1_main_path_bfloat16": e2e_bf,
                     "stage1_main_path_float32": e2e1,
                     "stage1_eval_export": e2e_export,
@@ -1615,6 +1900,10 @@ def main():
         entry("fused_radiance_and_alpha (backward)", "fused_radiance.cu",
               "psnerf_tpu/ops/fused_radiance.py:410", k3,
               launches_bf["fused_radiance_bwd"]["bfloat16"]),
+        entry("fused_radiance_and_alpha bf16 slot sum (the backward's CTA "
+              "slots added in fixed order)", "fused_radiance.cu",
+              "psnerf_tpu/ops/fused_radiance.py:410", sums,
+              launches_bf["fused_radiance_slot_sum"]),
         entry("fused_radiance_and_alpha (forward, f32 operands: prologue "
               "and forward kernel)", "fused_radiance_f32.cu",
               "psnerf_tpu/ops/fused_radiance.py:390", k2f,
@@ -1637,7 +1926,8 @@ def main():
               "psnerf_tpu/ops/fused_vis.py:219", k4,
               launches["fused_visibility"]),
         entry("fused_vis_shade", "fused_vis.cu",
-              "psnerf_tpu/ops/fused_vis.py:387", k5,
+              "psnerf_tpu/ops/fused_vis.py:387",
+              dict(k5, launches_stage2_train=launches_s2["fused_vis_shade"]),
               launches["fused_vis_shade"])], "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))

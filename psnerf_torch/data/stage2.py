@@ -1,10 +1,19 @@
 """Stage-2 data (counterpart of psnerf_tpu/data/stage2.py): multi-light
-images plus the stage-1 shape export, as tensors on one device.
+images plus the stage-1 shape export, as tensors on one device, and the
+training batch sampler.
 
 Images stay as their 8-bit bytes on the device when every source is 8-bit
 ("auto"/"u8"); decode_imgs divides by 255 on use, which is bit-exact with
 loading them as float. Ragged per-view light counts are padded to the
 largest count; light_count / light_mask mark the real lights.
+
+A training batch is a draw of indices (`draw_stage2_indices`: lights,
+pixels and vis_plus pool rows, from a torch.Generator) and a gather at
+those indices (`gather_stage2_batch`), so a test can gather at the JAX
+sampler's own indices. The draws without replacement are Gumbel top-k, as
+jax.random.choice(replace=False, p=...) draws them: a zero-weight item
+comes after every weighted one, so a mask with fewer pixels than asked
+still gives distinct pixels, all of the mask's first.
 """
 
 from __future__ import annotations
@@ -45,9 +54,10 @@ def load_stage2_data(
       object_masks [V, H*W] bool, points/normals [V, H*W, 3],
       surface_mask [V, H*W] bool, visibility [V, L, H*W], gt_normal
       [V, H*W, 3], light_dirs [V, L, 3] world, light_mask [V, L], poses
-      [V, 4, 4] OpenCV, K, vis_plus_dirs/vis_plus (when vis_plus);
+      [V, 4, 4] OpenCV, K, vis_plus_dirs/vis_plus (when vis_plus),
+      light_row_offset [V] (each view's first row of the flat light table);
     and host values: light_slt [V, L], light_count [V], pose_gl, views,
-    img_res, light_row_offset, n_light_rows."""
+    img_res, n_light_rows."""
     dev = resolve_device(device)
     views = scene.view_split(split, train_view, all_view)
     im_sub, _ = scene.img_subdir(inten_normalize, train_light)
@@ -153,6 +163,107 @@ def load_stage2_data(
             vpv.append(arr.reshape(len(vpd[-1]), -1).astype(np.float32))
         out["vis_plus_dirs"] = t(np.asarray(vpd))
         out["vis_plus"] = t(np.asarray(vpv))
-    out["light_row_offset"] = np.concatenate([[0], np.cumsum(llen)[:-1]])
+    out["light_row_offset"] = t(np.concatenate([[0], np.cumsum(llen)[:-1]]))
     out["n_light_rows"] = int(np.sum(llen))
     return out
+
+
+def gumbel_top_k(weights: torch.Tensor, k: int,
+                 generator: torch.Generator) -> torch.Tensor:
+    """k distinct indices drawn without replacement with probabilities in
+    proportion to weights [n] (>= 0): the k largest of log w + Gumbel
+    noise. Zero weights sort last, the lower index first among them."""
+    u = torch.rand(weights.shape, generator=generator, device=weights.device)
+    g = -torch.log(-torch.log(u.clamp_min_(torch.finfo(u.dtype).tiny)))
+    keys = torch.log(weights.float()) + g
+    return torch.sort(keys, descending=True, stable=True).indices[:k]
+
+
+def _pick(data: dict, name: str, view: torch.Tensor) -> torch.Tensor:
+    """data[name][view] for a one-element index tensor (no host read)."""
+    return torch.index_select(data[name], 0, view)[0]
+
+
+def draw_stage2_indices(data: dict, view: torch.Tensor, num_pixels: int,
+                        light_bs: int, generator: torch.Generator,
+                        sample_in_mask: bool = True,
+                        vis_train_num: int | None = None) -> dict:
+    """One batch's random indices into view `view` (a one-element index
+    tensor on the data's device): lidx [light_bs] distinct real lights,
+    pix [num_pixels] distinct pixels (inside the object mask first when
+    sample_in_mask), and with vis_train_num, sidx [vis_train_num] distinct
+    rows of the vis_plus pool (the view's vis_plus directions, then its real
+    train lights). The draws follow psnerf_tpu/data/stage2.py:171-248."""
+    lmask = _pick(data, "light_mask", view)
+    out = {"lidx": gumbel_top_k(lmask, light_bs, generator)}
+    total_px = data["imgs"].shape[2]
+    if sample_in_mask:
+        weights = _pick(data, "object_masks", view)
+    else:
+        weights = torch.ones((total_px,), device=lmask.device)
+    out["pix"] = gumbel_top_k(weights, num_pixels, generator)
+    if vis_train_num is not None:
+        n_vp = data["vis_plus_dirs"].shape[1]
+        pool = torch.cat([torch.ones((n_vp,), dtype=torch.bool,
+                                     device=lmask.device), lmask])
+        out["sidx"] = gumbel_top_k(pool, vis_train_num, generator)
+    return out
+
+
+def gather_stage2_batch(data: dict, view: torch.Tensor, lidx: torch.Tensor,
+                        pix: torch.Tensor, sidx: torch.Tensor | None = None,
+                        light_init_dirs: torch.Tensor | None = None) -> dict:
+    """The training batch of view `view` at the given indices: uv [N, 2],
+    pose, intrinsics, object_mask, points, normal, surface_mask [N],
+    rgb_gt [L, N, 3], l_slt [L] (rows of the flat light table), lidx, pix,
+    visibility [L, N] (with vis_loss data), and with sidx and
+    light_init_dirs [V, L, 3] the vis_plus supervision light_vis_train
+    [Lv, 3] and vis_train_gt [Lv, N] from the pool of the view's vis_plus
+    directions and its initial train-light directions."""
+    w = data["img_res"][1]
+    row = lambda name: _pick(data, name, view)[pix]
+    lp = (lidx[:, None], pix[None, :])
+    batch = {
+        "uv": torch.stack([pix % w, torch.div(pix, w, rounding_mode="floor")],
+                          dim=-1).float(),
+        "pose": _pick(data, "poses", view),
+        "intrinsics": data["K"],
+        "object_mask": row("object_masks"),
+        "points": row("points"),
+        "normal": row("normals"),
+        "surface_mask": row("surface_mask"),
+        "rgb_gt": decode_imgs(_pick(data, "imgs", view)[lp]),
+        "l_slt": torch.index_select(data["light_row_offset"], 0, view) + lidx,
+        "lidx": lidx,
+        "pix": pix,
+    }
+    if "visibility" in data:
+        batch["visibility"] = _pick(data, "visibility", view)[lp]
+    if sidx is not None and light_init_dirs is not None:
+        vp_dirs = _pick(data, "vis_plus_dirs", view)
+        n_vp = vp_dirs.shape[0]
+        vp = sidx < n_vp
+        i_vp, i_tl = sidx.clamp(max=n_vp - 1), (sidx - n_vp).clamp(min=0)
+        init = torch.index_select(light_init_dirs, 0, view)[0]
+        batch["light_vis_train"] = torch.where(vp[:, None], vp_dirs[i_vp],
+                                               init[i_tl])
+        batch["vis_train_gt"] = torch.where(
+            vp[:, None], _pick(data, "vis_plus", view)[i_vp[:, None],
+                                                       pix[None, :]],
+            _pick(data, "visibility", view)[i_tl[:, None], pix[None, :]])
+    return batch
+
+
+def sample_stage2_batch(data: dict, view: torch.Tensor, generator,
+                        num_pixels: int, light_bs: int,
+                        sample_in_mask: bool = True, vis_train_num: int = 16,
+                        light_init_dirs: torch.Tensor | None = None) -> dict:
+    """A draw and its gather: the batch of psnerf_tpu's sample_stage2_batch
+    (with the vis_plus pool when the data has it and light_init_dirs is
+    given)."""
+    use_vp = "vis_plus" in data and light_init_dirs is not None
+    idx = draw_stage2_indices(data, view, num_pixels, light_bs, generator,
+                              sample_in_mask,
+                              vis_train_num if use_vp else None)
+    return gather_stage2_batch(data, view, idx["lidx"], idx["pix"],
+                               idx.get("sidx"), light_init_dirs)

@@ -1,5 +1,6 @@
 """Quality metrics (a copy of psnerf_tpu/eval/metrics.py): PSNR / SSIM /
-normal-MAE. numpy host-side, matching the reference's exact settings
+normal-MAE and the eval's compositing (white_bg, scale_img). numpy
+host-side, matching the reference's exact settings
 (stage2/utils/metrics.py:17-113, evaluation.py:15-26).
 
 SSIM reimplements skimage.structural_similarity for the reference's
@@ -77,3 +78,20 @@ def ssim(
         for c1, c2 in zip(img1, img2)
     ]
     return float(np.mean(vals))
+
+
+def scale_img(img: np.ndarray, gt: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Per-channel least-squares brightness rescale for SDPS-normalized runs
+    (evaluation.py:15-24)."""
+    scales = []
+    for i in range(3):
+        x_hat = img[:, :, i][mask]
+        x = gt[:, :, i][mask]
+        scales.append(x_hat.dot(x) / x_hat.dot(x_hat))
+    return (img * np.mean(scales)).clip(0, 1)
+
+
+def white_bg(img: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Composite onto white outside the mask (evaluation.py:26)."""
+    m = mask.astype(bool)[..., None]
+    return img * m + 1.0 * ~m

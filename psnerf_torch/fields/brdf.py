@@ -11,6 +11,13 @@ import torch
 
 # 9 fixed SG lobe sharpness values lambda_i = e^i, i in 2..10 (float32)
 SG_LOBES = np.asarray([math.exp(i) for i in range(2, 11)], dtype=np.float32)
+_LOBES_ON = {}      # device -> SG_LOBES there: a copy to the card waits for it
+
+
+def _lobes(device) -> torch.Tensor:
+    if device not in _LOBES_ON:
+        _LOBES_ON[device] = torch.as_tensor(SG_LOBES, device=device)
+    return _LOBES_ON[device]
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -26,7 +33,7 @@ def sg_basis(v, n, l, albedo, weights, specular_rgb: bool = False,
     specular = max(sum_i w_i * exp(lambda_i * (h.n - 1)), 0)."""
     h = _normalize(l + v)
     hn = torch.sum(h * n, dim=-1, keepdim=True)
-    lobes = torch.as_tensor(SG_LOBES[:nbasis], device=hn.device)
+    lobes = _lobes(hn.device)[:nbasis]
     d = torch.exp(lobes * (hn - 1.0))                       # [..., nbasis]
     if specular_rgb:
         w = weights.reshape(*weights.shape[:-1], 3, nbasis)

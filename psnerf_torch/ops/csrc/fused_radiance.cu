@@ -31,11 +31,20 @@
 //
 // Weight gradients x^T y (a reduction over points) run as mma.sync over
 // transposed [feature][point] tiles in shared memory (the trunk's two
-// terms a^T z_bar + t^T tz_bar as one product of depth 2 x tile), and
-// every CTA adds its tile's sums into the zeroed f32 gradients with
-// atomicAdd: CTAs run in no order, so nothing relies on one; the summation
-// order changes from run to run. Bias-like gradients are column sums (a
-// shuffle over the fragment's rows) added the same way.
+// terms a^T z_bar + t^T tz_bar as one product of depth 2 x tile).
+// Bias-like gradients are column sums (a shuffle over the fragment's rows).
+// Every CTA adds its tiles' sums into its own zeroed f32 slot of the
+// gradients (slot blockIdx.x, the gradients' concatenation in the packed
+// order, each at a multiple of 4 floats, so a thread's two adjacent
+// columns go as one float2 reduction). The sums come out the same on every
+// run: the persistent grid gives each CTA the same tiles in the same
+// order, and inside a CTA each gradient element has exactly one owning
+// thread (the g == 0 lane of colsum_atomic's shuffle, the fragment's own
+// elements in dtn_atomic, tid in the rgb head's sums), whose atomicAdds to
+// one address take effect in program order. slot_sum_kernel then adds the slots in a fixed order
+// (slot 0, then 1, ...), as the TPU kernel adds its tiles over a sequential
+// grid. The slots (132 x 3.3 MB at W = 256) do not fit in L2, so each
+// tile's sums go to device memory and back: the cost of determinism here.
 //
 // Rounding points as in the TPU kernel at wdt = bf16: every product's
 // operands are bf16; accumulation, biases, softplus, sigmoid and the
@@ -90,6 +99,7 @@ struct RadParams {
       *d_wa4, *d_ba4;
   unsigned char* scratch;
   int n, ke, kv, n_trunk, skip_pos;
+  long long slot_floats;      // backward: floats in one CTA's gradient slot
 };
 
 __device__ __forceinline__ void sp_sig(float x, float& sp, float& sg) {
@@ -146,6 +156,13 @@ __device__ __forceinline__ void put_T_scr(T* xT, int koff, const T* buf,
             buf[sq(fq<NT>(i, j, r))];
 }
 
+// dst[0:2] += (a, b) as one vector reduction (sm_90; dst 8-byte aligned:
+// every leaf starts at a multiple of 4 floats of its slot). Each element's
+// adds keep their order: one owning thread, in program order.
+__device__ __forceinline__ void add2(float* dst, float a, float b) {
+  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
+}
+
 // dst[col] += sum over the tile's rows of rw[row] * v (rw null: 1)
 template <int MI, int NT>
 __device__ __forceinline__ void colsum_atomic(float* dst,
@@ -153,22 +170,24 @@ __device__ __forceinline__ void colsum_atomic(float* dst,
                                               int n_base, const float* rw) {
   const int g = (threadIdx.x & 31) >> 2;
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < NT; ++j) {
+    float s[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      float s = 0.f;
+      s[e] = 0.f;
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float x = v[i][j][2 * h + e];
-          s += rw ? rw[frag_row(i, 2 * h) * ROWF] * x : x;
+          s[e] += rw ? rw[frag_row(i, 2 * h) * ROWF] * x : x;
         }
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (g == 0) atomicAdd(dst + frag_col(n_base, j, e), s);
+      s[e] += __shfl_xor_sync(0xffffffffu, s[e], 4);
+      s[e] += __shfl_xor_sync(0xffffffffu, s[e], 8);
+      s[e] += __shfl_xor_sync(0xffffffffu, s[e], 16);
     }
+    if (g == 0) add2(dst + frag_col(n_base, j, 0), s[0], s[1]);
+  }
 }
 
 // dst[a_rows, W] += xT[0:a_rows, 0:K] @ yT[0:W, 0:K]^T (a reduction over
@@ -188,11 +207,11 @@ __device__ __forceinline__ void dtn_atomic(const T* xT, int a_rows,
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = mc + frag_row(i, r);
+        for (int h = 0; h < 2; ++h) {      // the fragment's two rows
+          const int row = mc + frag_row(i, 2 * h);
           if (row < a_rows)
-            atomicAdd(dst + (size_t)row * W + frag_col(n_base, j, r),
-                      acc[i][j][r]);
+            add2(dst + (size_t)row * W + frag_col(n_base, j, 0),
+                 acc[i][j][2 * h], acc[i][j][2 * h + 1]);
         }
   }
 }
@@ -440,7 +459,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
 template <typename T, int W>
 __global__ void __launch_bounds__(NTHREADS, 1)
-    rad_bwd_kernel(const RadParams<T> p) {
+    rad_bwd_kernel(const RadParams<T> slot0) {
+  // the gradient pointers of this CTA's own slot
+  RadParams<T> p = slot0;
+  const size_t so = (size_t)blockIdx.x * slot0.slot_floats;
+  p.d_w0 += so; p.d_b0 += so; p.d_wskip += so; p.d_trunk_w += so;
+  p.d_trunk_b += so; p.d_w8f += so; p.d_b8f += so; p.d_w8l += so;
+  p.d_b8l += so; p.d_wp += so; p.d_wv += so; p.d_wn += so; p.d_wf += so;
+  p.d_ba0 += so; p.d_wa += so; p.d_bab += so; p.d_wa4 += so; p.d_ba4 += so;
   typedef Operand<T> Op;
   constexpr int NT = W / 64, LDA = W + Op::PAD;
   constexpr int TBM = Tile<T>::BM, MI = TBM / 16;
@@ -808,6 +834,37 @@ size_t bwd_smem() {
          3 * (size_t)NWARPS * TBM * sizeof(float);
 }
 
+// out[i] = sum of in[s * total + i] over s = 0, 1, ..., slots - 1, added in
+// that order from 0 (the backward's CTA slots, the same bits on every run).
+// Bound by bytes: each slot is read once. Four consecutive columns a thread
+// (16-byte loads: total % 4 == 0 and 16-byte aligned rows, which the caller
+// guarantees), eight slots' loads in flight, and a grid of the CTAs the card
+// holds at once, striding over the columns.
+__global__ void __launch_bounds__(256)
+    slot_sum_kernel(const float4* __restrict__ in, float4* __restrict__ out,
+                    long long n_vec, int slots) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_vec; i += (long long)gridDim.x * blockDim.x) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    int k = 0;
+    for (; k + 8 <= slots; k += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        v[u] = __ldg(in + (size_t)(k + u) * n_vec + i);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        s.x += v[u].x; s.y += v[u].y; s.z += v[u].z; s.w += v[u].w;
+      }
+    }
+    for (; k < slots; ++k) {
+      const float4 v = __ldg(in + (size_t)k * n_vec + i);
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    out[i] = s;
+  }
+}
+
 template <typename T>
 size_t scratch_bytes(int which, int width) {
   const size_t tile = (size_t)Tile<T>::BM * width;
@@ -831,9 +888,11 @@ cudaError_t launch(const RadParams<T>& p, int slots, cudaStream_t stream) {
 // ptrs: em, de, vpe, p3, [g_e, g_out (bwd)], 25 weights (w0T, w0, b0,
 // wskipT, wskip, trunkT, trunk, trunk_b, w8fT, w8f, b8f, w8l, b8l, wp, wn,
 // wvT, wfT, wf, ba0, waT, wa, bab, wa4T, wa4, ba4), then the outputs
-// (fwd: out, g_e; bwd: the 18 gradients in the packed order), then the
-// scratch. ints: n, width, ke, kv, n_trunk, skip_pos, slots. em, vpe and
-// the product weights are of the operand type T, everything else f32.
+// (fwd: out, g_e; bwd: slot 0 of the 18 gradients in the packed order),
+// then the scratch. ints: n, width, ke, kv, n_trunk, skip_pos, slots and
+// (bwd) the floats of one gradient slot; the grid is min(tiles, slots).
+// em, vpe and the product weights are of the operand type T, everything
+// else f32.
 template <typename T>
 int run(bool fwd, void* const* ptrs, const int* ints, void* stream) {
   RadParams<T> p = {};
@@ -868,6 +927,14 @@ int run(bool fwd, void* const* ptrs, const int* ints, void* stream) {
   p.n_trunk = ints[4];
   p.skip_pos = ints[5];
   const int slots = ints[6];
+  if (!fwd) {
+    // the float2 reductions: every slot and leaf 8-byte aligned
+    p.slot_floats = ints[7];
+    bool aligned = p.slot_floats % 4 == 0;
+    for (int g = k - 19; g < k - 1; ++g)
+      aligned = aligned && reinterpret_cast<uintptr_t>(ptrs[g]) % 8 == 0;
+    if (!aligned) return cudaErrorInvalidValue;
+  }
   if (p.n <= 0) return cudaSuccess;
   if (p.ke <= 0 || p.ke % 16 || p.ke > 64 || p.kv <= 0 || p.kv % 16 ||
       p.kv > 64 || p.n_trunk < 1 || p.n_trunk > 7 || p.skip_pos < 0 ||
@@ -890,7 +957,8 @@ extern "C" long long psnerf_radiance_scratch_bytes(int which, int width) {
 }
 
 // Return a cudaError_t (0 = cudaSuccess). The backward adds into its
-// gradient outputs, which the caller zeroes.
+// gradient slots (one per CTA, laid out back to back), which the caller
+// zeroes and then sums with psnerf_radiance_slot_sum.
 extern "C" int psnerf_radiance_fwd(void* const* ptrs, const int* ints,
                                    void* stream) {
   return run<bf16>(true, ptrs, ints, stream);
@@ -899,6 +967,33 @@ extern "C" int psnerf_radiance_fwd(void* const* ptrs, const int* ints,
 extern "C" int psnerf_radiance_bwd(void* const* ptrs, const int* ints,
                                    void* stream) {
   return run<bf16>(false, ptrs, ints, stream);
+}
+
+// ptrs: in [slots, total], out [total] (f32, 16-byte aligned); ints: total
+// (a multiple of 4), slots.
+extern "C" int psnerf_radiance_slot_sum(void* const* ptrs, const int* ints,
+                                        void* stream) {
+  const long long total = ints[0];
+  const int slots = ints[1];
+  if (total <= 0) return cudaSuccess;
+  if (slots < 0 || total % 4 ||
+      reinterpret_cast<uintptr_t>(ptrs[0]) % 16 ||
+      reinterpret_cast<uintptr_t>(ptrs[1]) % 16)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, slot_sum_kernel, 256,
+                                                0);
+  const long long n_vec = total / 4;
+  long long blocks = (n_vec + 255) / 256;
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (blocks > resident) blocks = resident;      // one wave, grid-strided
+  slot_sum_kernel<<<(unsigned)blocks, 256, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(ptrs[0]), static_cast<float4*>(ptrs[1]),
+      n_vec, slots);
+  return cudaGetLastError();
 }
 
 extern "C" const char* psnerf_cuda_error_string(int err) {

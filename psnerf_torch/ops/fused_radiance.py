@@ -19,7 +19,8 @@ normal path injects. Two kernels compute it:
 Both come in the two operand forms of the TPU kernels:
   * bf16 operands (`compute="bfloat16"`, csrc/fused_radiance.cu): one
     forward and one backward kernel; the backward adds each tile's weight
-    gradients with f32 atomics;
+    gradients into its CTA's own slot, and `slot_sum` adds the slots in a
+    fixed order: deterministic from run to run;
   * f32 operands (`compute="float32"`, the default field's form,
     csrc/fused_radiance_f32.cu; 3xTF32 wgmma, close to f32 products):
     a prologue splits the weights into tf32 hi/lo fragments (`split`),
@@ -45,7 +46,8 @@ explicit sweep, in PyTorch; the backward is the composition of
 kernels chunk; `split_weights_plain` is the prologue's). On CUDA tensors
 they launch the kernels or raise. Launches are counted per form in
 `radiance_forward.launches` and `radiance_backward.launches`
-({"bfloat16": n, "float32": n}), and per f32 kernel in `f32_launches`.
+({"bfloat16": n, "float32": n}), per f32 kernel in `f32_launches`, and
+the bf16 backward's slot sum in `slot_sum.launches`.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ PACK_ORDER = ["w0", "b0", "wskip", "trunk_w", "trunk_b", "w8f", "b8f", "w8l",
               "b8l", "wp", "wv", "wn", "wf", "ba0", "wa", "bab", "wa4", "ba4"]
 F32_KERNELS = ("split", "fwd", "sweep", "wgrad", "reduce")
 CHUNK = 65536        # points per backward sweep of the f32 form
+BF16_TILE = 64       # points per tile of the bf16 kernels
 _lib_handle = []
 _lib_f32_handle = []
 
@@ -414,7 +417,8 @@ def _lib():
     """The bf16 form's library (csrc/fused_radiance.cu)."""
     if not _lib_handle:
         lib = load_library("fused_radiance")
-        for fn in (lib.psnerf_radiance_fwd, lib.psnerf_radiance_bwd):
+        for fn in (lib.psnerf_radiance_fwd, lib.psnerf_radiance_bwd,
+                   lib.psnerf_radiance_slot_sum):
             fn.argtypes = _LAUNCH_ARGS
             fn.restype = ctypes.c_int
         lib.psnerf_radiance_scratch_bytes.argtypes = [ctypes.c_int] * 2
@@ -494,6 +498,16 @@ _GRAD_SHAPES = lambda w, ke, kv, nt: {
     "wa": (3, w, w), "bab": (3, w), "wa4": (w, 3), "ba4": (3,)}
 
 
+def bf16_slot_layout(w: int, ke: int, kv: int, nt: int) -> tuple:
+    """The bf16 backward's gradient slot: (the leaves' sizes in the packed
+    order, the floats each takes in the slot). Every leaf starts at a
+    multiple of 4 floats (the kernel's float2 reductions; slot_sum's
+    16-byte loads), so the slot is sum(room) floats."""
+    shapes = _GRAD_SHAPES(w, ke, kv, nt)
+    sizes = [math.prod(shapes[k]) for k in PACK_ORDER]
+    return sizes, [round_up(x, 4) for x in sizes]
+
+
 def _dims(packed: dict, skip_pos: int) -> tuple:
     """(width, ke, kv, n_trunk) of the packed operands; raises for what the
     kernels do not take."""
@@ -515,9 +529,10 @@ def _need_cuda(dev) -> None:
 
 
 def _launch(which: str, kw: dict, tensors: dict, names: list, n: int,
-            skip_pos: int) -> None:
+            skip_pos: int, slots: int, slot_floats: int = 0) -> None:
     """Check every operand and launch the bf16 form's forward or backward
-    kernel."""
+    kernel on a grid of min(tiles, slots) CTAs (the backward's gradient
+    operands: slot 0 of `slots` back-to-back slots of slot_floats)."""
     dev = tensors["em"].device
     _need_cuda(dev)
     w = kw["w8l"].shape[0]
@@ -539,10 +554,9 @@ def _launch(which: str, kw: dict, tensors: dict, names: list, n: int,
         dt, shape = shapes[name]
         check_operand(name, tensors[name], dt, shape, dev)
     scratch = _scratch(which, w, dev)
-    slots = torch.cuda.get_device_properties(dev).multi_processor_count
     ptrs = (ctypes.c_void_p * (len(names) + 1))(
         *[tensors[k].data_ptr() for k in names], scratch.data_ptr())
-    ints = (ctypes.c_int * 7)(n, w, ke, kv, nt, skip_pos, slots)
+    ints = (ctypes.c_int * 8)(n, w, ke, kv, nt, skip_pos, slots, slot_floats)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib = _lib()
@@ -556,9 +570,52 @@ def _launch(which: str, kw: dict, tensors: dict, names: list, n: int,
 def _scratch(which: str, w: int, dev) -> torch.Tensor:
     """Device scratch of the persistent grid: one slot per SM, each holding
     a CTA's per-layer values of one tile (sizes from the library)."""
-    slots = torch.cuda.get_device_properties(dev).multi_processor_count
     per_slot = _lib().psnerf_radiance_scratch_bytes(int(which == "bwd"), w)
-    return torch.empty((slots * per_slot,), dtype=torch.uint8, device=dev)
+    return torch.empty((_slots(dev) * per_slot,), dtype=torch.uint8,
+                       device=dev)
+
+
+def slot_sum_plain(slots: torch.Tensor) -> torch.Tensor:
+    """slot_sum's arithmetic: the rows of slots [S, total] added in order,
+    from zero."""
+    out = torch.zeros(slots.shape[1:], dtype=slots.dtype,
+                      device=slots.device)
+    for row in slots:
+        out += row
+    return out
+
+
+def slot_sum(slots: torch.Tensor) -> torch.Tensor:
+    """The bf16 backward's gradients from its CTA slots [S, total] f32:
+    out[i] = sum over s = 0, 1, ... of slots[s, i], added in that order,
+    the same bits on every run. CPU tensors take slot_sum_plain; CUDA
+    tensors launch the kernel (counted in slot_sum.launches), which loads
+    16 bytes at a time: total must be a multiple of 4 and the rows 16-byte
+    aligned (radiance_backward pads its slots so)."""
+    if route(slots) == "cpu":
+        return slot_sum_plain(slots)
+    dev = slots.device
+    check_operand("slots", slots, torch.float32, slots.shape, dev)
+    n_slots, total = slots.shape
+    if total % 4 or slots.data_ptr() % 16:
+        raise ValueError("slot_sum needs a multiple of 4 floats per slot and "
+                         f"16-byte aligned slots; got {total} floats at "
+                         f"address {slots.data_ptr():#x}")
+    out = torch.empty((total,), dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * 2)(slots.data_ptr(), out.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib = _lib()
+        rc = lib.psnerf_radiance_slot_sum(
+            ptrs, (ctypes.c_int * 2)(total, n_slots), stream)
+    if rc != 0:
+        raise RuntimeError("fused_radiance slot sum kernel launch failed: "
+                           + lib.psnerf_cuda_error_string(rc).decode())
+    slot_sum.launches += 1
+    return out
+
+
+slot_sum.launches = 0
 
 
 # ------------------------------------------------ the f32 form's kernels
@@ -781,6 +838,7 @@ def radiance_forward(packed: dict, em, de, vpe, p3, skip_pos: int,
         return out, g_e
     n = em.shape[0]
     dev = em.device
+    _need_cuda(dev)
     op = _OP_DTYPE[compute]
     kw = _kernel_weights(packed)
     t = dict(kw, em=em.to(op).contiguous(), de=de.contiguous(),
@@ -788,7 +846,7 @@ def radiance_forward(packed: dict, em, de, vpe, p3, skip_pos: int,
              out=torch.empty((n, 4), dtype=torch.float32, device=dev),
              g_e=torch.empty((n, em.shape[1]), dtype=torch.float32,
                              device=dev))
-    _launch("fwd", kw, t, _FWD_NAMES, n, skip_pos)
+    _launch("fwd", kw, t, _FWD_NAMES, n, skip_pos, _slots(dev))
     radiance_forward.launches[compute] += 1
     return t["out"], t["g_e"]
 
@@ -799,11 +857,12 @@ radiance_forward.launches = dict.fromkeys(FORMS, 0)
 def radiance_backward(packed: dict, em, de, vpe, p3, g_e, g_out,
                       skip_pos: int, compute: str = "bfloat16") -> dict:
     """Kernel backward on CUDA tensors, operand form `compute`: f32
-    gradients of sum(out * g_out) in the packed shapes. bf16: the CTAs add
-    their tiles' sums into the zeroed gradients with f32 atomics, so the
-    summation order varies from run to run. f32: the sweep, split-K
-    weight-gradient and fixed-order reduce kernels (`F32Backward`), the
-    same bits from run to run."""
+    gradients of sum(out * g_out) in the packed shapes, the same bits from
+    run to run. bf16: each CTA of the persistent grid adds its tiles' sums
+    into its own zeroed slot of the gradients, and `slot_sum` adds the
+    slots in a fixed order (the gradients are views of its output). f32:
+    the sweep, split-K weight-gradient and fixed-order reduce kernels
+    (`F32Backward`)."""
     _check_form(compute)
     if compute == "float32":
         grads = F32Backward(packed, em, de, vpe, p3, g_e, g_out,
@@ -812,30 +871,36 @@ def radiance_backward(packed: dict, em, de, vpe, p3, g_e, g_out,
         return grads
     n = em.shape[0]
     dev = em.device
+    _need_cuda(dev)
     op = _OP_DTYPE[compute]
     kw = _kernel_weights(packed)
     w, ke = kw["w8l"].shape[0], em.shape[1]
     kv, nt = kw["wvT"].shape[1], kw["trunk"].shape[0]
-    grads = {k: torch.zeros(s, dtype=torch.float32, device=dev)
-             for k, s in _GRAD_SHAPES(w, ke, kv, nt).items()}
+    shapes = _GRAD_SHAPES(w, ke, kv, nt)
+    sizes, room = bf16_slot_layout(w, ke, kv, nt)
+    grid = max(1, min(-(-n // BF16_TILE), _slots(dev)))
+    slots = torch.zeros((grid, sum(room)), dtype=torch.float32, device=dev)
+    leaf = lambda flat: {k: x[:s].view(shapes[k]) for k, x, s in
+                         zip(PACK_ORDER, flat.split(room), sizes)}
     t = dict(kw, em=em.to(op).contiguous(), de=de.contiguous(),
              vpe=vpe.to(op).contiguous(), p3=p3.contiguous(),
              g_e=g_e.contiguous(), g_out=g_out.float().contiguous(),
-             **{"d_" + k: v for k, v in grads.items()})
-    _launch("bwd", kw, t, _BWD_NAMES, n, skip_pos)
+             **{"d_" + k: x for k, x in leaf(slots[0]).items()})
+    _launch("bwd", kw, t, _BWD_NAMES, n, skip_pos, grid, sum(room))
     radiance_backward.launches[compute] += 1
-    return grads
+    return leaf(slot_sum(slots))
 
 
 radiance_backward.launches = dict.fromkeys(FORMS, 0)
 
 
 def reset_launches() -> None:
-    """Set both kernels' counts of both forms, and the f32 form's per-kernel
-    counts, to 0."""
+    """Set both kernels' counts of both forms, the f32 form's per-kernel
+    counts and the slot sum's count to 0."""
     for fn in (radiance_forward, radiance_backward):
         fn.launches = dict.fromkeys(FORMS, 0)
     f32_launches.update(dict.fromkeys(F32_KERNELS, 0))
+    slot_sum.launches = 0
 
 
 class _RadianceOp(torch.autograd.Function):

@@ -1,8 +1,7 @@
 """Training losses (counterpart of psnerf_tpu/train/losses.py), as
 functions of dense masked tensors: every boolean-mask reduction
 `x[mask].mean()` is sum(x * m) / max(sum(m), 1), so no step reads a value
-back to the host. The stage-2 losses come with the stage-2 training
-slice."""
+back to the host."""
 
 from __future__ import annotations
 
@@ -77,3 +76,68 @@ class Stage2LossWeights:
     vis_weight: float = 1.0
     normal_weight: float = 1.0
     normal_smooth_weight: float = 0.05
+
+
+def stage2_loss(out: dict, rgb_gt: torch.Tensor, object_mask: torch.Tensor,
+                w: Stage2LossWeights, vis_gt: torch.Tensor | None = None,
+                vis_train_gt: torch.Tensor | None = None,
+                weights_override: dict | None = None) -> dict:
+    """Loss terms of a stage-2 batch: rgb [L, N, 3] against rgb_gt, the
+    albedo and SG-weight smoothness of the jittered heads, the visibility
+    supervision (vis_train against the vis_plus ground truth, else
+    vis_train against the stage-1 visibility vis_gt [L, N], else the
+    rendering lights' visibility against vis_gt) and the normal terms.
+    weights_override may replace sg_rgb_weight, albedo_smooth_weight,
+    rough_smooth_weight and vis_weight (the warm-up's values)."""
+    ww = {"sg_rgb_weight": w.sg_rgb_weight,
+          "albedo_smooth_weight": w.albedo_smooth_weight,
+          "rough_smooth_weight": w.rough_smooth_weight,
+          "vis_weight": w.vis_weight}
+    if weights_override:
+        ww.update(weights_override)
+
+    mask = out["network_object_mask"] & object_mask                # [N]
+    err = out["rgb"] - rgb_gt
+    per_elem = torch.abs(err) if w.loss_type == "L1" else err ** 2
+    rgb_loss = masked_mean(per_elem, mask[None, :])
+    loss = ww["sg_rgb_weight"] * rgb_loss
+    terms = {"sg_rgb_loss": rgb_loss}
+
+    if "albedo_jitter" in out:
+        al = masked_mean(torch.abs(out["albedo"] - out["albedo_jitter"]),
+                         mask)
+        loss = loss + ww["albedo_smooth_weight"] * al
+        terms["albedo_smooth_loss"] = al
+    if "rough_jitter" in out:
+        rl = masked_mean(torch.abs(out["sg_weight"] - out["rough_jitter"]),
+                         mask)
+        loss = loss + ww["rough_smooth_weight"] * rl
+        terms["rough_smooth_loss"] = rl
+
+    vis_pred = vis_ref = None
+    if "vis_train" in out and vis_train_gt is not None:
+        vis_pred, vis_ref = out["vis_train"], vis_train_gt
+    elif "vis_train" in out and vis_gt is not None:
+        vis_pred, vis_ref = out["vis_train"], vis_gt
+    elif vis_gt is not None:
+        vis_pred, vis_ref = out["visibility"][..., 0], vis_gt
+    if vis_pred is not None:
+        vl = masked_mean(torch.abs(vis_pred - vis_ref), mask[None, :])
+        loss = loss + ww["vis_weight"] * vl
+        terms["vis_loss"] = vl
+
+    if "normal_pred" in out:
+        ngt = out["normal_values"]
+        ngt = ngt / torch.clamp_min(
+            torch.linalg.norm(ngt, dim=-1, keepdim=True), 1e-12)
+        nl = masked_mean((out["normal_pred"] - ngt) ** 2, mask)
+        loss = loss + w.normal_weight * nl
+        terms["normal_loss"] = nl
+        if "normal_jitter" in out:
+            ns = masked_mean(
+                torch.abs(out["normal_pred"] - out["normal_jitter"]), mask)
+            loss = loss + w.normal_smooth_weight * ns
+            terms["normal_smooth_loss"] = ns
+
+    terms["loss"] = loss
+    return terms

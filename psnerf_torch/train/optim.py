@@ -28,12 +28,19 @@ def adam_init(params: dict) -> dict:
 def adam_update(params: dict, grads: dict, state: dict, lr, gate=None,
                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
     """One Adam step, in place. gate: None (all update) or {name: value}
-    broadcastable against each leaf."""
+    per leaf: a tensor broadcastable against the leaf (e.g. a row mask), or
+    a host 0 (the leaf is frozen: param, m, v and step stay, and nothing is
+    launched) or 1 (no gate)."""
     for k, p in params.items():
         g = grads[k]
         m, v, step = state["m"][k], state["v"][k], state["step"][k]
-        gt = None if gate is None else torch.as_tensor(
-            gate[k], dtype=p.dtype, device=p.device)
+        gt = None if gate is None else gate[k]
+        if isinstance(gt, (int, float)):
+            if not gt:
+                continue
+            gt = None
+        elif gt is not None:
+            gt = gt.to(dtype=p.dtype, device=p.device)
         on = gt > 0 if gt is not None else None
         new_step = step + (1 if on is None else on.any().to(torch.int32))
         m_new = b1 * m + (1 - b1) * g
@@ -58,3 +65,10 @@ def multistep_lr(base_lr: float, milestones: Sequence[int], gamma: float,
     """MultiStepLR as a function of the iteration counter."""
     n_passed = sum(int(it >= m) for m in sorted(milestones))
     return base_lr * gamma ** n_passed
+
+
+def row_mask_from_indices(n_rows: int, indices: torch.Tensor) -> torch.Tensor:
+    """[n_rows, 1] 0/1 mask with ones at `indices`: the SparseAdam row
+    gate of the light tables."""
+    mask = torch.zeros((n_rows,), dtype=torch.float32, device=indices.device)
+    return mask.index_fill_(0, indices, 1.0)[:, None]

@@ -185,3 +185,19 @@ def test_supports_and_f32_refused_on_cuda(setup, monkeypatch):
     fr.reset_launches()
     with pytest.raises(ValueError, match="compute"):
         fr.fused_radiance_and_alpha(field, t(p), t(rd), cfg, compute="f16")
+
+
+@pytest.mark.parametrize("width,nt", [(256, 7), (128, 3)])
+def test_bf16_slot_layout_aligns_every_leaf(width, nt):
+    """The bf16 backward's slot: every gradient leaf at a multiple of 4
+    floats (the kernel's float2 reductions, slot_sum's 16-byte loads), in
+    the packed order, with room for all of it; the CPU route of slot_sum
+    adds the slots in order."""
+    sizes, room = fr.bf16_slot_layout(width, 48, 32, nt)
+    shapes = fr._GRAD_SHAPES(width, 48, 32, nt)
+    assert sizes == [int(np.prod(shapes[k])) for k in fr.PACK_ORDER]
+    assert all(r % 4 == 0 and s <= r < s + 4 for s, r in zip(sizes, room))
+    slots = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(5, sum(room))).astype(np.float32))
+    want = slots[0] + slots[1] + slots[2] + slots[3] + slots[4]
+    assert torch.equal(fr.slot_sum(slots), want)

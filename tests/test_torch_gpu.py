@@ -367,3 +367,159 @@ def test_fused_radiance_f32_split_and_sweep(width, layers):
     for k, x in plain.items():
         scale = x.abs().max().item() + 1e-12
         assert (got[k] - x).abs().max().item() / scale < 2e-4, k
+
+
+# N of one point, below one 64-point tile, above one CTA per SM, and the
+# integration batch of a 96-sample step (2048 x 96)
+@pytest.mark.parametrize("width,layers", [(256, 8), (128, 4)])
+@pytest.mark.parametrize("n", [1, 63, 70001, 196608])
+def test_fused_radiance_bf16_backward_is_deterministic(width, layers, n):
+    """The bf16 backward adds each CTA's tiles into its own slot and the
+    slots in a fixed order: five launches agree bit for bit."""
+    _need_gpu()
+    from psnerf_torch.ops import fused_radiance as fr
+
+    cfg, field = _occ_field(width, layers)
+    em, de, vpe, p3 = _radiance_inputs(cfg, n)
+    skip = cfg.skips[0] - 1
+    with torch.no_grad():
+        packed = fr.pack_radiance(field, cfg, torch.bfloat16)
+    _, g_e = fr.radiance_forward(packed, em, de, vpe, p3, skip)
+    g_out = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(n, 4)).astype(np.float32), device="cuda")
+    before = fr.slot_sum.launches
+    runs = [fr.radiance_backward(packed, em, de, vpe, p3, g_e, g_out, skip)
+            for _ in range(5)]
+    torch.cuda.synchronize()
+    assert fr.slot_sum.launches == before + 5
+    for k in fr.PACK_ORDER:
+        assert torch.isfinite(runs[0][k]).all(), k
+        assert all(torch.equal(runs[0][k], r[k]) for r in runs[1:]), k
+
+
+# the bf16 backward's slot length at widths 256 and 128, over one slot, a
+# few, and one per SM of an H100
+@pytest.mark.parametrize("width,layers", [(256, 8), (128, 4)])
+@pytest.mark.parametrize("slots", [1, 7, 132])
+def test_slot_sum_kernel_matches_plain(width, layers, slots):
+    """The slot sum adds the slots in order from zero, as its plain version
+    does: the same bits. A slot length that is not a multiple of 4 floats
+    is refused (the kernel loads 16 bytes at a time)."""
+    _need_gpu()
+    from psnerf_torch.ops import fused_radiance as fr
+
+    cfg, field = _occ_field(width, layers)
+    with torch.no_grad():
+        packed = fr.pack_radiance(field, cfg, torch.bfloat16)
+    total = sum(fr.bf16_slot_layout(*fr._dims(packed, cfg.skips[0] - 1))[1])
+    x = torch.as_tensor(np.random.default_rng(7).normal(
+        size=(slots, total)).astype(np.float32), device="cuda")
+    before = fr.slot_sum.launches
+    got = fr.slot_sum(x)
+    torch.cuda.synchronize()
+    assert fr.slot_sum.launches == before + 1
+    assert torch.equal(got, fr.slot_sum_plain(x))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fr.slot_sum(x[:, :-1].contiguous())
+
+
+def _stage2_batch(n, n_l, n_v, n_rows, seed=8):
+    """A stage-2 training batch of random pixels of a camera at 3 looking
+    at the origin (host tensors)."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = (0.0, 0.0, -3.0)
+    k = np.asarray([[400.0, 0, 256, 0], [0, 400.0, 256, 0], [0, 0, 1, 0],
+                    [0, 0, 0, 1]], np.float32)
+    mask = rng.uniform(size=n) > 0.1
+    return {
+        "uv": f(rng.uniform(0, 512, size=(n, 2))), "pose": f(pose),
+        "intrinsics": f(k), "object_mask": torch.as_tensor(mask),
+        "points": f(rng.normal(size=(n, 3)) * 0.3),
+        "normal": f(_unit(rng, (n, 3))),
+        "surface_mask": torch.as_tensor(mask | (rng.uniform(size=n) > 0.5)),
+        "rgb_gt": f(rng.uniform(size=(n_l, n, 3))),
+        "l_slt": torch.as_tensor(rng.choice(n_rows, n_l, replace=False)),
+        "visibility": f(rng.uniform(size=(n_l, n)) > 0.3),
+        "light_vis_train": f(_unit(rng, (n_v, 3))),
+        "vis_train_gt": f(rng.uniform(size=(n_v, n)) > 0.3)}
+
+
+def _stage2_step_on(model, dirs, batch, noise, dev, dt, it=6000):
+    """(loss, gradients, params after the step) of one stage-2 step of
+    `model` on device dev in dtype dt, from a fresh optimizer state."""
+    import copy
+
+    from psnerf_torch.train import stage2
+
+    cfg, tcfg = model.cfg, stage2.Stage2TrainConfig()
+    params = stage2.init_stage2_params(copy.deepcopy(model).to(dev, dt),
+                                       dirs, np.full((len(dirs), 1), 2.0),
+                                       dev)
+    for k in ("light_dirs", "light_ints"):
+        params[k] = params[k].to(dt)
+    cast = lambda v: v.to(dev, dt) if v.is_floating_point() else v.to(dev)
+    b = {k: cast(v) for k, v in batch.items()}
+    nz = {k: cast(v) for k, v in noise.items()}
+    init, step = stage2.make_stage2_train_step(cfg, tcfg)
+    _, grads = step.loss_and_grads(params, b, it, nz)
+    terms = step(params, init(params), b, it, nz)
+    flat = {k: v.detach().cpu() for k, v in
+            stage2.model_params(params["model"]).items()}
+    flat.update({k: params[k].cpu() for k in ("light_dirs", "light_ints")})
+    return (float(terms["loss"]), {k: g.cpu() for k, g in grads.items()},
+            flat)
+
+
+def test_stage2_train_step_cuda_matches_cpu():
+    """One stage-2 step of the full bear PSNet (8,192 pixels x 10 lights, 8
+    vis_plus lights) on the card against the same step on the CPU, from one
+    parameter set, batch and jitter draws, after the warm-up.
+    In f32, the precision the runner trains in: the loss within 1e-4
+    relative; each param within 2 lr of its group (Adam's first step moves
+    a param by lr, so a near-zero gradient whose sign differs costs 2 lr)
+    and within 1e-5 where its gradient exceeds 1e-6; each gradient leaf
+    within 1e-3 of its scale: the f32 sin and cos of the positional
+    encoding differ by an ulp between the card's and the CPU's math
+    libraries, which the encoding's high frequencies amplify to up to
+    1.7e-4 of a leaf's scale (9e-6 with the encoding in f64 on both;
+    tools/stage2_grad_precision.py).
+    In f64, which holds the card's backward itself: the loss within 1e-12
+    relative, each gradient leaf within 1e-9 of its scale, each param
+    within 1e-10 where its gradient exceeds 1e-6."""
+    _need_gpu()
+    from psnerf_torch.fields.psnet import PSNetConfig, init_psnet
+    from psnerf_torch.render.shading import draw_psnet_noise
+    from psnerf_torch.train import stage2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg = stage2.Stage2TrainConfig()
+    model = init_psnet(PSNetConfig(),
+                       generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():      # a visibility above 0: the rgb loss flows
+        model["visibility"][-1].b.add_(0.5)
+    dirs = _unit(np.random.default_rng(9), (40, 3))
+    batch = _stage2_batch(8192, 10, 8, 40)
+    noise = draw_psnet_noise(8192, torch.Generator().manual_seed(1))
+    lrs = {"light_dirs": tcfg.light_learning_rate,
+           "light_ints": tcfg.light_inten_lr}
+    for dt, loss_rel, grad_rel, p_abs in ((torch.float32, 1e-4, 1e-3, 1e-5),
+                                          (torch.float64, 1e-12, 1e-9,
+                                           1e-10)):
+        loss_c, g_c, p_c = _stage2_step_on(model, dirs, batch, noise, "cpu",
+                                           dt)
+        loss_g, g_g, p_g = _stage2_step_on(model, dirs, batch, noise, "cuda",
+                                           dt)
+        assert abs(loss_c - loss_g) <= loss_rel * abs(loss_c), dt
+        assert set(g_c) == set(p_c) == set(g_g)
+        for k, v in p_c.items():
+            scale = g_c[k].abs().max().item() + 1e-8
+            assert (g_g[k] - g_c[k]).abs().max().item() <= grad_rel * scale, \
+                (dt, k)
+            diff = (v - p_g[k]).abs()
+            big = g_c[k].abs() > 1e-6
+            assert (diff[big].max().item() if big.any() else 0.0) <= p_abs, \
+                (dt, k)
+            lr = lrs.get(k, tcfg.sg_learning_rate)
+            assert diff.max().item() <= 2 * lr * (1 + 1e-4), (dt, k)

@@ -59,3 +59,19 @@ def t(a):
 
 def j(a):
     return jax.numpy.asarray(np.asarray(a))
+
+
+def port_stage2_config(jcfg):
+    """The port's Stage2Config holding the values of a JAX Stage2Config."""
+    from psnerf_torch.config import Stage2Config
+    from psnerf_torch.fields.psnet import PSNetConfig
+    from psnerf_torch.train.losses import Stage2LossWeights
+    from psnerf_torch.train.stage2 import Stage2TrainConfig
+
+    tr = jcfg.train
+    train = Stage2TrainConfig(**{
+        **{f.name: getattr(tr, f.name) for f in dataclasses.fields(tr)},
+        "weights": port_config(tr.weights, Stage2LossWeights)})
+    return Stage2Config(**{
+        **{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)},
+        "net": port_config(jcfg.net, PSNetConfig), "train": train})
