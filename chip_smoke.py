@@ -146,16 +146,99 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def in_turns(fns: dict, reps: dict, order):
+def graph_ms(fn, reps):
+    """Device-only ms per call: `reps` calls captured in one CUDA graph,
+    replayed three times between two events (the mean), so no host time
+    sits between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def host_us(fn, reps, batch=100):
+    """Host µs per call: the host clock over `reps` calls in batches of
+    `batch`, with no synchronize between the calls of a batch (one between
+    batches, outside the clock, keeps the launch queue short)."""
+    total = 0.0
+    for _ in range(reps // batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / (reps // batch * batch) * 1e6
+
+
+def in_turns(fns: dict, reps: dict, order, timer=cuda_ms):
     """Time each named fn in the given order (e.g. plain, kernel, kernel,
-    plain); returns {name: mean ms over its turns}."""
+    plain) with `timer` (cuda_ms: back-to-back calls between two events);
+    returns {name: mean over its turns}."""
     for fn in fns.values():       # warm-up
         fn()
     torch.cuda.synchronize()
     got = {k: [] for k in fns}
     for k in order:
-        got[k].append(cuda_ms(fns[k], reps[k]))
+        got[k].append(timer(fns[k], reps[k]))
     return {k: float(np.mean(v)) for k, v in got.items()}
+
+
+def time_slot_reduce(kernels: dict, plain, library, want):
+    """A fixed-order slot reduction of the engine (csrc/slot_reduce.cuh):
+    each design's launch in `kernels` ({variant: fn returning the sum})
+    held bit for bit against `want` (its plain version's sum), then timed
+    three ways, in turns with `library` (torch.sum over the same slots):
+    back-to-back CUDA events (cuda_ms, the kernel table's number; the
+    plain version's too), device only (graph_ms) and host µs per launch
+    (host_us over 1,000 launches). Returns {name: {ms, device_ms,
+    host_us}}."""
+    for v, fn in kernels.items():
+        got = fn()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"slot reduction ({v}) against its "
+              f"plain version: {(got - want).abs().max().item()}")
+    fns = dict(kernels, library=library)
+    order = list(fns) + list(fns)[::-1]
+    ev = in_turns(dict(fns, plain=plain),
+                  dict(dict.fromkeys(fns, 20), plain=3),
+                  ["plain"] + order + ["plain"])
+    dev = in_turns(fns, dict.fromkeys(fns, 20), order, timer=graph_ms)
+    host = in_turns(fns, dict.fromkeys(fns, 1000), order, timer=host_us)
+    out = {k: {"ms": ev[k], "device_ms": dev[k], "host_us": host[k]}
+           for k in fns}
+    out["plain"] = {"ms": ev["plain"]}
+    return out
+
+
+def reduction_row(t, err, bnd, by, **extra):
+    """The kernels-line row of a slot reduction timed by time_slot_reduce:
+    the launched design's numbers, the others' beside them."""
+    from psnerf_torch.ops.fused_radiance import SLOT_REDUCE_VARIANT as v
+
+    return dict(max_abs_err=err, ms=t[v]["ms"], device_ms=t[v]["device_ms"],
+                host_us=t[v]["host_us"], plain_ms=t["plain"]["ms"],
+                bound_ms=bnd, bound_by=by, library_ms=t["library"]["ms"],
+                library_device_ms=t["library"]["device_ms"],
+                library_host_us=t["library"]["host_us"], variant=v,
+                variants={k: x for k, x in t.items()
+                          if k not in ("plain", "library")}, **extra)
 
 
 def trunk_flops(n, n_lights, ke, width=256, n_trunk=7):
@@ -1137,8 +1220,10 @@ def phase_stage1_kernels(card):
 
 def time_slot_sum(packed, skip):
     """The bf16 backward's slot sum at the integration batch's grid (one
-    slot per CTA, min(tiles, SMs)) over random slots, against its plain
-    version (the same order: bitwise) and torch.sum over the slots."""
+    slot per CTA, min(tiles, SMs)) over random slots, on each design of the
+    engine, against its plain version (the same order: bitwise) and
+    torch.sum over the slots (time_slot_reduce); and the backward's zeroing
+    of those slots (torch.zeros, recorded only)."""
     from psnerf_torch.ops import fused_radiance as fr
 
     total = sum(fr.bf16_slot_layout(*fr._dims(packed, skip))[1])
@@ -1150,20 +1235,19 @@ def time_slot_sum(packed, skip):
     got = fr.slot_sum(slots)
     torch.cuda.synchronize()
     check(fr.slot_sum.launches == before + 1, "slot_sum counted its launch")
-    err = (got - fr.slot_sum_plain(slots)).abs().max().item()
+    want = fr.slot_sum_plain(slots)
+    err = (got - want).abs().max().item()
     check(err == 0.0, f"slot sum against its plain version: {err}")
-    t = in_turns({"plain": lambda: fr.slot_sum_plain(slots),
-                  "kernel": lambda: fr.slot_sum(slots),
-                  "library": lambda: torch.sum(slots, 0)},
-                 {"plain": 3, "kernel": 20, "library": 20},
-                 ["plain", "kernel", "library", "library", "kernel",
-                  "plain"])
+    t = time_slot_reduce(
+        {v: (lambda v=v: fr.slot_sum(slots, v))
+         for v in fr.SLOT_REDUCE_PER_SM},
+        lambda: fr.slot_sum_plain(slots), lambda: torch.sum(slots, 0), want)
+    zeros_ms = cuda_ms(lambda: torch.zeros((grid, total), device=DEV), 20)
     b, by = bound_ms(grid * total, (grid + 1) * total * 4, PEAK_F32_FLOPS)
-    row = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
-               bound_ms=b, bound_by=by, library_ms=t["library"],
-               flops=grid * total, n=N_RAD, slots=grid, slot_floats=total,
-               library_max_abs_err=(torch.sum(slots, 0) - got).abs().max()
-               .item())
+    row = reduction_row(
+        t, err, b, by, flops=grid * total, n=N_RAD, slots=grid,
+        slot_floats=total, zeros_ms=zeros_ms,
+        library_max_abs_err=(torch.sum(slots, 0) - got).abs().max().item())
     log(json.dumps({"fused_radiance_slot_sum_ms": row}))
     return row
 
@@ -1367,14 +1451,14 @@ def time_f32_stages(packed, inputs, g_e, g_out, skip):
             ws_kernel.append(got)
             del want
         grads = b.reduce()
-        slots = b.partial.view(b.n_chunks * b.splits, -1)
-
-        def reduce_plain():          # the kernel's order: slot by slot
-            acc = slots[0].clone()
-            for x in slots[1:]:
-                acc += x
-            return acc
+        slots = b.partial
         torch.cuda.synchronize()
+        # the kernel's order: slot by slot from zero
+        reduce_plain = lambda: fr.slot_sum_plain(slots)
+        sum_want = reduce_plain()
+        check(torch.equal(b.sum, sum_want),
+              "the f32 reduce against its plain version: "
+              f"{(b.sum - sum_want).abs().max().item()}")
         wg_plain = None
         for ws in ws_kernel:
             d = fr.weight_grads_plain(ws, skip, "float32")
@@ -1392,46 +1476,47 @@ def time_f32_stages(packed, inputs, g_e, g_out, skip):
              "wgrad": lambda: [b.wgrad(c) for c in chunks],
              "wgrad_plain": lambda: [fr.weight_grads_plain(ws, skip,
                                                            "float32")
-                                     for ws in ws_kernel],
-             "reduce": b.reduce, "reduce_plain": reduce_plain,
-             "reduce_library": lambda: torch.sum(slots, 0)},
+                                     for ws in ws_kernel]},
             {"split": 20, "split_plain": 3, "sweep": 3, "sweep_plain": 2,
-             "wgrad": 3, "wgrad_plain": 2, "reduce": 20, "reduce_plain": 20,
-             "reduce_library": 20},
+             "wgrad": 3, "wgrad_plain": 2},
             ["split_plain", "split", "split", "split_plain",
              "sweep_plain", "sweep", "sweep", "sweep_plain",
-             "wgrad_plain", "wgrad", "wgrad", "wgrad_plain",
-             "reduce_library", "reduce_plain", "reduce", "reduce",
-             "reduce_plain", "reduce_library"])
+             "wgrad_plain", "wgrad", "wgrad", "wgrad_plain"])
+        t_reduce = time_slot_reduce(
+            {v: (lambda v=v: (b.reduce(v), b.sum)[1])
+             for v in fr.SLOT_REDUCE_PER_SM},
+            reduce_plain, lambda: torch.sum(slots, 0), sum_want)
     del ws_kernel
     f_sweep, f_wgrad = f32_stage_flops(n, w, ke, kv, nt)
     ws_bytes = n * fr.ws_layout(w, ke, kv, nt)[1] * 4
     w_bytes = sum(x.numel() * 4 for x in packed.values())
     in_bytes = n * (3 * ke + kv + 3 + 4) * 4
     slot_bytes = b.partial.numel() * 4
-    grad_bytes = sum(x.numel() * 4 for x in grads.values())
     out = {}
     for name, flops, nbytes_, err in (
             ("split", 0, w_bytes + b.frags.numel() * 4, float(split_err)),
             ("sweep", 3 * f_sweep, in_bytes + w_bytes + ws_bytes, sweep_err),
-            ("wgrad", 3 * f_wgrad, ws_bytes + slot_bytes, wgrad_err),
-            ("reduce", 0, slot_bytes + grad_bytes, wgrad_err)):
+            ("wgrad", 3 * f_wgrad, ws_bytes + slot_bytes, wgrad_err)):
         bnd, by = bound_ms(flops, nbytes_, PEAK_TF32_FLOPS)
         out[name] = dict(ms=t[name], plain_ms=t[name + "_plain"],
-                         bound_ms=bnd, bound_by=by,
-                         library_ms=t.get(name + "_library"),
+                         bound_ms=bnd, bound_by=by, library_ms=None,
                          max_abs_err=err, flops=flops, n=n)
+    bnd, by = bound_ms(0, slot_bytes + b.sum.numel() * 4, PEAK_TF32_FLOPS)
+    out["reduce"] = reduction_row(t_reduce, 0.0, bnd, by, flops=0, n=n,
+                                  slots=b.partial.shape[0],
+                                  slot_floats=b.slot_floats)
     for k in ("split", "sweep", "wgrad"):
         out[k]["library_note"] = ("null: no single PyTorch call computes "
                                   "this stage")
     out["reduce"]["library_note"] = ("torch.sum over the split-K slots; "
-                                     "the gradients are views of it")
+                                     "the gradients are views of the sum")
     out["split"]["err_is"] = "words differing from split_weights_plain"
     out["sweep"]["err_is"] = ("max over arrays of max |diff| / max |plain|, "
                               "on the points clear of the relu kinks")
-    for k in ("wgrad", "reduce"):
-        out[k]["err_is"] = ("max over leaves of max |diff| / max |plain|, "
-                            "wgrad and reduce together")
+    out["reduce"]["err_is"] = ("max |diff| against the slots summed one by "
+                               "one (bitwise)")
+    out["wgrad"]["err_is"] = ("max over leaves of max |diff| / max |plain|, "
+                              "wgrad and reduce together")
     out["workspace"] = {"bytes": b.workspace_bytes(), "ws_bytes": ws_bytes,
                         "slot_bytes": slot_bytes, "chunk": fr.CHUNK,
                         "chunks": b.n_chunks, "splits": b.splits,
@@ -1879,7 +1964,10 @@ def main():
                                      "bound_parts", "sass", "rerun_bitwise",
                                      "slots", "slot_floats",
                                      "single_launch_ms",
-                                     "launches_stage2_train")
+                                     "launches_stage2_train", "device_ms",
+                                     "host_us", "library_device_ms",
+                                     "library_host_us", "variant",
+                                     "variants", "zeros_ms")
                    if x in k}}
 
     log(json.dumps({"card": card["nvidia_smi"], "main_path": e2e,
@@ -1901,7 +1989,7 @@ def main():
               "psnerf_tpu/ops/fused_radiance.py:410", k3,
               launches_bf["fused_radiance_bwd"]["bfloat16"]),
         entry("fused_radiance_and_alpha bf16 slot sum (the backward's CTA "
-              "slots added in fixed order)", "fused_radiance.cu",
+              "slots added in fixed order)", "slot_reduce.cuh",
               "psnerf_tpu/ops/fused_radiance.py:410", sums,
               launches_bf["fused_radiance_slot_sum"]),
         entry("fused_radiance_and_alpha (forward, f32 operands: prologue "
@@ -1913,7 +2001,8 @@ def main():
               "fused_radiance_f32.cu", "psnerf_tpu/ops/fused_radiance.py:410",
               k3f, launches1["fused_radiance_bwd"]["float32"]),
         *[entry(f"fused_radiance_and_alpha f32 {name}",
-                "fused_radiance_f32.cu",
+                "slot_reduce.cuh" if kern == "reduce"
+                else "fused_radiance_f32.cu",
                 "psnerf_tpu/ops/fused_radiance.py:390 and :410" if kern ==
                 "split" else "psnerf_tpu/ops/fused_radiance.py:410",
                 stages[kern], launches1["fused_radiance_f32"][kern])

@@ -41,9 +41,10 @@
 // order, and inside a CTA each gradient element has exactly one owning
 // thread (the g == 0 lane of colsum_atomic's shuffle, the fragment's own
 // elements in dtn_atomic, tid in the rgb head's sums), whose atomicAdds to
-// one address take effect in program order. slot_sum_kernel then adds the slots in a fixed order
-// (slot 0, then 1, ...), as the TPU kernel adds its tiles over a sequential
-// grid. The slots (132 x 3.3 MB at W = 256) do not fit in L2, so each
+// one address take effect in program order. The slot reduction engine
+// (slot_reduce.cuh, psnerf_radiance_slot_sum) then adds the slots in a
+// fixed order (slot 0, then 1, ...), as the TPU kernel adds its tiles over
+// a sequential grid. The slots (132 x 3.3 MB at W = 256) do not fit in L2, so each
 // tile's sums go to device memory and back: the cost of determinism here.
 //
 // Rounding points as in the TPU kernel at wdt = bf16: every product's
@@ -57,6 +58,7 @@
 // into ops/_build/fused_radiance.ptxas.txt.
 
 #include "mma_tile.cuh"
+#include "slot_reduce.cuh"
 
 using namespace psnerf;
 
@@ -834,37 +836,6 @@ size_t bwd_smem() {
          3 * (size_t)NWARPS * TBM * sizeof(float);
 }
 
-// out[i] = sum of in[s * total + i] over s = 0, 1, ..., slots - 1, added in
-// that order from 0 (the backward's CTA slots, the same bits on every run).
-// Bound by bytes: each slot is read once. Four consecutive columns a thread
-// (16-byte loads: total % 4 == 0 and 16-byte aligned rows, which the caller
-// guarantees), eight slots' loads in flight, and a grid of the CTAs the card
-// holds at once, striding over the columns.
-__global__ void __launch_bounds__(256)
-    slot_sum_kernel(const float4* __restrict__ in, float4* __restrict__ out,
-                    long long n_vec, int slots) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_vec; i += (long long)gridDim.x * blockDim.x) {
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    int k = 0;
-    for (; k + 8 <= slots; k += 8) {
-      float4 v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        v[u] = __ldg(in + (size_t)(k + u) * n_vec + i);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        s.x += v[u].x; s.y += v[u].y; s.z += v[u].z; s.w += v[u].w;
-      }
-    }
-    for (; k < slots; ++k) {
-      const float4 v = __ldg(in + (size_t)k * n_vec + i);
-      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-    }
-    out[i] = s;
-  }
-}
-
 template <typename T>
 size_t scratch_bytes(int which, int width) {
   const size_t tile = (size_t)Tile<T>::BM * width;
@@ -969,31 +940,13 @@ extern "C" int psnerf_radiance_bwd(void* const* ptrs, const int* ints,
   return run<bf16>(false, ptrs, ints, stream);
 }
 
-// ptrs: in [slots, total], out [total] (f32, 16-byte aligned); ints: total
-// (a multiple of 4), slots.
+// The slots summed in fixed order by the engine (slot_reduce.cuh). ptrs:
+// in [slots, total], out [total] (f32, 16-byte aligned); ints: total (a
+// multiple of 4), slots, grid (SMs x CTAs per SM of the variant), variant.
 extern "C" int psnerf_radiance_slot_sum(void* const* ptrs, const int* ints,
                                         void* stream) {
-  const long long total = ints[0];
-  const int slots = ints[1];
-  if (total <= 0) return cudaSuccess;
-  if (slots < 0 || total % 4 ||
-      reinterpret_cast<uintptr_t>(ptrs[0]) % 16 ||
-      reinterpret_cast<uintptr_t>(ptrs[1]) % 16)
-    return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, slot_sum_kernel, 256,
-                                                0);
-  const long long n_vec = total / 4;
-  long long blocks = (n_vec + 255) / 256;
-  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  if (blocks > resident) blocks = resident;      // one wave, grid-strided
-  slot_sum_kernel<<<(unsigned)blocks, 256, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(ptrs[0]), static_cast<float4*>(ptrs[1]),
-      n_vec, slots);
-  return cudaGetLastError();
+  return slot_reduce::launch(ptrs[0], ptrs[1], ints[0], ints[1], ints[2],
+                             ints[3], static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* psnerf_cuda_error_string(int err) {

@@ -35,8 +35,11 @@
 //     points, split-K over CTAs: each CTA writes its partial tile to its
 //     own slot, with no atomics. Each 32-point stage's twelve wgmma chain
 //     in the tensor core and FADD adds the stage into the accumulator.
-//   * reduce_kernel (K3, part 3): sums the slots in fixed order into the
-//     gradients. The f32 backward is deterministic from run to run.
+//   * the reduce (K3, part 3): the slot reduction engine (slot_reduce.cuh)
+//     sums the slots in fixed order into one flat buffer, of which the 18
+//     gradients are views: each slot is laid out leaf after leaf
+//     (wplan), so the sum needs no scatter. The f32 backward is
+//     deterministic from run to run.
 //
 // What bounds it: operations. Per point the forward runs ~19 and the
 // backward ~57 products of 2 W^2 FLOPs (W = 256), three tf32 products each:
@@ -71,6 +74,7 @@
 // into ops/_build/fused_radiance_f32.ptxas.txt.
 
 #include "mma_tile.cuh"
+#include "slot_reduce.cuh"
 
 using namespace psnerf;
 
@@ -1040,37 +1044,69 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
 // One product x^T y over the chunk's points: x rows [x, x + r), y rows
 // [y, y + c) of the workspace; a second segment (x2, y2) adds into the
-// same sums (the trunk's a^T z_bar + t^T tz_bar); with bias, row r of the
-// output is the column sums of y (first segment only). Its tiles are
-// GB x GB; its output block in a slot is [(r + bias) x c] at `out`.
-struct WJob { int x, x2, y, y2, r, c, bias, rt, ct, tile0; long long out; };
-struct WPlan { WJob job[16]; int n_jobs, n_tiles; long long slot_floats; };
+// same sums (the trunk's a^T z_bar + t^T tz_bar); with bias, the column
+// sums of y (first segment only). Its tiles are GB x GB. In a slot its
+// product goes to [r x oc] at `out` (the first oc of its c columns), its
+// column sums to [c] at `bout` (-1: none).
+struct WJob { int x, x2, y, y2, r, c, oc, bias, rt, ct, tile0;
+              long long out, bout; };
+struct WPlan { WJob job[16]; int n_jobs, n_tiles; long long slot_floats;
+               long long leaf[18]; };
 
+// The jobs, and the slot laid out leaf after leaf, every leaf contiguous
+// (leaf[] holds each one's offset in the packed order: w0, b0, wskip,
+// trunk_w, trunk_b, w8f, b8f, w8l, b8l, wp, wv, wn, wf, ba0, wa, bab, wa4,
+// ba4; ops/fused_radiance.py `f32_slot_layout` mirrors it): trunk_w,
+// trunk_b, w0, b0, wskip, w8f, b8f, wa, bab, [wf; wv; wp; wn] (one
+// product's rows), ba0, w8l, wa4 (3 of the rgb head's 8 columns), and its
+// column sums [ba4, b8l, 0 x 4]. So the reduce's sum of the slots holds
+// every gradient as it is.
 __host__ WPlan wplan(int w, int ke, int kv, int nt, int skip) {
   const WsLayout L = ws_layout(w, ke, kv, nt);
   WPlan P = {};
-  auto add = [&](int x, int x2, int y, int y2, int r, int c, int bias) {
+  const long long ww = (long long)w * w;
+  long long at = 0;
+  auto take = [&](long long floats) { at += floats; return at - floats; };
+  const long long tw = take(nt * ww), tb = take((long long)nt * w);
+  const long long w0 = take((long long)ke * w), b0 = take(w);
+  const long long wsk = take((long long)ke * w);
+  const long long w8f = take(ww), b8f = take(w);
+  const long long wa = take(3 * ww), bab = take(3 * w);
+  const long long app = take((long long)(w + kv + 6) * w), ba0 = take(w);
+  const long long w8l = take(w), wa4 = take(3 * w), b4 = take(8);
+  P.slot_floats = at;
+  const long long leaf[18] = {
+      w0, b0, wsk, tw, tb, w8f, b8f, w8l, b4 + 3,
+      app + ww + (long long)kv * w,                // wp
+      app + ww,                                    // wv
+      app + ww + (long long)(kv + 3) * w,          // wn
+      app, ba0, wa, bab, wa4, b4};
+  for (int i = 0; i < 18; ++i) P.leaf[i] = leaf[i];
+  auto add = [&](int x, int x2, int y, int y2, int r, int c, int oc,
+                 long long out, long long bout) {
     WJob& J = P.job[P.n_jobs++];
-    J.x = x; J.x2 = x2; J.y = y; J.y2 = y2; J.r = r; J.c = c; J.bias = bias;
+    J.x = x; J.x2 = x2; J.y = y; J.y2 = y2; J.r = r; J.c = c; J.oc = oc;
+    J.bias = bout >= 0;
     J.rt = r > 0 ? (r + GB - 1) / GB : 1;
     J.ct = (c + GB - 1) / GB;
     J.tile0 = P.n_tiles;
     P.n_tiles += J.rt * J.ct;
-    J.out = P.slot_floats;
-    P.slot_floats += (long long)(r + bias) * c;
+    J.out = out;
+    J.bout = bout;
   };
   for (int i = 1; i <= nt; ++i)
     add(L.a + (i - 1) * w, L.t + (i - 1) * w, L.zb + i * w, L.tzb + i * w,
-        w, w, 1);                                            // trunk_w, _b
-  add(L.em, L.ce, L.zb, L.tzb, ke, w, 1);                     // w0, b0
-  add(L.em, L.ce, L.zb + (skip + 1) * w, L.tzb + (skip + 1) * w, ke, w,
-      0);                                                    // wskip
-  add(L.a + nt * w, -1, L.gfeat, -1, w, w, 1);               // w8f, b8f
+        w, w, w, tw + (i - 1) * ww, tb + (long long)(i - 1) * w);
+  add(L.em, L.ce, L.zb, L.tzb, ke, w, w, w0, b0);
+  add(L.em, L.ce, L.zb + (skip + 1) * w, L.tzb + (skip + 1) * w, ke, w, w,
+      wsk, -1);
+  add(L.a + nt * w, -1, L.gfeat, -1, w, w, w, w8f, b8f);
   for (int j = 0; j < 3; ++j)
-    add(L.aa + j * w, -1, L.gz + (j + 1) * w, -1, w, w, 1);  // wa, bab
-  add(L.feat, -1, L.gz, -1, w + kv + 6, w, 1);  // wf, wv, wp, wn, ba0
-  add(-1, -1, L.w8lt, -1, 0, w, 1);                          // w8l
-  add(L.aa + 3 * w, -1, L.g8, -1, w, 8, 1);                  // wa4, ba4, b8l
+    add(L.aa + j * w, -1, L.gz + (j + 1) * w, -1, w, w, w, wa + j * ww,
+        bab + (long long)j * w);
+  add(L.feat, -1, L.gz, -1, w + kv + 6, w, w, app, ba0);
+  add(-1, -1, L.w8lt, -1, 0, w, w, 0, w8l);                   // w8l
+  add(L.aa + 3 * w, -1, L.g8, -1, w, 8, 3, wa4, b4);         // wa4, ba4, b8l
   return P;
 }
 
@@ -1209,7 +1245,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     __syncthreads();                 // nxt is written; cur is read
   }
   cp_async_wait<0>();
-  float* out = partial + (size_t)(slot0 + s) * plan.slot_floats + J.out;
+  float* const slot = partial + (size_t)(slot0 + s) * plan.slot_floats;
+  float* out = slot + J.out;
   // accumulator of m64n128: warp w of the warpgroup holds rows 16 w .. +15
   // in the mma.sync fragment layout, n-tile j at d[4 j .. 4 j + 3]
   const int w4 = (tid >> 5) & 3;
@@ -1219,7 +1256,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     for (int r = 0; r < 4; ++r) {
       const int row = rt * GB + wg * 64 + w4 * 16 + frag_row(0, r);
       const int col = ct * GB + frag_col(0, j, r);
-      if (row < J.r && col < J.c) out[(size_t)row * J.c + col] = acc[4 * j + r];
+      if (row < J.r && col < J.oc) out[(size_t)row * J.oc + col] = acc[4 * j + r];
     }
   if (do_bias) {
     // rows (tid >> 6) * 8 + 32 q + (tid & 7); partial sums per column group
@@ -1235,95 +1272,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
       for (int kg = 0; kg < 8; ++kg) v += red[kg * GB + tid];
       const int c = ct * GB + tid;
-      if (c < J.c) out[(size_t)J.r * J.c + c] = v;
+      if (c < J.c) slot[J.bout + c] = v;
     }
-  }
-}
-
-// Where each part of a slot goes: rows x cols of the slot at src (row
-// stride src_ld) into dst (row stride dst_ld).
-struct Rect { long long src; float* dst; int src_ld, rows, cols, dst_ld; };
-struct RPlan { Rect r[40]; int n, slots; long long slot_floats; };
-
-// grads in the packed order: w0, b0, wskip, trunk_w, trunk_b, w8f, b8f,
-// w8l, b8l, wp, wv, wn, wf, ba0, wa, bab, wa4, ba4
-__host__ RPlan rplan(const WPlan& P, float* const* d, int w, int ke, int kv,
-                     int nt, int slots) {
-  RPlan R = {};
-  R.slots = slots;
-  R.slot_floats = P.slot_floats;
-  auto add = [&](long long src, int src_ld, int rows, int cols, float* dst,
-                 int dst_ld) {
-    Rect& x = R.r[R.n++];
-    x.src = src; x.src_ld = src_ld; x.rows = rows; x.cols = cols;
-    x.dst = dst; x.dst_ld = dst_ld;
-  };
-  const long long ww = (long long)w * w;
-  int k = 0;
-  for (int i = 0; i < nt; ++i, ++k) {
-    add(P.job[k].out, w, w, w, d[3] + i * ww, w);
-    add(P.job[k].out + ww, w, 1, w, d[4] + (size_t)i * w, w);
-  }
-  add(P.job[k].out, w, ke, w, d[0], w);
-  add(P.job[k].out + (long long)ke * w, w, 1, w, d[1], w);
-  ++k;
-  add(P.job[k++].out, w, ke, w, d[2], w);
-  add(P.job[k].out, w, w, w, d[5], w);
-  add(P.job[k++].out + ww, w, 1, w, d[6], w);
-  for (int j = 0; j < 3; ++j, ++k) {
-    add(P.job[k].out, w, w, w, d[14] + j * ww, w);
-    add(P.job[k].out + ww, w, 1, w, d[15] + (size_t)j * w, w);
-  }
-  const long long o = P.job[k++].out;
-  add(o, w, w, w, d[12], w);                                   // wf
-  add(o + ww, w, kv, w, d[10], w);                             // wv
-  add(o + ww + (long long)kv * w, w, 3, w, d[9], w);           // wp
-  add(o + ww + (long long)(kv + 3) * w, w, 3, w, d[11], w);    // wn
-  add(o + ww + (long long)(kv + 6) * w, w, 1, w, d[13], w);    // ba0
-  add(P.job[k++].out, w, 1, w, d[7], w);                       // w8l
-  const long long o4 = P.job[k].out;
-  add(o4, 8, w, 3, d[16], 3);                                  // wa4
-  add(o4 + (long long)w * 8, 8, 1, 3, d[17], 3);               // ba4
-  add(o4 + (long long)w * 8 + 3, 8, 1, 1, d[8], 1);            // b8l
-  return R;
-}
-
-// one row of blocks per rect (blockIdx.y), four elements per thread where
-// the rect's rows are whole float4s (every W-wide rect), else one; the
-// slots summed in order
-__global__ void reduce_kernel(const __grid_constant__ RPlan plan,
-                              const float* __restrict__ partial) {
-  const Rect& R = plan.r[blockIdx.y];
-  const int total = R.rows * R.cols;
-  const int stride = gridDim.x * blockDim.x;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool vec = R.cols % 4 == 0 && R.src_ld % 4 == 0 &&
-                   R.dst_ld % 4 == 0 && R.src % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(R.dst) % 16 == 0;
-  if (vec) {
-    const size_t slot4 = (size_t)plan.slot_floats / 4;
-    for (int e = tid * 4; e < total; e += stride * 4) {
-      const int row = e / R.cols, col = e - row * R.cols;
-      const float4* src = reinterpret_cast<const float4*>(
-          partial + R.src + (size_t)row * R.src_ld + col);
-      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 9
-      for (int slot = 0; slot < plan.slots; ++slot) {
-        const float4 v = __ldg(src + slot * slot4);
-        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-      }
-      *reinterpret_cast<float4*>(R.dst + (size_t)row * R.dst_ld + col) = s;
-    }
-    return;
-  }
-  for (int e = tid; e < total; e += stride) {
-    const int row = e / R.cols, col = e - row * R.cols;
-    const float* src = partial + R.src + (size_t)row * R.src_ld + col;
-    float s = 0.f;
-#pragma unroll 9
-    for (int slot = 0; slot < plan.slots; ++slot)
-      s += __ldg(src + (size_t)slot * plan.slot_floats);
-    R.dst[(size_t)row * R.dst_ld + col] = s;
   }
 }
 
@@ -1366,7 +1316,9 @@ bool dims_ok(int w, int ke, int kv, int nt) {
 // Sizes of one shape (ints: width, ke, kv, n_trunk): out[0] 16-byte words
 // of the split weights, out[1] workspace rows (floats per point), out[2]
 // forward and out[3] sweep scratch floats per CTA slot, out[4] floats per
-// weight-gradient slot, out[5] weight-gradient tiles.
+// weight-gradient slot, out[5] weight-gradient tiles, out[6 .. 23] each
+// gradient's offset in a slot (and in the reduce's sum), in the packed
+// order.
 extern "C" int psnerf_rf32_sizes(const int* ints, long long* out) {
   const int w = ints[0], ke = ints[1], kv = ints[2], nt = ints[3];
   if (!dims_ok(w, ke, kv, nt)) return (int)cudaErrorInvalidValue;
@@ -1377,6 +1329,7 @@ extern "C" int psnerf_rf32_sizes(const int* ints, long long* out) {
   out[3] = (long long)N_SWP * TBM * w;
   out[4] = P.slot_floats;
   out[5] = P.n_tiles;
+  for (int i = 0; i < 18; ++i) out[6 + i] = P.leaf[i];
   return 0;
 }
 
@@ -1484,24 +1437,15 @@ extern "C" int psnerf_rf32_wgrad(void* const* ptrs, const int* ints,
   return (int)cudaGetLastError();
 }
 
-// ptrs: the slots, then the 18 gradients in the packed order. ints: width,
-// ke, kv, n_trunk, skip_pos, slots.
+// The weight-gradient slots summed in fixed order by the engine
+// (slot_reduce.cuh) into the gradients' flat buffer. ptrs: the slots
+// [slots, slot_floats], the sum [slot_floats]. ints: slot_floats, slots,
+// grid (SMs x CTAs per SM of the variant), variant.
 extern "C" int psnerf_rf32_reduce(void* const* ptrs, const int* ints,
                                   void* stream) {
-  const int w = ints[0], ke = ints[1], kv = ints[2], nt = ints[3];
-  if (!dims_ok(w, ke, kv, nt) || ints[5] < 1)
-    return (int)cudaErrorInvalidValue;
-  const WPlan P = wplan(w, ke, kv, nt, ints[4]);
-  float* d[18];
-  for (int i = 0; i < 18; ++i) d[i] = static_cast<float*>(ptrs[1 + i]);
-  const RPlan R = rplan(P, d, w, ke, kv, nt, ints[5]);
-  int most = 1;                      // four elements per thread of a rect
-  for (int k = 0; k < R.n; ++k)
-    if (R.r[k].rows * R.r[k].cols > most) most = R.r[k].rows * R.r[k].cols;
-  reduce_kernel<<<dim3((most / 4 + 255) / 256, R.n), 256, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      R, static_cast<const float*>(ptrs[0]));
-  return (int)cudaGetLastError();
+  return (int)slot_reduce::launch(ptrs[0], ptrs[1], ints[0], ints[1],
+                                  ints[2], ints[3],
+                                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* psnerf_rf32_error_string(int err) {

@@ -31,6 +31,15 @@ Both come in the two operand forms of the TPU kernels:
     (`reduce`): deterministic from run to run. Each of the five counts its
     launches in `f32_launches`.
 
+Both fixed-order sums (`slot_sum`, the f32 `reduce`) run on one engine,
+csrc/slot_reduce.cuh: out[i] = ((0 + s_0[i]) + s_1[i]) + ... over the
+slots in order, on a persistent grid of SMs x `SLOT_REDUCE_PER_SM` CTAs
+(`slot_reduce_grid`) that split the float4 items into equal contiguous
+ranges (`slot_reduce_items` mirrors the split). The f32 slot is laid out
+leaf after leaf (`f32_slot_layout`), so its sum holds every gradient as a
+view and the reduce is the same flat launch as the slot sum. The f32
+backward builds each launch's ctypes arguments once (`build.Launch`).
+
 Weight norm and the layout (skip row split, split geometry head,
 appearance input split into [p, view PE, normal, feat] rows) are folded
 outside the kernels by differentiable packing (`pack_radiance`), so
@@ -59,8 +68,8 @@ import torch
 
 from psnerf_torch.core.encoding import nerf_embed, nerf_embed_dim
 from psnerf_torch.fields.mlp import wn_weight
-from psnerf_torch.ops.build import (check_operand, load_library, round_up,
-                                    route)
+from psnerf_torch.ops.build import (Launch, check_operand, load_library,
+                                    round_up, route)
 from psnerf_torch.ops.fused_occ import fold_geometry
 
 KERNEL_WIDTHS = (128, 256)
@@ -73,6 +82,13 @@ CHUNK = 65536        # points per backward sweep of the f32 form
 BF16_TILE = 64       # points per tile of the bf16 kernels
 _lib_handle = []
 _lib_f32_handle = []
+# the slot reduction engine (csrc/slot_reduce.cuh): variant -> (its id in
+# the C entries, CTAs per SM: the kernel's __launch_bounds__ minimum, so a
+# grid of SMs x this many is resident at once), and the variant launched
+SLOT_REDUCE_PER_SM = {"stream": (0, 2), "bulk": (1, 3)}
+SLOT_REDUCE_VARIANT = "stream"
+SLOT_REDUCE_THREADS = 256    # threads of a stream CTA (THREADS)
+SLOT_REDUCE_CHUNK = 512      # float4 items of a bulk stage (B_CHUNK)
 
 
 def supports(cfg) -> bool:
@@ -508,6 +524,65 @@ def bf16_slot_layout(w: int, ke: int, kv: int, nt: int) -> tuple:
     return sizes, [round_up(x, 4) for x in sizes]
 
 
+def f32_slot_layout(w: int, ke: int, kv: int, nt: int) -> tuple:
+    """The f32 backward's weight-gradient slot (csrc/fused_radiance_f32.cu
+    `wplan`, which the library's sizes are checked against): ({leaf: its
+    offset}, in the packed order, and the floats of one slot). Leaf after
+    leaf, every one contiguous, in the order the weight-gradient products
+    write them: trunk_w, trunk_b, w0, b0, wskip, w8f, b8f, wa, bab, then
+    one product's rows wf, wv, wp, wn, then ba0, w8l, wa4 (3 of the rgb
+    head's 8 columns), and that head's column sums ba4, b8l and 4 zeros.
+    So the reduce's sum of the slots holds each gradient as a view."""
+    ww = w * w
+    runs = [("trunk_w", nt * ww), ("trunk_b", nt * w), ("w0", ke * w),
+            ("b0", w), ("wskip", ke * w), ("w8f", ww), ("b8f", w),
+            ("wa", 3 * ww), ("bab", 3 * w), ("wf", ww), ("wv", kv * w),
+            ("wp", 3 * w), ("wn", 3 * w), ("ba0", w), ("w8l", w),
+            ("wa4", 3 * w), ("ba4", 3), ("b8l", 1), (None, 4)]
+    at, out = 0, {}
+    for k, n in runs:
+        if k is not None:
+            out[k] = at
+        at += n
+    return {k: out[k] for k in PACK_ORDER}, at
+
+
+def slot_reduce_grid(dev, variant: str = SLOT_REDUCE_VARIANT) -> int:
+    """The engine's persistent grid on `dev`: SMs x CTAs per SM."""
+    return _slots(dev) * SLOT_REDUCE_PER_SM[variant][1]
+
+
+def _reduce_ints(total: int, slots: int, dev,
+                 variant: str = SLOT_REDUCE_VARIANT) -> list:
+    """The engine's C ints: floats per slot, slots, grid, variant id."""
+    return [total, slots, slot_reduce_grid(dev, variant),
+            SLOT_REDUCE_PER_SM[variant][0]]
+
+
+def slot_reduce_items(n: int, grid: int,
+                      variant: str = SLOT_REDUCE_VARIANT) -> list:
+    """The engine's work split (csrc/slot_reduce.cuh) of n float4 items
+    (one column of 4 floats over all slots each) over `grid` CTAs, for the
+    CPU tests: per CTA, a table of item indices (-1: none). CTA b owns
+    [b n // grid, (b + 1) n // grid). stream: [passes, threads]; with p =
+    ceil(len / THREADS) passes and stride ceil(len / p), thread t < stride
+    adds beg + t + j stride (j < p, below the end). bulk: [stages, items];
+    the range goes in q = ceil(len / CHUNK) chunks of ceil(len / q) items,
+    each copied slot by slot as one stage."""
+    out = []
+    for b in range(grid):
+        beg, end = n * b // grid, n * (b + 1) // grid
+        ln = end - beg
+        unit = SLOT_REDUCE_THREADS if variant == "stream" else \
+            SLOT_REDUCE_CHUNK
+        rows = -(-ln // unit)
+        cols = -(-ln // rows) if rows else 0
+        idx = (beg + torch.arange(cols)[None, :]
+               + cols * torch.arange(rows)[:, None])
+        out.append(torch.where(idx < end, idx, -1))
+    return out
+
+
 def _dims(packed: dict, skip_pos: int) -> tuple:
     """(width, ke, kv, n_trunk) of the packed operands; raises for what the
     kernels do not take."""
@@ -585,32 +660,30 @@ def slot_sum_plain(slots: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def slot_sum(slots: torch.Tensor) -> torch.Tensor:
+def slot_sum(slots: torch.Tensor,
+             variant: str = SLOT_REDUCE_VARIANT) -> torch.Tensor:
     """The bf16 backward's gradients from its CTA slots [S, total] f32:
     out[i] = sum over s = 0, 1, ... of slots[s, i], added in that order,
     the same bits on every run. CPU tensors take slot_sum_plain; CUDA
-    tensors launch the kernel (counted in slot_sum.launches), which loads
-    16 bytes at a time: total must be a multiple of 4 and the rows 16-byte
-    aligned (radiance_backward pads its slots so)."""
+    tensors launch the slot reduction engine (counted in
+    slot_sum.launches), which loads 16 bytes at a time: total must be a
+    multiple of 4, the rows 16-byte aligned (radiance_backward pads its
+    slots so) and S at least 1."""
     if route(slots) == "cpu":
         return slot_sum_plain(slots)
     dev = slots.device
     check_operand("slots", slots, torch.float32, slots.shape, dev)
     n_slots, total = slots.shape
-    if total % 4 or slots.data_ptr() % 16:
-        raise ValueError("slot_sum needs a multiple of 4 floats per slot and "
-                         f"16-byte aligned slots; got {total} floats at "
-                         f"address {slots.data_ptr():#x}")
+    if total % 4 or slots.data_ptr() % 16 or n_slots < 1:
+        raise ValueError("slot_sum needs a multiple of 4 floats per slot, "
+                         f"16-byte aligned slots and one slot or more; got "
+                         f"{n_slots} x {total} floats at address "
+                         f"{slots.data_ptr():#x}")
     out = torch.empty((total,), dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * 2)(slots.data_ptr(), out.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        lib = _lib()
-        rc = lib.psnerf_radiance_slot_sum(
-            ptrs, (ctypes.c_int * 2)(total, n_slots), stream)
-    if rc != 0:
-        raise RuntimeError("fused_radiance slot sum kernel launch failed: "
-                           + lib.psnerf_cuda_error_string(rc).decode())
+    lib = _lib()
+    Launch(lib.psnerf_radiance_slot_sum, lib.psnerf_cuda_error_string, dev,
+           [slots, out], _reduce_ints(total, n_slots, dev, variant),
+           "fused_radiance slot sum")()
     slot_sum.launches += 1
     return out
 
@@ -626,25 +699,27 @@ _F32_VECTORS = ["b0", "trunk_b", "b8f", "w8l", "b8l", "wp", "wn", "ba0",
                 "bab", "ba4", "wa4"]
 
 
-def _launch_f32(kernel: str, dev, tensors: list, ints: list) -> None:
-    """Launch psnerf_rf32_<kernel> on the current stream of `dev` with the
-    tensors' device pointers, and count it; raises if the launch fails."""
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    args = (ctypes.c_int * len(ints))(*ints)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        lib = _lib_f32()
-        rc = getattr(lib, f"psnerf_rf32_{kernel}")(ptrs, args, stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_radiance f32 {kernel} kernel launch "
-                           "failed: "
-                           + lib.psnerf_rf32_error_string(rc).decode())
-    f32_launches[kernel] += 1
+def _f32_call(kernel: str, dev, tensors: list, ints: list):
+    """psnerf_rf32_<kernel> with the tensors' device pointers and the ints,
+    its ctypes arguments built once (`build.Launch`, kept as `.launch`):
+    a function that launches it on the current stream of `dev` and counts
+    it in f32_launches; it raises if the launch fails."""
+    lib = _lib_f32()
+    launch = Launch(getattr(lib, f"psnerf_rf32_{kernel}"),
+                    lib.psnerf_rf32_error_string, dev, tensors, ints,
+                    f"fused_radiance f32 {kernel}")
+
+    def run():
+        launch()
+        f32_launches[kernel] += 1
+    run.launch = launch
+    return run
 
 
 def f32_sizes(w: int, ke: int, kv: int, nt: int) -> dict:
-    """The f32 kernels' buffer sizes at one shape (from the library)."""
-    out = (ctypes.c_longlong * 6)()
+    """The f32 kernels' buffer sizes at one shape (from the library,
+    checked against the wrapper's workspace and slot layouts)."""
+    out = (ctypes.c_longlong * 24)()
     rc = _lib_f32().psnerf_rf32_sizes((ctypes.c_int * 4)(w, ke, kv, nt), out)
     if rc != 0:
         raise ValueError(f"the f32 fused_radiance kernels do not take width "
@@ -654,6 +729,10 @@ def f32_sizes(w: int, ke: int, kv: int, nt: int) -> dict:
     if sizes["ws_rows"] != ws_layout(w, ke, kv, nt)[1]:
         raise RuntimeError("workspace layouts of the library and the "
                            "wrapper differ")
+    leaves, total = f32_slot_layout(w, ke, kv, nt)
+    if sizes["slot_floats"] != total or list(out[6:]) != list(leaves.values()):
+        raise RuntimeError("weight-gradient slot layouts of the library and "
+                           "the wrapper differ")
     return sizes
 
 
@@ -676,7 +755,7 @@ def split_weights(packed: dict, skip_pos: int) -> torch.Tensor:
     srcs = _f32_operands(packed, _F32_WEIGHTS, dims, dev)
     out = torch.empty((f32_sizes(*dims)["split_words"], 4), dtype=torch.int32,
                       device=dev)
-    _launch_f32("split", dev, srcs + [out], list(dims))
+    _f32_call("split", dev, srcs + [out], list(dims))()
     return out
 
 
@@ -711,8 +790,8 @@ def radiance_forward_f32(packed: dict, em, de, vpe, p3, skip_pos: int):
     g_e = torch.empty((n, ke), dtype=torch.float32, device=dev)
     scratch = torch.empty((slots * f32_sizes(*dims)["fwd_scratch"],),
                           dtype=torch.float32, device=dev)
-    _launch_f32("fwd", dev, [*ins, frags, *vec, out, g_e, scratch],
-                [n, w, ke, kv, nt, skip_pos, slots])
+    _f32_call("fwd", dev, [*ins, frags, *vec, out, g_e, scratch],
+              [n, w, ke, kv, nt, skip_pos, slots])()
     return out, g_e
 
 
@@ -730,10 +809,11 @@ def wgrad_splits(tiles: int, slots: int, most: int = 16) -> int:
 class F32Backward:
     """The f32 form's backward, kernel by kernel, on one batch: `split()`
     (the prologue), then for each chunk c `sweep(c)` and `wgrad(c)`, then
-    `reduce()` sums the split-K slots into `grads` and returns them.
-    Allocates the workspace (ws_rows x round_up(min(N, CHUNK), 64) f32),
-    the split-K slots, the scratch and the gradients (one buffer) once;
-    `run()` is all of it in order."""
+    `reduce()` sums the split-K slots into `sum` and returns `grads`, its
+    views (`f32_slot_layout`). Allocates the split weights, the workspace
+    (ws_rows x round_up(min(N, CHUNK), 64) f32), the split-K slots, the
+    scratch and the sum once, and builds every launch's ctypes arguments
+    once; `run()` is all of it in order."""
 
     def __init__(self, packed, em, de, vpe, p3, g_e, g_out, skip_pos):
         self.dims = _dims(packed, skip_pos)
@@ -747,24 +827,50 @@ class F32Backward:
                                         g_out=g_out)
         self.vec = _f32_operands(packed, _F32_VECTORS, self.dims, dev)
         sz = f32_sizes(*self.dims)
+        leaves, self.slot_floats = f32_slot_layout(*self.dims)
         self.slots = _slots(dev)
         self.n_chunks = max(1, -(-self.n // CHUNK))
         self.ld = round_up(max(1, min(self.n, CHUNK)), 64)
         self.splits = wgrad_splits(sz["wgrad_tiles"], self.slots)
         f32 = torch.float32
+        self.frags = torch.empty((sz["split_words"], 4), dtype=torch.int32,
+                                 device=dev)
         self.ws = torch.empty((sz["ws_rows"] * self.ld,), dtype=f32,
                               device=dev)
         self.partial = torch.empty(
-            (self.n_chunks * self.splits * sz["slot_floats"],), dtype=f32,
+            (self.n_chunks * self.splits, self.slot_floats), dtype=f32,
             device=dev)
         self.scratch = torch.empty((self.slots * sz["sweep_scratch"],),
                                    dtype=f32, device=dev)
+        self.sum = torch.empty((self.slot_floats,), dtype=f32, device=dev)
         shapes = _GRAD_SHAPES(*self.dims)
-        sizes = [math.prod(shapes[k]) for k in PACK_ORDER]
-        flat = torch.empty((sum(sizes),), dtype=f32, device=dev)
-        self.grads = {k: x.view(shapes[k]) for k, x in
-                      zip(PACK_ORDER, flat.split(sizes))}
-        self.frags = None
+        self.grads = {k: self.sum[o:o + math.prod(shapes[k])].view(shapes[k])
+                      for k, o in leaves.items()}
+        # every launch, its arguments built once
+        self._split = _f32_call(
+            "split", dev,
+            _f32_operands(packed, _F32_WEIGHTS, self.dims, dev) + [self.frags],
+            list(self.dims))
+        self._sweeps, self._wgrads = [], []
+        for c in range(self.n_chunks):
+            b, nc = self._chunk(c)
+            self._sweeps.append(_f32_call(
+                "sweep", dev,
+                [*self.ins, self.frags, *self.vec, *self.grad_ins, self.ws,
+                 self.scratch],
+                [nc, b, self.ld, w, ke, kv, nt, skip_pos, self.slots]))
+            self._wgrads.append(_f32_call(
+                "wgrad", dev, [self.ws, self.partial],
+                [round_up(nc, 64), self.ld, w, ke, kv, nt, skip_pos,
+                 self.splits, c * self.splits]))
+        self._reduces = {SLOT_REDUCE_VARIANT: self._reduce_call(
+            SLOT_REDUCE_VARIANT)}
+
+    def _reduce_call(self, variant):
+        return _f32_call("reduce", self.dev, [self.partial, self.sum],
+                         _reduce_ints(self.slot_floats,
+                                      self.partial.shape[0], self.dev,
+                                      variant))
 
     def workspace_bytes(self) -> int:
         return self.ws.numel() * 4 + self.partial.numel() * 4
@@ -774,30 +880,18 @@ class F32Backward:
         return b, min(CHUNK, self.n - b)
 
     def split(self):
-        self.frags = split_weights(self.packed, self.skip_pos)
+        self._split()
 
     def sweep(self, c):
-        w, ke, kv, nt = self.dims
-        b, nc = self._chunk(c)
-        _launch_f32("sweep", self.dev,
-                    [*self.ins, self.frags, *self.vec, *self.grad_ins,
-                     self.ws, self.scratch],
-                    [nc, b, self.ld, w, ke, kv, nt, self.skip_pos,
-                     self.slots])
+        self._sweeps[c]()
 
     def wgrad(self, c):
-        w, ke, kv, nt = self.dims
-        _, nc = self._chunk(c)
-        _launch_f32("wgrad", self.dev, [self.ws, self.partial],
-                    [round_up(nc, 64), self.ld, w, ke, kv, nt, self.skip_pos,
-                     self.splits, c * self.splits])
+        self._wgrads[c]()
 
-    def reduce(self) -> dict:
-        w, ke, kv, nt = self.dims
-        _launch_f32("reduce", self.dev,
-                    [self.partial, *[self.grads[k] for k in PACK_ORDER]],
-                    [w, ke, kv, nt, self.skip_pos,
-                     self.n_chunks * self.splits])
+    def reduce(self, variant: str = SLOT_REDUCE_VARIANT) -> dict:
+        if variant not in self._reduces:
+            self._reduces[variant] = self._reduce_call(variant)
+        self._reduces[variant]()
         return self.grads
 
     def workspace(self, c: int = 0) -> dict:

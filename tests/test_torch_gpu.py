@@ -397,30 +397,65 @@ def test_fused_radiance_bf16_backward_is_deterministic(width, layers, n):
         assert all(torch.equal(runs[0][k], r[k]) for r in runs[1:]), k
 
 
-# the bf16 backward's slot length at widths 256 and 128, over one slot, a
-# few, and one per SM of an H100
-@pytest.mark.parametrize("width,layers", [(256, 8), (128, 4)])
-@pytest.mark.parametrize("slots", [1, 7, 132])
-def test_slot_sum_kernel_matches_plain(width, layers, slots):
-    """The slot sum adds the slots in order from zero, as its plain version
-    does: the same bits. A slot length that is not a multiple of 4 floats
-    is refused (the kernel loads 16 bytes at a time)."""
+# slot counts of one, a few, the f32 reduce's 27 (3 chunks x 9 splits at
+# 196,608 points), one per SM of an H100 and one more; totals of the bf16
+# backward's slot at widths 256 and 128, and float4 counts that the grid's
+# CTAs do not divide evenly: fewer items than CTAs (3), a few per CTA
+# (1,001), and more than the bf16 slot (400,009)
+@pytest.mark.parametrize("variant", ["stream", "bulk"])
+@pytest.mark.parametrize("total", [825092, 149892, 12, 4 * 1001,
+                                   4 * 400009])
+@pytest.mark.parametrize("slots", [1, 8, 27, 132, 133])
+def test_slot_sum_kernel_matches_plain(slots, total, variant):
+    """The slot reduction engine adds the slots in order from zero, as the
+    plain version does: the same bits, on each design. A slot length that
+    is not a multiple of 4 floats is refused (16-byte loads)."""
     _need_gpu()
     from psnerf_torch.ops import fused_radiance as fr
 
-    cfg, field = _occ_field(width, layers)
-    with torch.no_grad():
-        packed = fr.pack_radiance(field, cfg, torch.bfloat16)
-    total = sum(fr.bf16_slot_layout(*fr._dims(packed, cfg.skips[0] - 1))[1])
     x = torch.as_tensor(np.random.default_rng(7).normal(
         size=(slots, total)).astype(np.float32), device="cuda")
     before = fr.slot_sum.launches
-    got = fr.slot_sum(x)
+    got = fr.slot_sum(x, variant)
     torch.cuda.synchronize()
     assert fr.slot_sum.launches == before + 1
     assert torch.equal(got, fr.slot_sum_plain(x))
     with pytest.raises(ValueError, match="multiple of 4"):
         fr.slot_sum(x[:, :-1].contiguous())
+
+
+@pytest.mark.parametrize("variant", ["stream", "bulk"])
+@pytest.mark.parametrize("width,layers,n", [(256, 8, 70000), (128, 4, 9000)])
+def test_f32_reduce_matches_plain(width, layers, n, variant):
+    """The f32 backward's reduce adds its split-K slots in order from zero,
+    as the slots summed one by one do: the same bits, on each design; each
+    gradient is its own contiguous view of that sum."""
+    _need_gpu()
+    from psnerf_torch.ops import fused_radiance as fr
+
+    cfg, field = _occ_field(width, layers, compute="float32")
+    em, de, vpe, p3 = _radiance_inputs(cfg, n)
+    skip = cfg.skips[0] - 1
+    with torch.no_grad():
+        packed = fr.pack_radiance(field, cfg, torch.float32)
+    _, g_e = fr.radiance_forward(packed, em, de, vpe, p3, skip, "float32")
+    g_out = torch.as_tensor(np.random.default_rng(9).normal(
+        size=(n, 4)).astype(np.float32), device="cuda")
+    b = fr.F32Backward(packed, em, de, vpe, p3, g_e, g_out, skip)
+    b.split()
+    for c in range(b.n_chunks):
+        b.sweep(c)
+        b.wgrad(c)
+    before = fr.f32_launches["reduce"]
+    grads = b.reduce(variant)
+    torch.cuda.synchronize()
+    assert fr.f32_launches["reduce"] == before + 1
+    assert torch.equal(b.sum, fr.slot_sum_plain(b.partial))
+    leaves, total = fr.f32_slot_layout(*b.dims)
+    for k, x in grads.items():
+        o = leaves[k]
+        assert x.is_contiguous(), k
+        assert torch.equal(x.flatten(), b.sum[o:o + x.numel()]), k
 
 
 def _stage2_batch(n, n_l, n_v, n_rows, seed=8):

@@ -148,17 +148,20 @@ def main():
 
     fwd = lambda: fr.radiance_forward(packed, em, de, vpe, p3, skip,
                                       "float32")
-    b = fr.F32Backward(packed, em, de, vpe, p3, g_e, g_out, skip)
+    def backward():                  # its launches bind the library now
+        b = fr.F32Backward(packed, em, de, vpe, p3, g_e, g_out, skip)
 
-    def bwd():                       # the backward's prologue and sweeps
-        b.split()
-        for c in range(b.n_chunks):
-            b.sweep(c)
+        def bwd():                   # the backward's prologue and sweeps
+            b.split()
+            for c in range(b.n_chunks):
+                b.sweep(c)
+        return bwd
     got = {k: {"fwd": [], "bwd": []} for k in PATCHES}
     order = list(PATCHES) + list(PATCHES)[::-1]
     with torch.no_grad():
         for name in order:
             use(name)
+            bwd = backward()
             got[name]["fwd"].append(ms(fwd, args.reps))
             got[name]["bwd"].append(ms(bwd, args.reps))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
