@@ -48,25 +48,34 @@ namespace slot_reduce {
 
 enum Variant { STREAM = 0, BULK = 1 };
 
-// (a) register-streamed
+// (a) register-streamed: THREADS threads, DEPTH loads in flight each
 constexpr int THREADS = 256;
 constexpr int PER_SM = 2;          // CTAs per SM (__launch_bounds__ below)
-constexpr int DEPTH = 16;          // loads in flight per thread
+constexpr int DEPTH = 16;
 
 // (b) cp.async.bulk ring: stages of one slot's range of CHUNK float4 items
 constexpr int B_WARPS = 8;                       // consumer warps
-constexpr int B_THREADS = 32 * (B_WARPS + 1);    // + one producer warp
 constexpr int B_VEC = 2;                         // float4s per consumer
-constexpr int B_CHUNK = 32 * B_WARPS * B_VEC;    // float4s per stage (8 KB)
 constexpr int B_RING = 8;                        // stages in flight
 constexpr int B_PER_SM = 3;
-constexpr size_t B_SMEM = (size_t)B_RING * B_CHUNK * 16 + 2 * B_RING * 8;
 
+template <int WARPS, int VEC, int RING>
+constexpr size_t bulk_smem() {
+  return (size_t)RING * 32 * WARPS * VEC * 16 + 2 * RING * 8;
+}
+
+template <bool L2_256>
 __device__ __forceinline__ float4 load_stream(const float4* p) {
   float4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "l"(p));
+  if (L2_256)
+    asm volatile(
+        "ld.global.nc.L1::no_allocate.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+        : "l"(p));
+  else
+    asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "l"(p));
   return v;
 }
 
@@ -81,13 +90,14 @@ __device__ __forceinline__ void cta_range(long long n, long long& beg,
   len = (int)(n * (blockIdx.x + 1) / gridDim.x - beg);
 }
 
-__global__ void __launch_bounds__(THREADS, PER_SM)
+template <int NT, int D, int MIN_CTAS, bool L2_256>
+__global__ void __launch_bounds__(NT, MIN_CTAS)
     stream_kernel(const float4* __restrict__ in, float4* __restrict__ out,
                   long long n, int slots) {
   long long beg;
   int len;
   cta_range(n, beg, len);
-  const int passes = (len + THREADS - 1) / THREADS;
+  const int passes = (len + NT - 1) / NT;
   if (passes == 0) return;
   const int stride = (len + passes - 1) / passes;
   const int t = threadIdx.x;
@@ -107,19 +117,19 @@ __global__ void __launch_bounds__(THREADS, PER_SM)
       src += n;
     }
   };
-  float4 buf[DEPTH];
+  float4 buf[D];
 #pragma unroll
-  for (int u = 0; u < DEPTH; ++u)
+  for (int u = 0; u < D; ++u)
     if (u < loads) {
-      buf[u] = load_stream(src);
+      buf[u] = load_stream<L2_256>(src);
       advance();
     }
   float4* dst = out + beg + t;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   int k = 0;
-  for (int f = 0; f < loads; f += DEPTH) {
+  for (int f = 0; f < loads; f += D) {
 #pragma unroll
-    for (int u = 0; u < DEPTH; ++u)
+    for (int u = 0; u < D; ++u)
       if (f + u < loads) {
         add4(acc, buf[u]);
         if (++k == slots) {
@@ -128,8 +138,8 @@ __global__ void __launch_bounds__(THREADS, PER_SM)
           acc = make_float4(0.f, 0.f, 0.f, 0.f);
           k = 0;
         }
-        if (f + u + DEPTH < loads) {
-          buf[u] = load_stream(src);
+        if (f + u + D < loads) {
+          buf[u] = load_stream<L2_256>(src);
           advance();
         }
       }
@@ -141,9 +151,12 @@ __global__ void __launch_bounds__(THREADS, PER_SM)
 // slot f % S of chunk f / S. The producer thread copies each stage's
 // bytes into ring slot f % B_RING once the consumer warps have freed it;
 // consumer thread t adds items t + v 32 B_WARPS (v < B_VEC) of the chunk.
-__global__ void __launch_bounds__(B_THREADS, B_PER_SM)
+template <int WARPS, int VEC, int RING, int MIN_CTAS>
+__global__ void __launch_bounds__(32 * (WARPS + 1), MIN_CTAS)
     bulk_kernel(const float4* __restrict__ in, float4* __restrict__ out,
                 long long n, int slots) {
+  constexpr int B_WARPS = WARPS, B_VEC = VEC, B_RING = RING;
+  constexpr int B_CHUNK = 32 * WARPS * VEC;
   extern __shared__ __align__(128) unsigned char smem[];
   float4* ring = reinterpret_cast<float4*>(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + B_RING * B_CHUNK);
@@ -224,14 +237,16 @@ inline cudaError_t launch(const void* in, void* out, long long total,
   const float4* src = static_cast<const float4*>(in);
   float4* dst = static_cast<float4*>(out);
   if (variant == STREAM) {
-    stream_kernel<<<grid, THREADS, 0, stream>>>(src, dst, total / 4, slots);
+    stream_kernel<THREADS, DEPTH, PER_SM, false>
+        <<<grid, THREADS, 0, stream>>>(src, dst, total / 4, slots);
   } else if (variant == BULK) {
+    constexpr size_t smem = bulk_smem<B_WARPS, B_VEC, B_RING>();
+    auto kernel = bulk_kernel<B_WARPS, B_VEC, B_RING, B_PER_SM>;
     cudaError_t err = cudaFuncSetAttribute(
-        bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)B_SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    bulk_kernel<<<grid, B_THREADS, B_SMEM, stream>>>(src, dst, total / 4,
-                                                     slots);
+    kernel<<<grid, 32 * (B_WARPS + 1), smem, stream>>>(src, dst, total / 4,
+                                                       slots);
   } else {
     return cudaErrorInvalidValue;
   }
