@@ -9,7 +9,9 @@ several configurations of its register-streamed kernel (threads, loads in
 flight, CTAs per SM, the L2::256B prefetch hint; on a persistent grid of
 SMs x resident CTAs, or one item per thread) and of its bulk-copy ring
 (consumer warps, float4s per consumer, ring stages), beside PR 7's
-slot_sum_kernel (8 loads a round, one item per thread) as the baseline,
+slot_sum_kernel (rounds_256x8: one column a thread, grid-strided over a
+grid of the CTAs the card holds, 8 loads a round) and that kernel with
+other threads and loads a round,
 builds it with nvcc into _chipcheck/sweep/, and times each on 132 random
 slots of 825,092 floats (the bf16 backward's) and on 27 of 825,096 (the
 f32 backward's split-K slots at 196,608 points): device time as a CUDA
@@ -35,44 +37,42 @@ from chip_smoke import cuda_ms, graph_ms  # noqa: E402
 # (name, kind, template arguments, grid: "resident" = SMs x occupancy,
 # "items" = one item per thread)
 CONFIGS = [
-    ("pr7", "pr7", "", "pr7"),
-    ("stream_256x4_min8", "stream", "256, 4, 8, false", "resident"),
+    ("rounds_256x8", "rounds", "256, 8", "pr7"),        # PR 7's kernel
+    ("rounds_256x16", "rounds", "256, 16", "pr7"),
+    ("rounds_128x8", "rounds", "128, 8", "pr7"),
+    ("rounds_512x8", "rounds", "512, 8", "pr7"),
+    ("rounds_256x8_items", "rounds", "256, 8", "items"),
     ("stream_256x8_min4", "stream", "256, 8, 4, false", "resident"),
-    ("stream_256x12_min3", "stream", "256, 12, 3, false", "resident"),
-    ("stream_256x16_min2", "stream", "256, 16, 2, false", "resident"),
-    ("stream_256x8_min4_l2", "stream", "256, 8, 4, true", "resident"),
-    ("stream_128x8_min8", "stream", "128, 8, 8, false", "resident"),
-    ("stream_512x8_min2", "stream", "512, 8, 2, false", "resident"),
-    ("stream_256x4_items", "stream", "256, 4, 8, false", "items"),
-    ("stream_256x8_items", "stream", "256, 8, 4, false", "items"),
-    ("stream_256x8_items_l2", "stream", "256, 8, 4, true", "items"),
-    ("stream_256x6_min7_items", "stream", "256, 6, 7, false", "items"),
-    ("stream_128x4_min16_items", "stream", "128, 4, 16, false", "items"),
-    ("bulk_w8v2r8", "bulk", "8, 2, 8, 1", "resident"),
-    ("bulk_w8v1r16", "bulk", "8, 1, 16, 1", "resident"),
-    ("bulk_w8v2r12", "bulk", "8, 2, 12, 1", "resident"),
-    ("bulk_w8v2r16", "bulk", "8, 2, 16, 1", "resident"),
     ("bulk_w8v4r8", "bulk", "8, 4, 8, 1", "resident"),
-    ("bulk_w8v1r24", "bulk", "8, 1, 24, 1", "resident"),
-    ("bulk_w16v1r16", "bulk", "16, 1, 16, 1", "resident"),
-    ("bulk_w4v2r16", "bulk", "4, 2, 16, 1", "resident"),
+    ("bulk_w8v4r12", "bulk", "8, 4, 12, 1", "resident"),
+    ("bulk_w8v8r6", "bulk", "8, 8, 6, 1", "resident"),
+    ("bulk_w8v8r7", "bulk", "8, 8, 7, 1", "resident"),
+    ("bulk_w16v4r6", "bulk", "16, 4, 6, 1", "resident"),
+    ("bulk_w8v2r24", "bulk", "8, 2, 24, 1", "resident"),
+    ("bulk_w8v3r16", "bulk", "8, 3, 16, 1", "resident"),
+    ("bulk_w8v1r48", "bulk", "8, 1, 48, 1", "resident"),
+    ("bulk_w4v4r16", "bulk", "4, 4, 16, 1", "resident"),
 ]
 
-PR7 = r"""
-__global__ void __launch_bounds__(256)
-    pr7_kernel(const float4* __restrict__ in, float4* __restrict__ out,
-               long long n_vec, int slots) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_vec; i += (long long)gridDim.x * blockDim.x) {
+# PR 7's slot_sum_kernel with its threads and loads a round as parameters:
+# each thread adds one column (grid-strided), R slots' loads issued, then
+# their R adds
+ROUNDS = r"""
+template <int NT, int R>
+__global__ void __launch_bounds__(NT)
+    rounds_kernel(const float4* __restrict__ in, float4* __restrict__ out,
+                  long long n_vec, int slots) {
+  for (long long i = (long long)blockIdx.x * NT + threadIdx.x;
+       i < n_vec; i += (long long)gridDim.x * NT) {
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
     int k = 0;
-    for (; k + 8 <= slots; k += 8) {
-      float4 v[8];
+    for (; k + R <= slots; k += R) {
+      float4 v[R];
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
+      for (int u = 0; u < R; ++u)
         v[u] = __ldg(in + (size_t)(k + u) * n_vec + i);
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
+      for (int u = 0; u < R; ++u) {
         s.x += v[u].x; s.y += v[u].y; s.z += v[u].z; s.w += v[u].w;
       }
     }
@@ -88,7 +88,7 @@ __global__ void __launch_bounds__(256)
 
 def source():
     lines = ['#include "slot_reduce.cuh"', "using namespace slot_reduce;",
-             PR7,
+             ROUNDS,
              "template <class K> int occ(K k, int threads, size_t smem) {",
              "  int b = 0;",
              "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, threads,"
@@ -103,8 +103,8 @@ def source():
               "  cudaStream_t s = static_cast<cudaStream_t>(stream);",
               "  switch (id) {"]
     for i, (name, kind, args, _) in enumerate(CONFIGS):
-        if kind == "pr7":
-            k, nt, smem = "pr7_kernel", "256", "0"
+        if kind == "rounds":
+            k, nt, smem = f"rounds_kernel<{args}>", args.split(",")[0], "0"
         elif kind == "stream":
             k, nt, smem = f"stream_kernel<{args}>", args.split(",")[0], "0"
         else:
@@ -173,7 +173,7 @@ def main():
             lib.sweep_info(i, o)
             per_sm, nt = o[0], o[1]
             if grid_kind == "pr7":
-                grid = min(-(-n // 256), per_sm * sms)
+                grid = min(-(-n // nt), per_sm * sms)
             elif grid_kind == "items":
                 grid = -(-n // nt)
             else:
