@@ -46,36 +46,34 @@
 
 namespace slot_reduce {
 
-enum Variant { STREAM = 0, BULK = 1 };
+enum Variant { REGS = 0, BULK = 1 };
 
-// (a) register-streamed: THREADS threads, DEPTH loads in flight each
+// (a) register-streamed: THREADS threads a CTA and at most 32 registers
+// each, so PER_SM CTAs (64 warps) fill an SM; ROUND loads a round
 constexpr int THREADS = 256;
-constexpr int PER_SM = 2;          // CTAs per SM (__launch_bounds__ below)
-constexpr int DEPTH = 16;
+constexpr int PER_SM = 8;
+constexpr int ROUND = 16;
 
-// (b) cp.async.bulk ring: stages of one slot's range of CHUNK float4 items
+// (b) cp.async.bulk ring: stages of one slot's range of up to 32 B_WARPS
+// B_VEC float4 items
 constexpr int B_WARPS = 8;                       // consumer warps
-constexpr int B_VEC = 2;                         // float4s per consumer
-constexpr int B_RING = 8;                        // stages in flight
-constexpr int B_PER_SM = 3;
+constexpr int B_VEC = 8;                         // float4s per consumer
+constexpr int B_RING = 6;                        // stages in flight
+constexpr int B_PER_SM = 1;
 
 template <int WARPS, int VEC, int RING>
 constexpr size_t bulk_smem() {
   return (size_t)RING * 32 * WARPS * VEC * 16 + 2 * RING * 8;
 }
 
-template <bool L2_256>
-__device__ __forceinline__ float4 load_stream(const float4* p) {
+// a 16-byte load through the non-coherent path; NA: not kept in L1
+template <bool NA>
+__device__ __forceinline__ float4 load_slot(const float4* p) {
+  if (!NA) return __ldg(p);
   float4 v;
-  if (L2_256)
-    asm volatile(
-        "ld.global.nc.L1::no_allocate.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-        : "l"(p));
-  else
-    asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-                 : "l"(p));
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
   return v;
 }
 
@@ -83,66 +81,39 @@ __device__ __forceinline__ void add4(float4& s, const float4& v) {
   s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
 }
 
-// CTA b of g: items [beg, end) of n
+// CTA b of g: items [beg, beg + len) of n
 __device__ __forceinline__ void cta_range(long long n, long long& beg,
                                           int& len) {
   beg = n * blockIdx.x / gridDim.x;
   len = (int)(n * (blockIdx.x + 1) / gridDim.x - beg);
 }
 
-template <int NT, int D, int MIN_CTAS, bool L2_256>
+// (a): thread t < stride of the CTA adds items beg + t + j stride, each
+// column's slots in order, R loads issued a round before their R adds
+template <int NT, int R, int MIN_CTAS, bool NA>
 __global__ void __launch_bounds__(NT, MIN_CTAS)
-    stream_kernel(const float4* __restrict__ in, float4* __restrict__ out,
-                  long long n, int slots) {
+    regs_kernel(const float4* __restrict__ in, float4* __restrict__ out,
+                long long n, int slots) {
   long long beg;
   int len;
   cta_range(n, beg, len);
   const int passes = (len + NT - 1) / NT;
   if (passes == 0) return;
   const int stride = (len + passes - 1) / passes;
-  const int t = threadIdx.x;
-  if (t >= stride) return;
-  const int items = t < len - (passes - 1) * stride ? passes : passes - 1;
-  const int loads = items * slots;   // item by item, each in slot order
-  // the load cursor: slot lk of the column at col
-  const float4* col = in + beg + t;
-  const float4* src = col;
-  int lk = 0;
-  auto advance = [&]() {
-    if (++lk == slots) {
-      lk = 0;
-      col += stride;
-      src = col;
-    } else {
-      src += n;
-    }
-  };
-  float4 buf[D];
+  if ((int)threadIdx.x >= stride) return;
+  for (long long i = beg + threadIdx.x; i < beg + len; i += stride) {
+    const float4* src = in + i;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    int k = 0;
+    for (; k + R <= slots; k += R) {
+      float4 v[R];
 #pragma unroll
-  for (int u = 0; u < D; ++u)
-    if (u < loads) {
-      buf[u] = load_stream<L2_256>(src);
-      advance();
-    }
-  float4* dst = out + beg + t;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  int k = 0;
-  for (int f = 0; f < loads; f += D) {
+      for (int u = 0; u < R; ++u) v[u] = load_slot<NA>(src + (k + u) * n);
 #pragma unroll
-    for (int u = 0; u < D; ++u)
-      if (f + u < loads) {
-        add4(acc, buf[u]);
-        if (++k == slots) {
-          *dst = acc;
-          dst += stride;
-          acc = make_float4(0.f, 0.f, 0.f, 0.f);
-          k = 0;
-        }
-        if (f + u + D < loads) {
-          buf[u] = load_stream<L2_256>(src);
-          advance();
-        }
-      }
+      for (int u = 0; u < R; ++u) add4(s, v[u]);
+    }
+    for (; k < slots; ++k) add4(s, load_slot<NA>(src + k * n));
+    out[i] = s;
   }
 }
 
@@ -236,8 +207,8 @@ inline cudaError_t launch(const void* in, void* out, long long total,
     return cudaErrorInvalidValue;
   const float4* src = static_cast<const float4*>(in);
   float4* dst = static_cast<float4*>(out);
-  if (variant == STREAM) {
-    stream_kernel<THREADS, DEPTH, PER_SM, false>
+  if (variant == REGS) {
+    regs_kernel<THREADS, ROUND, PER_SM, false>
         <<<grid, THREADS, 0, stream>>>(src, dst, total / 4, slots);
   } else if (variant == BULK) {
     constexpr size_t smem = bulk_smem<B_WARPS, B_VEC, B_RING>();

@@ -83,12 +83,12 @@ BF16_TILE = 64       # points per tile of the bf16 kernels
 _lib_handle = []
 _lib_f32_handle = []
 # the slot reduction engine (csrc/slot_reduce.cuh): variant -> (its id in
-# the C entries, CTAs per SM: the kernel's __launch_bounds__ minimum, so a
-# grid of SMs x this many is resident at once), and the variant launched
-SLOT_REDUCE_PER_SM = {"stream": (0, 2), "bulk": (1, 3)}
-SLOT_REDUCE_VARIANT = "stream"
-SLOT_REDUCE_THREADS = 256    # threads of a stream CTA (THREADS)
-SLOT_REDUCE_CHUNK = 512      # float4 items of a bulk stage (B_CHUNK)
+# the C entries, CTAs per SM at most: the kernel's __launch_bounds__
+# minimum, so they are resident at once, and the float4 items a CTA takes
+# at most in one pass: threads (regs) or one stage (bulk)), and the variant
+# launched
+SLOT_REDUCE_PER_SM = {"regs": (0, 8, 256), "bulk": (1, 1, 2048)}
+SLOT_REDUCE_VARIANT = "regs"
 
 
 def supports(cfg) -> bool:
@@ -547,15 +547,19 @@ def f32_slot_layout(w: int, ke: int, kv: int, nt: int) -> tuple:
     return {k: out[k] for k in PACK_ORDER}, at
 
 
-def slot_reduce_grid(dev, variant: str = SLOT_REDUCE_VARIANT) -> int:
-    """The engine's persistent grid on `dev`: SMs x CTAs per SM."""
-    return _slots(dev) * SLOT_REDUCE_PER_SM[variant][1]
+def slot_reduce_grid(n: int, sms: int,
+                     variant: str = SLOT_REDUCE_VARIANT) -> int:
+    """The engine's grid for n float4 items on `sms` SMs: a whole number of
+    CTAs on every SM, as few as take every item in one pass (one column a
+    thread) and at most the CTAs an SM holds at once."""
+    _, most, unit = SLOT_REDUCE_PER_SM[variant]
+    return sms * max(1, min(most, -(-n // (sms * unit))))
 
 
 def _reduce_ints(total: int, slots: int, dev,
                  variant: str = SLOT_REDUCE_VARIANT) -> list:
     """The engine's C ints: floats per slot, slots, grid, variant id."""
-    return [total, slots, slot_reduce_grid(dev, variant),
+    return [total, slots, slot_reduce_grid(total // 4, _slots(dev), variant),
             SLOT_REDUCE_PER_SM[variant][0]]
 
 
@@ -564,17 +568,16 @@ def slot_reduce_items(n: int, grid: int,
     """The engine's work split (csrc/slot_reduce.cuh) of n float4 items
     (one column of 4 floats over all slots each) over `grid` CTAs, for the
     CPU tests: per CTA, a table of item indices (-1: none). CTA b owns
-    [b n // grid, (b + 1) n // grid). stream: [passes, threads]; with p =
+    [b n // grid, (b + 1) n // grid). regs: [passes, threads]; with p =
     ceil(len / THREADS) passes and stride ceil(len / p), thread t < stride
     adds beg + t + j stride (j < p, below the end). bulk: [stages, items];
     the range goes in q = ceil(len / CHUNK) chunks of ceil(len / q) items,
     each copied slot by slot as one stage."""
+    unit = SLOT_REDUCE_PER_SM[variant][2]
     out = []
     for b in range(grid):
         beg, end = n * b // grid, n * (b + 1) // grid
         ln = end - beg
-        unit = SLOT_REDUCE_THREADS if variant == "stream" else \
-            SLOT_REDUCE_CHUNK
         rows = -(-ln // unit)
         cols = -(-ln // rows) if rows else 0
         idx = (beg + torch.arange(cols)[None, :]

@@ -402,7 +402,7 @@ def test_fused_radiance_bf16_backward_is_deterministic(width, layers, n):
 # backward's slot at widths 256 and 128, and float4 counts that the grid's
 # CTAs do not divide evenly: fewer items than CTAs (3), a few per CTA
 # (1,001), and more than the bf16 slot (400,009)
-@pytest.mark.parametrize("variant", ["stream", "bulk"])
+@pytest.mark.parametrize("variant", ["regs", "bulk"])
 @pytest.mark.parametrize("total", [825092, 149892, 12, 4 * 1001,
                                    4 * 400009])
 @pytest.mark.parametrize("slots", [1, 8, 27, 132, 133])
@@ -424,7 +424,7 @@ def test_slot_sum_kernel_matches_plain(slots, total, variant):
         fr.slot_sum(x[:, :-1].contiguous())
 
 
-@pytest.mark.parametrize("variant", ["stream", "bulk"])
+@pytest.mark.parametrize("variant", ["regs", "bulk"])
 @pytest.mark.parametrize("width,layers,n", [(256, 8, 70000), (128, 4, 9000)])
 def test_f32_reduce_matches_plain(width, layers, n, variant):
     """The f32 backward's reduce adds its split-K slots in order from zero,

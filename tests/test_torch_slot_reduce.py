@@ -20,19 +20,25 @@ VARIANTS = sorted(fr.SLOT_REDUCE_PER_SM)
 
 
 # the bf16 slot at widths 256 and 128 (825,092 and 149,892 floats), the f32
-# slot at width 256, over the grid of an H100 (132 SMs); a range of one
-# CTA and one item over; fewer items than CTAs; one CTA
+# slot at width 256, each over the grid the wrapper gives on an H100 (132
+# SMs) and over the most CTAs an SM holds; a range of one CTA and one item
+# over; fewer items than CTAs; one CTA
 @pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("n,sms", [(206273, 132), (37473, 132),
-                                   (206274, 132), (257, 1), (1, 132),
-                                   (5000, 3)])
-def test_partition_covers_every_item_once(variant, n, sms):
+@pytest.mark.parametrize("n,sms,full", [
+    (206273, 132, False), (206273, 132, True), (37473, 132, False),
+    (206274, 132, False), (257, 1, True), (1, 132, False), (5000, 3, True),
+    (900000, 132, False)])
+def test_partition_covers_every_item_once(variant, n, sms, full):
     """Every float4 item is added exactly once, the CTAs' ranges are
     contiguous and differ by at most one item, and the work is dealt
-    evenly, to one item: over the threads of the grid (stream: a thread
-    adds a column of its CTA's table), over its stages (bulk: a stage
-    copies a row)."""
-    grid = sms * fr.SLOT_REDUCE_PER_SM[variant][1]
+    evenly: over the threads of the grid to one item (regs: a thread adds
+    a column of its CTA's table), over its stages to one item a stage
+    (bulk: a stage copies a row). The wrapper's grid is a whole number of
+    CTAs on every SM."""
+    grid = (sms * fr.SLOT_REDUCE_PER_SM[variant][1] if full
+            else fr.slot_reduce_grid(n, sms, variant))
+    assert grid % sms == 0
+    assert grid <= sms * fr.SLOT_REDUCE_PER_SM[variant][1]
     tables = fr.slot_reduce_items(n, grid, variant)
     assert len(tables) == grid
     got = torch.cat([t.flatten() for t in tables])
@@ -46,21 +52,22 @@ def test_partition_covers_every_item_once(variant, n, sms):
         if size:
             assert items.min() == beg and items.max() == beg + size - 1
         beg += size
-    axis = 0 if variant == "stream" else 1
+    axis = 0 if variant == "regs" else 1
     per_worker = torch.cat([(t >= 0).sum(axis) for t in tables])
     busy = per_worker[per_worker > 0]
-    assert busy.max() - busy.min() <= 1
+    # a stage is ceil(len / stages) items, the last up to a few fewer
+    spread = 1 if variant == "regs" else max(t.shape[0] for t in tables)
+    assert busy.max() - busy.min() <= spread
 
 
-def test_partition_of_the_bf16_slots_leaves_no_short_pass():
-    """At the bf16 slot sum's size (206,273 float4 items) each stream
-    CTA's threads take four passes over a stride of 196 items: no pass
-    runs with only a few threads."""
-    grid = 132 * fr.SLOT_REDUCE_PER_SM["stream"][1]
-    for t in fr.slot_reduce_items(206273, grid, "stream"):
-        per_pass = (t >= 0).sum(1)
-        assert t.shape == (4, 196)
-        assert per_pass.min() >= per_pass.max() - 3
+def test_grid_takes_the_bf16_slots_in_one_pass():
+    """At the bf16 slot sum's size (206,273 float4 items) the wrapper's
+    grid on an H100 is 7 CTAs on every SM, and each thread adds one
+    column: no thread takes a second one while others idle."""
+    grid = fr.slot_reduce_grid(206273, 132, "regs")
+    assert grid == 7 * 132
+    for t in fr.slot_reduce_items(206273, grid, "regs"):
+        assert t.shape[0] == 1 and (t >= 0).all()
 
 
 @pytest.mark.parametrize("w,ke,kv,nt", [(256, 48, 32, 7), (128, 48, 32, 3),
@@ -140,7 +147,7 @@ def test_f32_backward_builds_each_launch_once(monkeypatch):
     ptr = lambda ts: [x.data_ptr() for x in ts]
     reduce = b._reduces[fr.SLOT_REDUCE_VARIANT].launch
     assert list(reduce.ptrs) == ptr([b.partial, b.sum])
-    grid = 4 * fr.SLOT_REDUCE_PER_SM[fr.SLOT_REDUCE_VARIANT][1]
+    grid = fr.slot_reduce_grid(b.slot_floats // 4, 4)
     assert list(reduce.ints) == [b.slot_floats, b.n_chunks * b.splits, grid,
                                  fr.SLOT_REDUCE_PER_SM[
                                      fr.SLOT_REDUCE_VARIANT][0]]

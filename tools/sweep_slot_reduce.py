@@ -5,9 +5,10 @@ slot_reduce.cuh) on one card, at the shapes of its two callers:
     python3 tools/sweep_slot_reduce.py [--turns 2]
 
 It writes a source that includes the engine's header and instantiates
-several configurations of its register-streamed kernel (threads, loads in
-flight, CTAs per SM, the L2::256B prefetch hint; on a persistent grid of
-SMs x resident CTAs, or one item per thread) and of its bulk-copy ring
+several configurations of its register-streamed kernel (threads, loads a
+round, CTAs per SM, the L1::no_allocate hint; on the wrapper's grid, a
+whole number of CTAs per SM that takes every item in one pass, or one CTA
+per THREADS items) and of its bulk-copy ring
 (consumer warps, float4s per consumer, ring stages), beside PR 7's
 slot_sum_kernel (rounds_256x8: one column a thread, grid-strided over a
 grid of the CTAs the card holds, 8 loads a round) and that kernel with
@@ -37,21 +38,16 @@ from chip_smoke import cuda_ms, graph_ms  # noqa: E402
 # (name, kind, template arguments, grid: "resident" = SMs x occupancy,
 # "items" = one item per thread)
 CONFIGS = [
-    ("rounds_256x8", "rounds", "256, 8", "pr7"),        # PR 7's kernel
     ("rounds_256x16", "rounds", "256, 16", "pr7"),
-    ("rounds_128x8", "rounds", "128, 8", "pr7"),
-    ("rounds_512x8", "rounds", "512, 8", "pr7"),
-    ("rounds_256x8_items", "rounds", "256, 8", "items"),
-    ("stream_256x8_min4", "stream", "256, 8, 4, false", "resident"),
-    ("bulk_w8v4r8", "bulk", "8, 4, 8, 1", "resident"),
-    ("bulk_w8v4r12", "bulk", "8, 4, 12, 1", "resident"),
+    ("regs_256x16_min8", "regs", "256, 16, 8, false", "whole"),
+    ("regs_256x16_min8_items", "regs", "256, 16, 8, false", "items"),
+    ("regs_256x8_min8", "regs", "256, 8, 8, false", "whole"),
+    ("regs_256x32_min8", "regs", "256, 32, 8, false", "whole"),
+    ("regs_256x16_min8_na", "regs", "256, 16, 8, true", "whole"),
+    ("regs_512x16_min4", "regs", "512, 16, 4, false", "whole"),
+    ("regs_128x16_min16", "regs", "128, 16, 16, false", "whole"),
     ("bulk_w8v8r6", "bulk", "8, 8, 6, 1", "resident"),
     ("bulk_w8v8r7", "bulk", "8, 8, 7, 1", "resident"),
-    ("bulk_w16v4r6", "bulk", "16, 4, 6, 1", "resident"),
-    ("bulk_w8v2r24", "bulk", "8, 2, 24, 1", "resident"),
-    ("bulk_w8v3r16", "bulk", "8, 3, 16, 1", "resident"),
-    ("bulk_w8v1r48", "bulk", "8, 1, 48, 1", "resident"),
-    ("bulk_w4v4r16", "bulk", "4, 4, 16, 1", "resident"),
 ]
 
 # PR 7's slot_sum_kernel with its threads and loads a round as parameters:
@@ -105,8 +101,8 @@ def source():
     for i, (name, kind, args, _) in enumerate(CONFIGS):
         if kind == "rounds":
             k, nt, smem = f"rounds_kernel<{args}>", args.split(",")[0], "0"
-        elif kind == "stream":
-            k, nt, smem = f"stream_kernel<{args}>", args.split(",")[0], "0"
+        elif kind == "regs":
+            k, nt, smem = f"regs_kernel<{args}>", args.split(",")[0], "0"
         else:
             w, v, r, _m = [a.strip() for a in args.split(",")]
             k = f"bulk_kernel<{args}>"
@@ -176,6 +172,8 @@ def main():
                 grid = min(-(-n // nt), per_sm * sms)
             elif grid_kind == "items":
                 grid = -(-n // nt)
+            elif grid_kind == "whole":     # the wrapper's rule
+                grid = sms * max(1, min(per_sm, -(-n // (sms * nt))))
             else:
                 grid = per_sm * sms
 
