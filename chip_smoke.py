@@ -200,24 +200,22 @@ def in_turns(fns: dict, reps: dict, order, timer=cuda_ms):
     return {k: float(np.mean(v)) for k, v in got.items()}
 
 
-def time_slot_reduce(kernels: dict, plain, library, want):
+def time_slot_reduce(kernel, plain, library, want):
     """A fixed-order slot reduction of the engine (csrc/slot_reduce.cuh):
-    each design's launch in `kernels` ({variant: fn returning the sum})
-    held bit for bit against `want` (its plain version's sum), then timed
-    three ways, in turns with `library` (torch.sum over the same slots):
-    back-to-back CUDA events (cuda_ms, the kernel table's number; the
-    plain version's too), device only (graph_ms) and host µs per launch
-    (host_us over 1,000 launches). Returns {name: {ms, device_ms,
-    host_us}}."""
-    for v, fn in kernels.items():
-        got = fn()
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"slot reduction ({v}) against its "
-              f"plain version: {(got - want).abs().max().item()}")
-    fns = dict(kernels, library=library)
-    order = list(fns) + list(fns)[::-1]
+    `kernel` (a launch returning the sum) held bit for bit against `want`
+    (its plain version's sum), then timed three ways, in turns with
+    `library` (torch.sum over the same slots): back-to-back CUDA events
+    (cuda_ms, the kernel table's number; the plain version's too), device
+    only (graph_ms) and host µs per launch (host_us over 1,000 launches).
+    Returns {kernel, library, plain: {ms, device_ms, host_us}}."""
+    got = kernel()
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "slot reduction against its plain "
+          f"version: {(got - want).abs().max().item()}")
+    fns = {"kernel": kernel, "library": library}
+    order = ["library", "kernel", "kernel", "library"]
     ev = in_turns(dict(fns, plain=plain),
-                  dict(dict.fromkeys(fns, 20), plain=3),
+                  {"kernel": 20, "library": 20, "plain": 3},
                   ["plain"] + order + ["plain"])
     dev = in_turns(fns, dict.fromkeys(fns, 20), order, timer=graph_ms)
     host = in_turns(fns, dict.fromkeys(fns, 1000), order, timer=host_us)
@@ -228,17 +226,13 @@ def time_slot_reduce(kernels: dict, plain, library, want):
 
 
 def reduction_row(t, err, bnd, by, **extra):
-    """The kernels-line row of a slot reduction timed by time_slot_reduce:
-    the launched design's numbers, the others' beside them."""
-    from psnerf_torch.ops.fused_radiance import SLOT_REDUCE_VARIANT as v
-
-    return dict(max_abs_err=err, ms=t[v]["ms"], device_ms=t[v]["device_ms"],
-                host_us=t[v]["host_us"], plain_ms=t["plain"]["ms"],
-                bound_ms=bnd, bound_by=by, library_ms=t["library"]["ms"],
-                library_device_ms=t["library"]["device_ms"],
-                library_host_us=t["library"]["host_us"], variant=v,
-                variants={k: x for k, x in t.items()
-                          if k not in ("plain", "library")}, **extra)
+    """The kernels-line row of a slot reduction timed by time_slot_reduce."""
+    k, lib = t["kernel"], t["library"]
+    return dict(max_abs_err=err, ms=k["ms"], device_ms=k["device_ms"],
+                host_us=k["host_us"], plain_ms=t["plain"]["ms"],
+                bound_ms=bnd, bound_by=by, library_ms=lib["ms"],
+                library_device_ms=lib["device_ms"],
+                library_host_us=lib["host_us"], **extra)
 
 
 def trunk_flops(n, n_lights, ke, width=256, n_trunk=7):
@@ -1220,10 +1214,10 @@ def phase_stage1_kernels(card):
 
 def time_slot_sum(packed, skip):
     """The bf16 backward's slot sum at the integration batch's grid (one
-    slot per CTA, min(tiles, SMs)) over random slots, on each design of the
-    engine, against its plain version (the same order: bitwise) and
-    torch.sum over the slots (time_slot_reduce); and the backward's zeroing
-    of those slots (torch.zeros, recorded only)."""
+    slot per CTA, min(tiles, SMs)) over random slots, against its plain
+    version (the same order: bitwise) and torch.sum over the slots
+    (time_slot_reduce); and the backward's zeroing of those slots
+    (torch.zeros, recorded only)."""
     from psnerf_torch.ops import fused_radiance as fr
 
     total = sum(fr.bf16_slot_layout(*fr._dims(packed, skip))[1])
@@ -1238,10 +1232,9 @@ def time_slot_sum(packed, skip):
     want = fr.slot_sum_plain(slots)
     err = (got - want).abs().max().item()
     check(err == 0.0, f"slot sum against its plain version: {err}")
-    t = time_slot_reduce(
-        {v: (lambda v=v: fr.slot_sum(slots, v))
-         for v in fr.SLOT_REDUCE_PER_SM},
-        lambda: fr.slot_sum_plain(slots), lambda: torch.sum(slots, 0), want)
+    t = time_slot_reduce(lambda: fr.slot_sum(slots),
+                         lambda: fr.slot_sum_plain(slots),
+                         lambda: torch.sum(slots, 0), want)
     zeros_ms = cuda_ms(lambda: torch.zeros((grid, total), device=DEV), 20)
     b, by = bound_ms(grid * total, (grid + 1) * total * 4, PEAK_F32_FLOPS)
     row = reduction_row(
@@ -1482,10 +1475,9 @@ def time_f32_stages(packed, inputs, g_e, g_out, skip):
             ["split_plain", "split", "split", "split_plain",
              "sweep_plain", "sweep", "sweep", "sweep_plain",
              "wgrad_plain", "wgrad", "wgrad", "wgrad_plain"])
-        t_reduce = time_slot_reduce(
-            {v: (lambda v=v: (b.reduce(v), b.sum)[1])
-             for v in fr.SLOT_REDUCE_PER_SM},
-            reduce_plain, lambda: torch.sum(slots, 0), sum_want)
+        t_reduce = time_slot_reduce(lambda: (b.reduce(), b.sum)[1],
+                                    reduce_plain, lambda: torch.sum(slots, 0),
+                                    sum_want)
     del ws_kernel
     f_sweep, f_wgrad = f32_stage_flops(n, w, ke, kv, nt)
     ws_bytes = n * fr.ws_layout(w, ke, kv, nt)[1] * 4
@@ -1966,8 +1958,7 @@ def main():
                                      "single_launch_ms",
                                      "launches_stage2_train", "device_ms",
                                      "host_us", "library_device_ms",
-                                     "library_host_us", "variant",
-                                     "variants", "zeros_ms")
+                                     "library_host_us", "zeros_ms")
                    if x in k}}
 
     log(json.dumps({"card": card["nvidia_smi"], "main_path": e2e,

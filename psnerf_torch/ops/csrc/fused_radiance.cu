@@ -942,7 +942,8 @@ extern "C" int psnerf_radiance_bwd(void* const* ptrs, const int* ints,
 
 // The slots summed in fixed order by the engine (slot_reduce.cuh). ptrs:
 // in [slots, total], out [total] (f32, 16-byte aligned); ints: total (a
-// multiple of 4), slots, grid (SMs x CTAs per SM of the variant), variant.
+// multiple of 4), slots, grid, column stride (ops/fused_radiance.py
+// `slot_reduce_plan`).
 extern "C" int psnerf_radiance_slot_sum(void* const* ptrs, const int* ints,
                                         void* stream) {
   return slot_reduce::launch(ptrs[0], ptrs[1], ints[0], ints[1], ints[2],

@@ -14,213 +14,84 @@
 //
 // What bounds it: bytes. Each slot byte is read once (S x total x 4 bytes
 // in, total x 4 out), and one add per 4 bytes read is nothing to the FP32
-// units. So the design keeps device memory busy from the first load to the
-// last one:
-//   * flat work split: an item is one float4 column over all S slots (S
-//     16-byte loads added in slot order, one 16-byte store). A persistent
-//     grid of a whole number of CTAs per SM (the wrapper passes SMs x
-//     PER_SM) takes equal contiguous ranges of items: CTA b of G owns
-//     [b n / G, (b + 1) n / G), so no SM gets an extra CTA and none is
-//     launched idle;
-//   * within a CTA, its items are dealt so that every busy thread (or
-//     stage) gets the same count, to one: passes p = ceil(len / THREADS),
-//     stride = ceil(len / p), thread t < stride owns items beg + t + j
-//     stride (j < p, below end). All threads end together; there is no
-//     last pass with a few threads left (ops/fused_radiance.py
-//     `slot_reduce_items` mirrors the partition for the CPU tests);
-//   * bytes in flight: each thread streams its items slot by slot as one
-//     sequence, DEPTH 16-byte loads ahead of its in-order adds
-//     (ld.global.nc.L1::no_allocate, a register ring that is refilled as
-//     soon as a slot is added), across item boundaries, so a thread never
-//     waits out a round of loads before it issues the next ones.
-// (b) below is the other design, one producer thread's cp.async.bulk
-// copies of each slot's column range into a shared-memory ring under
-// mbarriers, consumer warps adding slot by slot from shared memory.
+// units. The work is float4 columns (an item: S 16-byte loads added in
+// slot order, one 16-byte store), and what keeps device memory busy to the
+// end, as measured on an H100 (tools/sweep_slot_reduce.py, PERF.md):
+//   * every column its own thread in one resident wave: THREADS threads a
+//     CTA at most 32 registers each, so PER_SM CTAs (64 warps) fit on an
+//     SM and 270,336 columns go in one pass on 132 SMs. The grid is one CTA
+//     per THREADS columns, at most the CTAs the card holds; past that the
+//     wrapper deals the columns evenly (`stride`, ops/fused_radiance.py
+//     `slot_reduce_plan`): thread g < stride adds g, g + stride, ..., so
+//     every busy thread adds the same count to one and none runs a short
+//     last pass alone. PR 7's kernel held 44 registers, 5 CTAs an SM, and
+//     left 37,000 threads a second column after the others had finished;
+//   * the whole grid walks the slots in step, so each slot row is read
+//     across its full width at about the same time;
+//   * ROUND slots' loads issued before their adds (ptxas keeps as many in
+//     flight as the 32 registers hold), then the remaining slots one by
+//     one. (A predicated last round in place of that loop spilled 328
+//     bytes a thread under the 32-register cap and ran 4x slower.)
+// A register ring refilled as each slot is added, on a persistent grid of
+// a few CTAs per SM, and one producer thread's cp.async.bulk copies into a
+// shared-memory ring under mbarriers were both measured slower
+// (tools/sweep_slot_reduce.py keeps the bulk-copy ring for comparison).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "trunk_wgmma.cuh"
-
 namespace slot_reduce {
 
-enum Variant { REGS = 0, BULK = 1 };
-
-// (a) register-streamed: THREADS threads a CTA and at most 32 registers
-// each, so PER_SM CTAs (64 warps) fill an SM; ROUND loads a round
 constexpr int THREADS = 256;
-constexpr int PER_SM = 8;
-constexpr int ROUND = 16;
-
-// (b) cp.async.bulk ring: stages of one slot's range of up to 32 B_WARPS
-// B_VEC float4 items
-constexpr int B_WARPS = 8;                       // consumer warps
-constexpr int B_VEC = 8;                         // float4s per consumer
-constexpr int B_RING = 6;                        // stages in flight
-constexpr int B_PER_SM = 1;
-
-template <int WARPS, int VEC, int RING>
-constexpr size_t bulk_smem() {
-  return (size_t)RING * 32 * WARPS * VEC * 16 + 2 * RING * 8;
-}
-
-// a 16-byte load through the non-coherent path; NA: not kept in L1
-template <bool NA>
-__device__ __forceinline__ float4 load_slot(const float4* p) {
-  if (!NA) return __ldg(p);
-  float4 v;
-  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-      : "l"(p));
-  return v;
-}
+constexpr int PER_SM = 8;    // CTAs an SM holds at 32 registers a thread
+constexpr int ROUND = 16;    // slots' loads issued before their adds
 
 __device__ __forceinline__ void add4(float4& s, const float4& v) {
   s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
 }
 
-// CTA b of g: items [beg, beg + len) of n
-__device__ __forceinline__ void cta_range(long long n, long long& beg,
-                                          int& len) {
-  beg = n * blockIdx.x / gridDim.x;
-  len = (int)(n * (blockIdx.x + 1) / gridDim.x - beg);
-}
-
-// (a): thread t < stride of the CTA adds items beg + t + j stride, each
-// column's slots in order, R loads issued a round before their R adds
-template <int NT, int R, int MIN_CTAS, bool NA>
-__global__ void __launch_bounds__(NT, MIN_CTAS)
-    regs_kernel(const float4* __restrict__ in, float4* __restrict__ out,
-                long long n, int slots) {
-  long long beg;
-  int len;
-  cta_range(n, beg, len);
-  const int passes = (len + NT - 1) / NT;
-  if (passes == 0) return;
-  const int stride = (len + passes - 1) / passes;
-  if ((int)threadIdx.x >= stride) return;
-  for (long long i = beg + threadIdx.x; i < beg + len; i += stride) {
-    const float4* src = in + i;
+// Thread g = blockIdx.x THREADS + threadIdx.x adds columns g, g + stride,
+// ... below n, each over its slots in order, R loads a round.
+template <int R>
+__global__ void __launch_bounds__(THREADS, PER_SM)
+    ordered_sum_kernel(const float4* __restrict__ in,
+                       float4* __restrict__ out, long long n, int slots,
+                       long long stride) {
+  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (g >= stride) return;
+  for (long long i = g; i < n; i += stride) {
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
     int k = 0;
     for (; k + R <= slots; k += R) {
       float4 v[R];
 #pragma unroll
-      for (int u = 0; u < R; ++u) v[u] = load_slot<NA>(src + (k + u) * n);
+      for (int u = 0; u < R; ++u)
+        v[u] = __ldg(in + (size_t)(k + u) * n + i);
 #pragma unroll
       for (int u = 0; u < R; ++u) add4(s, v[u]);
     }
-    for (; k < slots; ++k) add4(s, load_slot<NA>(src + k * n));
+    for (; k < slots; ++k) add4(s, __ldg(in + (size_t)k * n + i));
     out[i] = s;
   }
 }
 
-// (b): the CTA's range in chunks of at most B_CHUNK items, dealt evenly
-// (chunks q = ceil(len / B_CHUNK), each ceil(len / q) items); stage f is
-// slot f % S of chunk f / S. The producer thread copies each stage's
-// bytes into ring slot f % B_RING once the consumer warps have freed it;
-// consumer thread t adds items t + v 32 B_WARPS (v < B_VEC) of the chunk.
-template <int WARPS, int VEC, int RING, int MIN_CTAS>
-__global__ void __launch_bounds__(32 * (WARPS + 1), MIN_CTAS)
-    bulk_kernel(const float4* __restrict__ in, float4* __restrict__ out,
-                long long n, int slots) {
-  constexpr int B_WARPS = WARPS, B_VEC = VEC, B_RING = RING;
-  constexpr int B_CHUNK = 32 * WARPS * VEC;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float4* ring = reinterpret_cast<float4*>(smem);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + B_RING * B_CHUNK);
-  uint64_t* empty = full + B_RING;
-  long long beg;
-  int len;
-  cta_range(n, beg, len);
-  if (len <= 0) return;
-  const int chunks = (len + B_CHUNK - 1) / B_CHUNK;
-  const int cs = (len + chunks - 1) / chunks;
-  const int stages = chunks * slots;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < B_RING; ++i) {
-      trunk::mbar_init(&full[i], 1);
-      trunk::mbar_init(&empty[i], B_WARPS);
-    }
-    trunk::mbar_fence_init();
-  }
-  __syncthreads();
-  if (warp == B_WARPS) {                 // the producer
-    if (lane == 0) {
-      int c0 = 0, k = 0;
-      for (int f = 0; f < stages; ++f) {
-        const int s = f % B_RING;
-        if (f >= B_RING) trunk::mbar_wait(&empty[s], ((f / B_RING) - 1) & 1);
-        const int m = min(cs, len - c0);
-        trunk::mbar_expect_tx(&full[s], (uint32_t)m * 16);
-        trunk::bulk_load(ring + s * B_CHUNK, in + (long long)k * n + beg + c0,
-                         (uint32_t)m * 16, &full[s]);
-        if (++k == slots) {
-          k = 0;
-          c0 += cs;
-        }
-      }
-    }
-    return;
-  }
-  const int t = threadIdx.x;
-  float4 acc[B_VEC];
-#pragma unroll
-  for (int v = 0; v < B_VEC; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-  int c0 = 0, k = 0;
-  for (int f = 0; f < stages; ++f) {
-    const int s = f % B_RING;
-    trunk::mbar_wait(&full[s], (f / B_RING) & 1);
-    const int m = min(cs, len - c0);
-#pragma unroll
-    for (int v = 0; v < B_VEC; ++v) {
-      const int i = t + v * 32 * B_WARPS;
-      if (i < m) add4(acc[v], ring[s * B_CHUNK + i]);
-    }
-    __syncwarp();
-    if (lane == 0) trunk::mbar_arrive(&empty[s]);
-    if (++k == slots) {
-#pragma unroll
-      for (int v = 0; v < B_VEC; ++v) {
-        const int i = t + v * 32 * B_WARPS;
-        if (i < m) out[beg + c0 + i] = acc[v];
-        acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      k = 0;
-      c0 += cs;
-    }
-  }
-}
-
-// Launches the engine on `grid` CTAs (the wrapper's SMs x PER_SM of the
-// variant) on `stream`: out = the slots of in summed in order.
+// Launches the engine on `grid` CTAs with the wrapper's column stride on
+// `stream`: out = the slots of in summed in order.
 inline cudaError_t launch(const void* in, void* out, long long total,
-                          int slots, int grid, int variant,
+                          int slots, int grid, long long stride,
                           cudaStream_t stream) {
   if (total <= 0) return cudaSuccess;
-  if (slots < 1 || grid < 1 || total % 4 ||
+  const long long n = total / 4;
+  if (slots < 1 || grid < 1 || total % 4 || stride < 1 || stride > n ||
+      (long long)grid * THREADS < stride ||
       reinterpret_cast<uintptr_t>(in) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 16)
     return cudaErrorInvalidValue;
-  const float4* src = static_cast<const float4*>(in);
-  float4* dst = static_cast<float4*>(out);
-  if (variant == REGS) {
-    regs_kernel<THREADS, ROUND, PER_SM, false>
-        <<<grid, THREADS, 0, stream>>>(src, dst, total / 4, slots);
-  } else if (variant == BULK) {
-    constexpr size_t smem = bulk_smem<B_WARPS, B_VEC, B_RING>();
-    auto kernel = bulk_kernel<B_WARPS, B_VEC, B_RING, B_PER_SM>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, 32 * (B_WARPS + 1), smem, stream>>>(src, dst, total / 4,
-                                                       slots);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  ordered_sum_kernel<ROUND><<<grid, THREADS, 0, stream>>>(
+      static_cast<const float4*>(in), static_cast<float4*>(out), n, slots,
+      stride);
   return cudaGetLastError();
 }
 

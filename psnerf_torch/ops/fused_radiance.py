@@ -33,9 +33,9 @@ Both come in the two operand forms of the TPU kernels:
 
 Both fixed-order sums (`slot_sum`, the f32 `reduce`) run on one engine,
 csrc/slot_reduce.cuh: out[i] = ((0 + s_0[i]) + s_1[i]) + ... over the
-slots in order, on a persistent grid of SMs x `SLOT_REDUCE_PER_SM` CTAs
-(`slot_reduce_grid`) that split the float4 items into equal contiguous
-ranges (`slot_reduce_items` mirrors the split). The f32 slot is laid out
+slots in order, one float4 column a thread in one resident wave where the
+card holds the threads, the columns dealt evenly past that
+(`slot_reduce_plan`; `slot_reduce_items` mirrors it). The f32 slot is laid out
 leaf after leaf (`f32_slot_layout`), so its sum holds every gradient as a
 view and the reduce is the same flat launch as the slot sum. The f32
 backward builds each launch's ctypes arguments once (`build.Launch`).
@@ -82,13 +82,10 @@ CHUNK = 65536        # points per backward sweep of the f32 form
 BF16_TILE = 64       # points per tile of the bf16 kernels
 _lib_handle = []
 _lib_f32_handle = []
-# the slot reduction engine (csrc/slot_reduce.cuh): variant -> (its id in
-# the C entries, CTAs per SM at most: the kernel's __launch_bounds__
-# minimum, so they are resident at once, and the float4 items a CTA takes
-# at most in one pass: threads (regs) or one stage (bulk)), and the variant
-# launched
-SLOT_REDUCE_PER_SM = {"regs": (0, 8, 256), "bulk": (1, 1, 2048)}
-SLOT_REDUCE_VARIANT = "regs"
+# the slot reduction engine (csrc/slot_reduce.cuh): threads a CTA, and the
+# CTAs an SM holds at once (its __launch_bounds__ minimum)
+SLOT_REDUCE_THREADS = 256
+SLOT_REDUCE_PER_SM = 8
 
 
 def supports(cfg) -> bool:
@@ -547,43 +544,30 @@ def f32_slot_layout(w: int, ke: int, kv: int, nt: int) -> tuple:
     return {k: out[k] for k in PACK_ORDER}, at
 
 
-def slot_reduce_grid(n: int, sms: int,
-                     variant: str = SLOT_REDUCE_VARIANT) -> int:
-    """The engine's grid for n float4 items on `sms` SMs: a whole number of
-    CTAs on every SM, as few as take every item in one pass (one column a
-    thread) and at most the CTAs an SM holds at once."""
-    _, most, unit = SLOT_REDUCE_PER_SM[variant]
-    return sms * max(1, min(most, -(-n // (sms * unit))))
+def slot_reduce_plan(n: int, sms: int) -> tuple:
+    """The engine's launch for n float4 columns on `sms` SMs: (grid, stride).
+    One CTA per SLOT_REDUCE_THREADS columns, at most the CTAs the card
+    holds at once; past that, the columns dealt evenly: p = ceil(n /
+    threads) passes, and thread g < stride = ceil(n / p) adds columns g,
+    g + stride, ... below n."""
+    grid = max(1, min(-(-n // SLOT_REDUCE_THREADS), sms * SLOT_REDUCE_PER_SM))
+    passes = -(-n // (grid * SLOT_REDUCE_THREADS))
+    return grid, -(-n // max(passes, 1))
 
 
-def _reduce_ints(total: int, slots: int, dev,
-                 variant: str = SLOT_REDUCE_VARIANT) -> list:
-    """The engine's C ints: floats per slot, slots, grid, variant id."""
-    return [total, slots, slot_reduce_grid(total // 4, _slots(dev), variant),
-            SLOT_REDUCE_PER_SM[variant][0]]
+def slot_reduce_items(n: int, grid: int, stride: int) -> torch.Tensor:
+    """The columns each thread of the engine adds (the CPU tests' mirror of
+    csrc/slot_reduce.cuh): [passes, grid x threads], thread g's column in
+    pass j at [j, g], -1 for none."""
+    passes = -(-n // stride)
+    g = torch.arange(grid * SLOT_REDUCE_THREADS)
+    idx = g[None, :] + stride * torch.arange(passes)[:, None]
+    return torch.where((idx < n) & (g[None, :] < stride), idx, -1)
 
 
-def slot_reduce_items(n: int, grid: int,
-                      variant: str = SLOT_REDUCE_VARIANT) -> list:
-    """The engine's work split (csrc/slot_reduce.cuh) of n float4 items
-    (one column of 4 floats over all slots each) over `grid` CTAs, for the
-    CPU tests: per CTA, a table of item indices (-1: none). CTA b owns
-    [b n // grid, (b + 1) n // grid). regs: [passes, threads]; with p =
-    ceil(len / THREADS) passes and stride ceil(len / p), thread t < stride
-    adds beg + t + j stride (j < p, below the end). bulk: [stages, items];
-    the range goes in q = ceil(len / CHUNK) chunks of ceil(len / q) items,
-    each copied slot by slot as one stage."""
-    unit = SLOT_REDUCE_PER_SM[variant][2]
-    out = []
-    for b in range(grid):
-        beg, end = n * b // grid, n * (b + 1) // grid
-        ln = end - beg
-        rows = -(-ln // unit)
-        cols = -(-ln // rows) if rows else 0
-        idx = (beg + torch.arange(cols)[None, :]
-               + cols * torch.arange(rows)[:, None])
-        out.append(torch.where(idx < end, idx, -1))
-    return out
+def _reduce_ints(total: int, slots: int, dev) -> list:
+    """The engine's C ints: floats per slot, slots, grid, column stride."""
+    return [total, slots, *slot_reduce_plan(total // 4, _slots(dev))]
 
 
 def _dims(packed: dict, skip_pos: int) -> tuple:
@@ -663,8 +647,7 @@ def slot_sum_plain(slots: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def slot_sum(slots: torch.Tensor,
-             variant: str = SLOT_REDUCE_VARIANT) -> torch.Tensor:
+def slot_sum(slots: torch.Tensor) -> torch.Tensor:
     """The bf16 backward's gradients from its CTA slots [S, total] f32:
     out[i] = sum over s = 0, 1, ... of slots[s, i], added in that order,
     the same bits on every run. CPU tensors take slot_sum_plain; CUDA
@@ -685,7 +668,7 @@ def slot_sum(slots: torch.Tensor,
     out = torch.empty((total,), dtype=torch.float32, device=dev)
     lib = _lib()
     Launch(lib.psnerf_radiance_slot_sum, lib.psnerf_cuda_error_string, dev,
-           [slots, out], _reduce_ints(total, n_slots, dev, variant),
+           [slots, out], _reduce_ints(total, n_slots, dev),
            "fused_radiance slot sum")()
     slot_sum.launches += 1
     return out
@@ -866,14 +849,9 @@ class F32Backward:
                 "wgrad", dev, [self.ws, self.partial],
                 [round_up(nc, 64), self.ld, w, ke, kv, nt, skip_pos,
                  self.splits, c * self.splits]))
-        self._reduces = {SLOT_REDUCE_VARIANT: self._reduce_call(
-            SLOT_REDUCE_VARIANT)}
-
-    def _reduce_call(self, variant):
-        return _f32_call("reduce", self.dev, [self.partial, self.sum],
-                         _reduce_ints(self.slot_floats,
-                                      self.partial.shape[0], self.dev,
-                                      variant))
+        self._reduce = _f32_call(
+            "reduce", dev, [self.partial, self.sum],
+            _reduce_ints(self.slot_floats, self.partial.shape[0], dev))
 
     def workspace_bytes(self) -> int:
         return self.ws.numel() * 4 + self.partial.numel() * 4
@@ -891,10 +869,8 @@ class F32Backward:
     def wgrad(self, c):
         self._wgrads[c]()
 
-    def reduce(self, variant: str = SLOT_REDUCE_VARIANT) -> dict:
-        if variant not in self._reduces:
-            self._reduces[variant] = self._reduce_call(variant)
-        self._reduces[variant]()
+    def reduce(self) -> dict:
+        self._reduce()
         return self.grads
 
     def workspace(self, c: int = 0) -> dict:

@@ -402,21 +402,20 @@ def test_fused_radiance_bf16_backward_is_deterministic(width, layers, n):
 # backward's slot at widths 256 and 128, and float4 counts that the grid's
 # CTAs do not divide evenly: fewer items than CTAs (3), a few per CTA
 # (1,001), and more than the bf16 slot (400,009)
-@pytest.mark.parametrize("variant", ["regs", "bulk"])
 @pytest.mark.parametrize("total", [825092, 149892, 12, 4 * 1001,
                                    4 * 400009])
 @pytest.mark.parametrize("slots", [1, 8, 27, 132, 133])
-def test_slot_sum_kernel_matches_plain(slots, total, variant):
+def test_slot_sum_kernel_matches_plain(slots, total):
     """The slot reduction engine adds the slots in order from zero, as the
-    plain version does: the same bits, on each design. A slot length that
-    is not a multiple of 4 floats is refused (16-byte loads)."""
+    plain version does: the same bits. A slot length that is not a
+    multiple of 4 floats is refused (16-byte loads)."""
     _need_gpu()
     from psnerf_torch.ops import fused_radiance as fr
 
     x = torch.as_tensor(np.random.default_rng(7).normal(
         size=(slots, total)).astype(np.float32), device="cuda")
     before = fr.slot_sum.launches
-    got = fr.slot_sum(x, variant)
+    got = fr.slot_sum(x)
     torch.cuda.synchronize()
     assert fr.slot_sum.launches == before + 1
     assert torch.equal(got, fr.slot_sum_plain(x))
@@ -424,12 +423,11 @@ def test_slot_sum_kernel_matches_plain(slots, total, variant):
         fr.slot_sum(x[:, :-1].contiguous())
 
 
-@pytest.mark.parametrize("variant", ["regs", "bulk"])
 @pytest.mark.parametrize("width,layers,n", [(256, 8, 70000), (128, 4, 9000)])
-def test_f32_reduce_matches_plain(width, layers, n, variant):
+def test_f32_reduce_matches_plain(width, layers, n):
     """The f32 backward's reduce adds its split-K slots in order from zero,
-    as the slots summed one by one do: the same bits, on each design; each
-    gradient is its own contiguous view of that sum."""
+    as the slots summed one by one do: the same bits; each gradient is its
+    own contiguous view of that sum."""
     _need_gpu()
     from psnerf_torch.ops import fused_radiance as fr
 
@@ -447,7 +445,7 @@ def test_f32_reduce_matches_plain(width, layers, n, variant):
         b.sweep(c)
         b.wgrad(c)
     before = fr.f32_launches["reduce"]
-    grads = b.reduce(variant)
+    grads = b.reduce()
     torch.cuda.synchronize()
     assert fr.f32_launches["reduce"] == before + 1
     assert torch.equal(b.sum, fr.slot_sum_plain(b.partial))

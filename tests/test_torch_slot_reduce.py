@@ -1,6 +1,7 @@
 """What the wrappers of the slot reduction engine (csrc/slot_reduce.cuh)
-decide on the host, on the CPU: the work split of its persistent grid
-(`slot_reduce_items`, the kernel's partition mirrored), the f32 backward's
+decide on the host, on the CPU: its launch plan (`slot_reduce_plan`: the
+grid and the column stride, with `slot_reduce_items`, the kernel's split
+mirrored), the f32 backward's
 weight-gradient slot layout (`f32_slot_layout`, the library's `wplan`
 mirrored), and the f32 backward's launches, whose ctypes arguments are
 built once (`build.Launch`). The engine itself runs on the card
@@ -16,58 +17,43 @@ import torch
 from psnerf_torch.ops import build
 from psnerf_torch.ops import fused_radiance as fr
 
-VARIANTS = sorted(fr.SLOT_REDUCE_PER_SM)
+CAPACITY = 132 * fr.SLOT_REDUCE_PER_SM * fr.SLOT_REDUCE_THREADS
 
 
-# the bf16 slot at widths 256 and 128 (825,092 and 149,892 floats), the f32
-# slot at width 256, each over the grid the wrapper gives on an H100 (132
-# SMs) and over the most CTAs an SM holds; a range of one CTA and one item
-# over; fewer items than CTAs; one CTA
-@pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("n,sms,full", [
-    (206273, 132, False), (206273, 132, True), (37473, 132, False),
-    (206274, 132, False), (257, 1, True), (1, 132, False), (5000, 3, True),
-    (900000, 132, False)])
-def test_partition_covers_every_item_once(variant, n, sms, full):
-    """Every float4 item is added exactly once, the CTAs' ranges are
-    contiguous and differ by at most one item, and the work is dealt
-    evenly: over the threads of the grid to one item (regs: a thread adds
-    a column of its CTA's table), over its stages to one item a stage
-    (bulk: a stage copies a row). The wrapper's grid is a whole number of
-    CTAs on every SM."""
-    grid = (sms * fr.SLOT_REDUCE_PER_SM[variant][1] if full
-            else fr.slot_reduce_grid(n, sms, variant))
-    assert grid % sms == 0
-    assert grid <= sms * fr.SLOT_REDUCE_PER_SM[variant][1]
-    tables = fr.slot_reduce_items(n, grid, variant)
-    assert len(tables) == grid
-    got = torch.cat([t.flatten() for t in tables])
-    got = got[got >= 0]
+# the bf16 slot at widths 256 and 128 (825,092 and 149,892 floats) and the
+# f32 slot at width 256 on an H100 (132 SMs); one item; past one resident
+# wave (270,336 columns), by one column and by far; one SM
+@pytest.mark.parametrize("n,sms", [(206273, 132), (37473, 132),
+                                   (206274, 132), (1, 132),
+                                   (CAPACITY + 1, 132), (900001, 132),
+                                   (5000, 1)])
+def test_plan_covers_every_column_once(n, sms):
+    """The engine's launch plan: every float4 column added exactly once,
+    the grid at most the CTAs the card holds at once, and every busy
+    thread adds the same number of columns, to one."""
+    grid, stride = fr.slot_reduce_plan(n, sms)
+    assert 1 <= grid <= sms * fr.SLOT_REDUCE_PER_SM
+    assert stride <= grid * fr.SLOT_REDUCE_THREADS
+    table = fr.slot_reduce_items(n, grid, stride)
+    got = table[table >= 0]
     assert torch.equal(got.sort().values, torch.arange(n))
-    sizes = [int((t >= 0).sum()) for t in tables]
-    assert max(sizes) - min(sizes) <= 1
-    beg = 0
-    for t, size in zip(tables, sizes):
-        items = t[t >= 0]
-        if size:
-            assert items.min() == beg and items.max() == beg + size - 1
-        beg += size
-    axis = 0 if variant == "regs" else 1
-    per_worker = torch.cat([(t >= 0).sum(axis) for t in tables])
-    busy = per_worker[per_worker > 0]
-    # a stage is ceil(len / stages) items, the last up to a few fewer
-    spread = 1 if variant == "regs" else max(t.shape[0] for t in tables)
-    assert busy.max() - busy.min() <= spread
+    per_thread = (table >= 0).sum(0)
+    busy = per_thread[per_thread > 0]
+    assert busy.max() - busy.min() <= 1
+    assert (per_thread > 0).sum() == stride
 
 
-def test_grid_takes_the_bf16_slots_in_one_pass():
-    """At the bf16 slot sum's size (206,273 float4 items) the wrapper's
-    grid on an H100 is 7 CTAs on every SM, and each thread adds one
-    column: no thread takes a second one while others idle."""
-    grid = fr.slot_reduce_grid(206273, 132, "regs")
-    assert grid == 7 * 132
-    for t in fr.slot_reduce_items(206273, grid, "regs"):
-        assert t.shape[0] == 1 and (t >= 0).all()
+def test_plan_takes_the_slots_in_one_wave():
+    """Up to the card's resident threads, each column gets its own thread
+    in one pass: at the bf16 slot sum's 206,273 columns on an H100, 806
+    CTAs (6.1 an SM, at most 8 resident); past the resident threads, each
+    thread takes two columns, none takes a third."""
+    grid, stride = fr.slot_reduce_plan(206273, 132)
+    assert (grid, stride) == (806, 206273)
+    assert fr.slot_reduce_items(206273, grid, stride).shape[0] == 1
+    grid, stride = fr.slot_reduce_plan(CAPACITY + 1, 132)
+    assert grid == 132 * fr.SLOT_REDUCE_PER_SM
+    assert fr.slot_reduce_items(CAPACITY + 1, grid, stride).shape[0] == 2
 
 
 @pytest.mark.parametrize("w,ke,kv,nt", [(256, 48, 32, 7), (128, 48, 32, 3),
@@ -145,12 +131,10 @@ def test_f32_backward_builds_each_launch_once(monkeypatch):
     b = _f32_backward(monkeypatch, 200, calls)
     assert calls == []                      # nothing launched yet
     ptr = lambda ts: [x.data_ptr() for x in ts]
-    reduce = b._reduces[fr.SLOT_REDUCE_VARIANT].launch
+    reduce = b._reduce.launch
     assert list(reduce.ptrs) == ptr([b.partial, b.sum])
-    grid = fr.slot_reduce_grid(b.slot_floats // 4, 4)
-    assert list(reduce.ints) == [b.slot_floats, b.n_chunks * b.splits, grid,
-                                 fr.SLOT_REDUCE_PER_SM[
-                                     fr.SLOT_REDUCE_VARIANT][0]]
+    assert list(reduce.ints) == [b.slot_floats, b.n_chunks * b.splits,
+                                 *fr.slot_reduce_plan(b.slot_floats // 4, 4)]
     grads = b.run()
     fr.reset_launches()
     names = [k for k, _, _ in calls]

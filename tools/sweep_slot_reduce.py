@@ -4,16 +4,13 @@ slot_reduce.cuh) on one card, at the shapes of its two callers:
 
     python3 tools/sweep_slot_reduce.py [--turns 2]
 
-It writes a source that includes the engine's header and instantiates
-several configurations of its register-streamed kernel (threads, loads a
-round, CTAs per SM, the L1::no_allocate hint; on the wrapper's grid, a
-whole number of CTAs per SM that takes every item in one pass, or one CTA
-per THREADS items) and of its bulk-copy ring
-(consumer warps, float4s per consumer, ring stages), beside PR 7's
-slot_sum_kernel (rounds_256x8: one column a thread, grid-strided over a
-grid of the CTAs the card holds, 8 loads a round) and that kernel with
-other threads and loads a round,
-builds it with nvcc into _chipcheck/sweep/, and times each on 132 random
+It writes a source that includes the engine's header and instantiates its
+kernel at several loads a round (on the wrapper's launch plan), beside
+PR 7's slot_sum_kernel (rounds_256x8: one column a thread, grid-strided
+over at most the CTAs the card holds, 8 loads a round) and that kernel at
+16 loads a round, and the bulk-copy ring (design (b), measured and not
+kept: consumer warps, float4s per consumer, ring stages), builds it with
+nvcc into _chipcheck/sweep/, and times each on 132 random
 slots of 825,092 floats (the bf16 backward's) and on 27 of 825,096 (the
 f32 backward's split-K slots at 196,608 points): device time as a CUDA
 graph of 20 launches, and 20 back-to-back launches between two events,
@@ -35,19 +32,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 from chip_smoke import cuda_ms, graph_ms  # noqa: E402
 
-# (name, kind, template arguments, grid: "resident" = SMs x occupancy,
-# "items" = one item per thread)
+# (name, kind, template arguments, grid: "plan" = the wrapper's
+# slot_reduce_plan, "pr7" = PR 7's min(one CTA per 256 columns, the CTAs the
+# card holds), "resident" = SMs x occupancy)
 CONFIGS = [
+    ("engine_r16", "engine", "16", "plan"),     # the engine as launched
+    ("engine_r8", "engine", "8", "plan"),
+    ("rounds_256x8", "rounds", "256, 8", "pr7"),        # PR 7's kernel
     ("rounds_256x16", "rounds", "256, 16", "pr7"),
-    ("regs_256x16_min8", "regs", "256, 16, 8, false", "whole"),
-    ("regs_256x16_min8_items", "regs", "256, 16, 8, false", "items"),
-    ("regs_256x8_min8", "regs", "256, 8, 8, false", "whole"),
-    ("regs_256x32_min8", "regs", "256, 32, 8, false", "whole"),
-    ("regs_256x16_min8_na", "regs", "256, 16, 8, true", "whole"),
-    ("regs_512x16_min4", "regs", "512, 16, 4, false", "whole"),
-    ("regs_128x16_min16", "regs", "128, 16, 16, false", "whole"),
     ("bulk_w8v8r6", "bulk", "8, 8, 6, 1", "resident"),
-    ("bulk_w8v8r7", "bulk", "8, 8, 7, 1", "resident"),
+    ("bulk_w8v4r8", "bulk", "8, 4, 8, 1", "resident"),
 ]
 
 # PR 7's slot_sum_kernel with its threads and loads a round as parameters:
@@ -82,9 +76,102 @@ __global__ void __launch_bounds__(NT)
 """
 
 
+# design (b), measured and not kept: a CTA's range of columns (CTA b of g:
+# [b n / g, (b + 1) n / g)) in stages of one slot's run of up to 32 WARPS
+# VEC columns, copied by one producer thread with cp.async.bulk into a ring
+# of RING stages under mbarriers; consumer warps add stage by stage
+BULK = r"""
+#include "trunk_wgmma.cuh"
+
+template <int WARPS, int VEC, int RING>
+constexpr size_t bulk_smem() {
+  return (size_t)RING * 32 * WARPS * VEC * 16 + 2 * RING * 8;
+}
+
+__device__ __forceinline__ void cta_range(long long n, long long& beg,
+                                          int& len) {
+  beg = n * blockIdx.x / gridDim.x;
+  len = (int)(n * (blockIdx.x + 1) / gridDim.x - beg);
+}
+
+template <int WARPS, int VEC, int RING, int MIN_CTAS>
+__global__ void __launch_bounds__(32 * (WARPS + 1), MIN_CTAS)
+    bulk_kernel(const float4* __restrict__ in, float4* __restrict__ out,
+                long long n, int slots) {
+  constexpr int B_WARPS = WARPS, B_VEC = VEC, B_RING = RING;
+  constexpr int B_CHUNK = 32 * WARPS * VEC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float4* ring = reinterpret_cast<float4*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + B_RING * B_CHUNK);
+  uint64_t* empty = full + B_RING;
+  long long beg;
+  int len;
+  cta_range(n, beg, len);
+  if (len <= 0) return;
+  const int chunks = (len + B_CHUNK - 1) / B_CHUNK;
+  const int cs = (len + chunks - 1) / chunks;
+  const int stages = chunks * slots;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < B_RING; ++i) {
+      trunk::mbar_init(&full[i], 1);
+      trunk::mbar_init(&empty[i], B_WARPS);
+    }
+    trunk::mbar_fence_init();
+  }
+  __syncthreads();
+  if (warp == B_WARPS) {                 // the producer
+    if (lane == 0) {
+      int c0 = 0, k = 0;
+      for (int f = 0; f < stages; ++f) {
+        const int s = f % B_RING;
+        if (f >= B_RING) trunk::mbar_wait(&empty[s], ((f / B_RING) - 1) & 1);
+        const int m = min(cs, len - c0);
+        trunk::mbar_expect_tx(&full[s], (uint32_t)m * 16);
+        trunk::bulk_load(ring + s * B_CHUNK, in + (long long)k * n + beg + c0,
+                         (uint32_t)m * 16, &full[s]);
+        if (++k == slots) {
+          k = 0;
+          c0 += cs;
+        }
+      }
+    }
+    return;
+  }
+  const int t = threadIdx.x;
+  float4 acc[B_VEC];
+#pragma unroll
+  for (int v = 0; v < B_VEC; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int c0 = 0, k = 0;
+  for (int f = 0; f < stages; ++f) {
+    const int s = f % B_RING;
+    trunk::mbar_wait(&full[s], (f / B_RING) & 1);
+    const int m = min(cs, len - c0);
+#pragma unroll
+    for (int v = 0; v < B_VEC; ++v) {
+      const int i = t + v * 32 * B_WARPS;
+      if (i < m) add4(acc[v], ring[s * B_CHUNK + i]);
+    }
+    __syncwarp();
+    if (lane == 0) trunk::mbar_arrive(&empty[s]);
+    if (++k == slots) {
+#pragma unroll
+      for (int v = 0; v < B_VEC; ++v) {
+        const int i = t + v * 32 * B_WARPS;
+        if (i < m) out[beg + c0 + i] = acc[v];
+        acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      k = 0;
+      c0 += cs;
+    }
+  }
+}
+"""
+
+
 def source():
     lines = ['#include "slot_reduce.cuh"', "using namespace slot_reduce;",
-             ROUNDS,
+             ROUNDS, BULK,
              "template <class K> int occ(K k, int threads, size_t smem) {",
              "  int b = 0;",
              "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, threads,"
@@ -93,7 +180,8 @@ def source():
              'extern "C" int sweep_info(int id, int* out) {',
              "  switch (id) {"]
     launch = ['extern "C" int sweep_launch(int id, const void* in, '
-              "void* out, long long n, int slots, int grid, void* stream) {",
+              "void* out, long long n, int slots, int grid, long long stride,"
+              " void* stream) {",
               "  const float4* src = static_cast<const float4*>(in);",
               "  float4* dst = static_cast<float4*>(out);",
               "  cudaStream_t s = static_cast<cudaStream_t>(stream);",
@@ -101,8 +189,8 @@ def source():
     for i, (name, kind, args, _) in enumerate(CONFIGS):
         if kind == "rounds":
             k, nt, smem = f"rounds_kernel<{args}>", args.split(",")[0], "0"
-        elif kind == "regs":
-            k, nt, smem = f"regs_kernel<{args}>", args.split(",")[0], "0"
+        elif kind == "engine":
+            k, nt, smem = f"ordered_sum_kernel<{args}>", "THREADS", "0"
         else:
             w, v, r, _m = [a.strip() for a in args.split(",")]
             k = f"bulk_kernel<{args}>"
@@ -114,8 +202,9 @@ def source():
                    f"(int){smem}); ")
         lines.append(f"    case {i}: {pre}out[0] = occ({k}, {nt}, {smem}); "
                      f"out[1] = {nt}; return 0;")
+        extra = ", stride" if kind == "engine" else ""
         launch.append(f"    case {i}: {pre}{k}<<<grid, {nt}, {smem}, s>>>"
-                      f"(src, dst, n, slots); break;")
+                      f"(src, dst, n, slots{extra}); break;")
     lines += ["  }", "  return 1;", "}"]
     launch += ["    default: return 1;", "  }",
                "  return (int)cudaGetLastError();", "}"]
@@ -146,14 +235,16 @@ def main():
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    from psnerf_torch.ops.fused_radiance import slot_sum_plain
+    from psnerf_torch.ops.fused_radiance import (slot_reduce_plan,
+                                                 slot_sum_plain)
 
     lib_path, regs = build(os.path.join(ROOT, "_chipcheck", "sweep"))
     lib = ctypes.CDLL(lib_path)
     lib.sweep_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.sweep_launch.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                  ctypes.c_void_p, ctypes.c_longlong,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                 ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_longlong, ctypes.c_void_p]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(json.dumps({"ptxas": regs}), flush=True)
     for name_shape, slots_n, total in (("bf16_slot_sum", 132, 825092),
@@ -168,19 +259,18 @@ def main():
             o = (ctypes.c_int * 2)()
             lib.sweep_info(i, o)
             per_sm, nt = o[0], o[1]
+            stride = 0
             if grid_kind == "pr7":
                 grid = min(-(-n // nt), per_sm * sms)
-            elif grid_kind == "items":
-                grid = -(-n // nt)
-            elif grid_kind == "whole":     # the wrapper's rule
-                grid = sms * max(1, min(per_sm, -(-n // (sms * nt))))
+            elif grid_kind == "plan":
+                grid, stride = slot_reduce_plan(n, sms)
             else:
                 grid = per_sm * sms
 
-            def fn(i=i, grid=grid):
+            def fn(i=i, grid=grid, stride=stride):
                 rc = lib.sweep_launch(
                     i, x.data_ptr(), out.data_ptr(), n, slots_n, grid,
-                    torch.cuda.current_stream().cuda_stream)
+                    stride, torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"launch {CONFIGS[i][0]}: {rc}")
             out.zero_()

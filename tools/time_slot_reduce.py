@@ -12,9 +12,8 @@ three ways in turns with torch.sum over the same slots, on one card:
 Each is timed by back-to-back CUDA events (20 launches), as a CUDA graph
 of 20 captured launches (device time only) and by the host clock over
 1,000 launches (host µs per launch), and held bit for bit against its
-plain version. Every design of the engine that the checkout has
-(`fr.SLOT_REDUCE_PER_SM`) is timed; a checkout without it times its one
-kernel. --root imports psnerf_torch from another checkout (e.g. the parent
+plain version (the f32 reduce where the checkout's gradients are views of
+one flat sum). --root imports psnerf_torch from another checkout (e.g. the parent
 commit unpacked by `git archive` into _chipcheck/), which builds its own
 kernels there, so two commits compare on one card: run parent, change,
 change, parent. Prints one JSON line, with the card's name and power
@@ -22,7 +21,6 @@ limit.
 """
 
 import argparse
-import inspect
 import json
 import os
 import subprocess
@@ -59,7 +57,6 @@ def main():
     from psnerf_torch.ops import fused_radiance as fr
 
     check = lambda ok, what: ok or sys.exit(f"check failed: {what}")
-    variants = list(getattr(fr, "SLOT_REDUCE_PER_SM", [None]))
     dev = "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"tag": args.tag, "root": os.path.abspath(args.root)}
@@ -74,14 +71,11 @@ def main():
     slots = torch.randn((132, total), generator=torch.Generator(dev)
                         .manual_seed(0), device=dev)
     want = fr.slot_sum_plain(slots)
-    fns = {}
-    for v in variants:
-        fns[f"kernel_{v}"] = (lambda v=v: fr.slot_sum(slots, v)) if v else \
-            (lambda: fr.slot_sum(slots))
-        got = fns[f"kernel_{v}"]()
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"slot sum {v} bitwise")
-    fns["torch_sum"] = lambda: torch.sum(slots, 0)
+    got = fr.slot_sum(slots)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "slot sum bitwise")
+    fns = {"kernel": lambda: fr.slot_sum(slots),
+           "torch_sum": lambda: torch.sum(slots, 0)}
     out["slot_sum"] = dict(three_ways(fns), slots=132, slot_floats=total,
                            zeros_ms=cuda_ms(lambda: torch.zeros(
                                (132, total), device=dev), 20))
@@ -106,16 +100,11 @@ def main():
         torch.cuda.synchronize()
         parts = b.partial.view(b.n_chunks * b.splits, -1)
         want = fr.slot_sum_plain(parts)
-        takes = "variant" in inspect.signature(b.reduce).parameters
-        fns = {}
-        for v in variants:
-            fns[f"kernel_{v}"] = (lambda v=v: b.reduce(v)) if takes else \
-                b.reduce
-            fns[f"kernel_{v}"]()
-            torch.cuda.synchronize()
-            if hasattr(b, "sum"):
-                check(torch.equal(b.sum, want), f"f32 reduce {v} bitwise")
-        fns["torch_sum"] = lambda: torch.sum(parts, 0)
+        b.reduce()
+        torch.cuda.synchronize()
+        if hasattr(b, "sum"):
+            check(torch.equal(b.sum, want), "f32 reduce bitwise")
+        fns = {"kernel": b.reduce, "torch_sum": lambda: torch.sum(parts, 0)}
         out["f32_reduce"] = dict(three_ways(fns), slots=parts.shape[0],
                                  slot_floats=parts.shape[1], n=n)
     out["card"] = subprocess.run(
