@@ -200,15 +200,16 @@ def in_turns(fns: dict, reps: dict, order, timer=cuda_ms):
     return {k: float(np.mean(v)) for k, v in got.items()}
 
 
-def time_slot_reduce(kernel, plain, library, want):
+def time_slot_reduce(kernel, plain, library):
     """A fixed-order slot reduction of the engine (csrc/slot_reduce.cuh):
-    `kernel` (a launch returning the sum) held bit for bit against `want`
-    (its plain version's sum), then timed three ways, in turns with
+    `kernel` (a launch returning the sum) held bit for bit against `plain`
+    (its plain version) on the same slots, then timed three ways, in turns
+    with
     `library` (torch.sum over the same slots): back-to-back CUDA events
     (cuda_ms, the kernel table's number; the plain version's too), device
     only (graph_ms) and host µs per launch (host_us over 1,000 launches).
     Returns {kernel, library, plain: {ms, device_ms, host_us}}."""
-    got = kernel()
+    got, want = kernel(), plain()
     torch.cuda.synchronize()
     check(torch.equal(got, want), "slot reduction against its plain "
           f"version: {(got - want).abs().max().item()}")
@@ -1234,7 +1235,7 @@ def time_slot_sum(packed, skip):
     check(err == 0.0, f"slot sum against its plain version: {err}")
     t = time_slot_reduce(lambda: fr.slot_sum(slots),
                          lambda: fr.slot_sum_plain(slots),
-                         lambda: torch.sum(slots, 0), want)
+                         lambda: torch.sum(slots, 0))
     zeros_ms = cuda_ms(lambda: torch.zeros((grid, total), device=DEV), 20)
     b, by = bound_ms(grid * total, (grid + 1) * total * 4, PEAK_F32_FLOPS)
     row = reduction_row(
@@ -1475,9 +1476,10 @@ def time_f32_stages(packed, inputs, g_e, g_out, skip):
             ["split_plain", "split", "split", "split_plain",
              "sweep_plain", "sweep", "sweep", "sweep_plain",
              "wgrad_plain", "wgrad", "wgrad", "wgrad_plain"])
+        # (the wgrad turns above recomputed every chunk's slots from the
+        # last chunk's workspace: the check below takes them as they are)
         t_reduce = time_slot_reduce(lambda: (b.reduce(), b.sum)[1],
-                                    reduce_plain, lambda: torch.sum(slots, 0),
-                                    sum_want)
+                                    reduce_plain, lambda: torch.sum(slots, 0))
     del ws_kernel
     f_sweep, f_wgrad = f32_stage_flops(n, w, ke, kv, nt)
     ws_bytes = n * fr.ws_layout(w, ke, kv, nt)[1] * 4
