@@ -146,32 +146,6 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps):
-    """Device-only ms per call: `reps` calls captured in one CUDA graph,
-    replayed three times between two events (the mean), so no host time
-    sits between the launches."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / (3 * reps)
-
-
 def host_us(fn, reps, batch=100):
     """Host µs per call: the host clock over `reps` calls in batches of
     `batch`, with no synchronize between the calls of a batch (one between
@@ -200,15 +174,23 @@ def in_turns(fns: dict, reps: dict, order, timer=cuda_ms):
     return {k: float(np.mean(v)) for k, v in got.items()}
 
 
+def device_ms(fn, reps):
+    """Device-only ms per call: the time of the device work that `reps`
+    back-to-back calls launch, summed by torch.profiler (profile_device),
+    without the gaps between launches."""
+    return profile_device(lambda: [fn() for _ in range(reps)])[
+        "device_busy_ms"] / reps
+
+
 def time_slot_reduce(kernel, plain, library):
     """A fixed-order slot reduction of the engine (csrc/slot_reduce.cuh):
     `kernel` (a launch returning the sum) held bit for bit against `plain`
     (its plain version) on the same slots, then timed three ways, in turns
-    with
-    `library` (torch.sum over the same slots): back-to-back CUDA events
-    (cuda_ms, the kernel table's number; the plain version's too), device
-    only (graph_ms) and host µs per launch (host_us over 1,000 launches).
-    Returns {kernel, library, plain: {ms, device_ms, host_us}}."""
+    with `library` (torch.sum over the same slots): back-to-back CUDA
+    events (cuda_ms, the kernel table's number; the plain version's too),
+    device only (device_ms) and host µs per launch (host_us over 1,000
+    launches). Returns {kernel, library, plain: {ms, device_ms,
+    host_us}}."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     check(torch.equal(got, want), "slot reduction against its plain "
@@ -218,7 +200,7 @@ def time_slot_reduce(kernel, plain, library):
     ev = in_turns(dict(fns, plain=plain),
                   {"kernel": 20, "library": 20, "plain": 3},
                   ["plain"] + order + ["plain"])
-    dev = in_turns(fns, dict.fromkeys(fns, 20), order, timer=graph_ms)
+    dev = in_turns(fns, dict.fromkeys(fns, 20), order, timer=device_ms)
     host = in_turns(fns, dict.fromkeys(fns, 1000), order, timer=host_us)
     out = {k: {"ms": ev[k], "device_ms": dev[k], "host_us": host[k]}
            for k in fns}

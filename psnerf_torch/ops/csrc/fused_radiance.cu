@@ -44,8 +44,9 @@
 // one address take effect in program order. The slot reduction engine
 // (slot_reduce.cuh, psnerf_radiance_slot_sum) then adds the slots in a
 // fixed order (slot 0, then 1, ...), as the TPU kernel adds its tiles over
-// a sequential grid. The slots (132 x 3.3 MB at W = 256) do not fit in L2, so each
-// tile's sums go to device memory and back: the cost of determinism here.
+// a sequential grid. The slots (132 x 3.3 MB at W = 256) do not fit in L2,
+// so each tile's sums go to device memory and back: the cost of
+// determinism here.
 //
 // Rounding points as in the TPU kernel at wdt = bf16: every product's
 // operands are bf16; accumulation, biases, softplus, sigmoid and the

@@ -24,14 +24,15 @@
 //     wrapper deals the columns evenly (`stride`, ops/fused_radiance.py
 //     `slot_reduce_plan`): thread g < stride adds g, g + stride, ..., so
 //     every busy thread adds the same count to one and none runs a short
-//     last pass alone. PR 7's kernel held 44 registers, 5 CTAs an SM, and
-//     left 37,000 threads a second column after the others had finished;
+//     last pass alone. The slot sum kernel this replaced held 44
+//     registers, so 5 CTAs an SM, and left 37,000 of the bf16 slots'
+//     206,273 columns to a second pass after the others had finished;
 //   * the whole grid walks the slots in step, so each slot row is read
 //     across its full width at about the same time;
 //   * ROUND slots' loads issued before their adds (ptxas keeps as many in
 //     flight as the 32 registers hold), then the remaining slots one by
-//     one. (A predicated last round in place of that loop spilled 328
-//     bytes a thread under the 32-register cap and ran 4x slower.)
+//     one. (A predicated last round in place of that loop spilled under
+//     the 32-register cap and ran several times slower.)
 // A register ring refilled as each slot is added, on a persistent grid of
 // a few CTAs per SM, and one producer thread's cp.async.bulk copies into a
 // shared-memory ring under mbarriers were both measured slower

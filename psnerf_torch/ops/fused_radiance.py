@@ -806,7 +806,6 @@ class F32Backward:
         w, ke, kv, nt = self.dims
         self.n, dev = em.shape[0], em.device
         _need_cuda(dev)
-        self.dev, self.packed, self.skip_pos = dev, packed, skip_pos
         self.ins = _point_operands(self.dims, self.n, dev, em=em, de=de,
                                    vpe=vpe, p3=p3)
         self.grad_ins = _point_operands(self.dims, self.n, dev, g_e=g_e,

@@ -5,18 +5,18 @@ slot_reduce.cuh) on one card, at the shapes of its two callers:
     python3 tools/sweep_slot_reduce.py [--turns 2]
 
 It writes a source that includes the engine's header and instantiates its
-kernel at several loads a round (on the wrapper's launch plan), beside
-PR 7's slot_sum_kernel (rounds_256x8: one column a thread, grid-strided
-over at most the CTAs the card holds, 8 loads a round) and that kernel at
-16 loads a round, and the bulk-copy ring (design (b), measured and not
-kept: consumer warps, float4s per consumer, ring stages), builds it with
-nvcc into _chipcheck/sweep/, and times each on 132 random
-slots of 825,092 floats (the bf16 backward's) and on 27 of 825,096 (the
-f32 backward's split-K slots at 196,608 points): device time as a CUDA
-graph of 20 launches, and 20 back-to-back launches between two events,
-in turns (the list forward, then backward). Each result is held bit for
-bit against the slots added one by one. Prints one JSON line per shape,
-then the card's name and power limit.
+kernel at several loads a round (on the wrapper's launch plan), beside the
+slot sum kernel the engine replaced (rounds_256x8: one column a thread,
+grid-strided over at most the CTAs the card holds, 8 loads a round), that
+kernel at 16 loads a round, and the bulk-copy ring (design (b), measured
+and not kept: consumer warps, float4s per consumer, ring stages). It
+builds the source with nvcc into _chipcheck/sweep/ and times each on 132
+random slots of 825,092 floats (the bf16 backward's) and on 27 of 825,096
+(the f32 backward's split-K slots at 196,608 points): device time as a
+CUDA graph of 20 launches, and 20 back-to-back launches between two
+events, in turns (the list forward, then backward). Each result is held
+bit for bit against the slots added one by one. Prints one JSON line per
+shape, then the card's name and power limit.
 """
 
 import argparse
@@ -30,21 +30,48 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import cuda_ms, graph_ms  # noqa: E402
+from chip_smoke import cuda_ms  # noqa: E402
+
+
+def graph_ms(fn, reps):
+    """Device-only ms per call: `reps` calls captured in one CUDA graph,
+    replayed three times between two events (the mean), so no host time
+    sits between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
 
 # (name, kind, template arguments, grid: "plan" = the wrapper's
-# slot_reduce_plan, "pr7" = PR 7's min(one CTA per 256 columns, the CTAs the
-# card holds), "resident" = SMs x occupancy)
+# slot_reduce_plan, "capped" = the replaced kernel's min(one CTA per 256
+# columns, the CTAs the card holds), "resident" = SMs x occupancy)
 CONFIGS = [
     ("engine_r16", "engine", "16", "plan"),     # the engine as launched
     ("engine_r8", "engine", "8", "plan"),
-    ("rounds_256x8", "rounds", "256, 8", "pr7"),        # PR 7's kernel
-    ("rounds_256x16", "rounds", "256, 16", "pr7"),
+    ("rounds_256x8", "rounds", "256, 8", "capped"),   # the replaced kernel
+    ("rounds_256x16", "rounds", "256, 16", "capped"),
     ("bulk_w8v8r6", "bulk", "8, 8, 6, 1", "resident"),
     ("bulk_w8v4r8", "bulk", "8, 4, 8, 1", "resident"),
 ]
 
-# PR 7's slot_sum_kernel with its threads and loads a round as parameters:
+# the replaced slot_sum_kernel, its threads and loads a round parameters:
 # each thread adds one column (grid-strided), R slots' loads issued, then
 # their R adds
 ROUNDS = r"""
@@ -260,7 +287,7 @@ def main():
             lib.sweep_info(i, o)
             per_sm, nt = o[0], o[1]
             stride = 0
-            if grid_kind == "pr7":
+            if grid_kind == "capped":
                 grid = min(-(-n // nt), per_sm * sms)
             elif grid_kind == "plan":
                 grid, stride = slot_reduce_plan(n, sms)

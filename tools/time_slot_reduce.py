@@ -9,15 +9,16 @@ three ways in turns with torch.sum over the same slots, on one card:
   * the f32 backward's reduce (`fr.F32Backward.reduce`) over the split-K
     slots of the default field at 2048 x 96 = 196,608 points (3 chunks).
 
-Each is timed by back-to-back CUDA events (20 launches), as a CUDA graph
-of 20 captured launches (device time only) and by the host clock over
+Each is timed by back-to-back CUDA events (20 launches), by the device
+time of 20 launches that torch.profiler sums (device only; up to commit
+110aa76 a CUDA graph of 20 captured launches), and by the host clock over
 1,000 launches (host µs per launch), and held bit for bit against its
-plain version (the f32 reduce where the checkout's gradients are views of
-one flat sum). --root imports psnerf_torch from another checkout (e.g. the parent
-commit unpacked by `git archive` into _chipcheck/), which builds its own
-kernels there, so two commits compare on one card: run parent, change,
-change, parent. Prints one JSON line, with the card's name and power
-limit.
+plain version (the f32 reduce where the checkout's gradients are views
+of one flat sum). --root imports psnerf_torch from another checkout (e.g.
+the parent commit unpacked by `git archive` into _chipcheck/), which
+builds its own kernels there, so two commits compare on one card: run
+parent, change, change, parent. Prints one JSON line, with the card's
+name and power limit.
 """
 
 import argparse
@@ -31,13 +32,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import cuda_ms, graph_ms, host_us, in_turns  # noqa: E402
+from chip_smoke import cuda_ms, device_ms, host_us, in_turns  # noqa: E402
 
 
 def three_ways(fns: dict) -> dict:
     order = list(fns) + list(fns)[::-1]
     ev = in_turns(fns, dict.fromkeys(fns, 20), order)
-    dev = in_turns(fns, dict.fromkeys(fns, 20), order, timer=graph_ms)
+    dev = in_turns(fns, dict.fromkeys(fns, 20), order, timer=device_ms)
     host = in_turns(fns, dict.fromkeys(fns, 1000), order, timer=host_us)
     return {k: {"ms": ev[k], "device_ms": dev[k], "host_us": host[k]}
             for k in fns}
