@@ -190,11 +190,12 @@ def time_slot_reduce(kernel, plain, library):
     events (cuda_ms, the kernel table's number; the plain version's too),
     device only (device_ms) and host µs per launch (host_us over 1,000
     launches). Returns {kernel, library, plain: {ms, device_ms,
-    host_us}}."""
+    host_us}, err: max |kernel - plain|}."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
     check(torch.equal(got, want), "slot reduction against its plain "
-          f"version: {(got - want).abs().max().item()}")
+          f"version: {err}")
     fns = {"kernel": kernel, "library": library}
     order = ["library", "kernel", "kernel", "library"]
     ev = in_turns(dict(fns, plain=plain),
@@ -205,13 +206,14 @@ def time_slot_reduce(kernel, plain, library):
     out = {k: {"ms": ev[k], "device_ms": dev[k], "host_us": host[k]}
            for k in fns}
     out["plain"] = {"ms": ev["plain"]}
+    out["err"] = err
     return out
 
 
-def reduction_row(t, err, bnd, by, **extra):
+def reduction_row(t, bnd, by, **extra):
     """The kernels-line row of a slot reduction timed by time_slot_reduce."""
     k, lib = t["kernel"], t["library"]
-    return dict(max_abs_err=err, ms=k["ms"], device_ms=k["device_ms"],
+    return dict(max_abs_err=t["err"], ms=k["ms"], device_ms=k["device_ms"],
                 host_us=k["host_us"], plain_ms=t["plain"]["ms"],
                 bound_ms=bnd, bound_by=by, library_ms=lib["ms"],
                 library_device_ms=lib["device_ms"],
@@ -1221,7 +1223,7 @@ def time_slot_sum(packed, skip):
     zeros_ms = cuda_ms(lambda: torch.zeros((grid, total), device=DEV), 20)
     b, by = bound_ms(grid * total, (grid + 1) * total * 4, PEAK_F32_FLOPS)
     row = reduction_row(
-        t, err, b, by, flops=grid * total, n=N_RAD, slots=grid,
+        t, b, by, flops=grid * total, n=N_RAD, slots=grid,
         slot_floats=total, zeros_ms=zeros_ms,
         library_max_abs_err=(torch.sum(slots, 0) - got).abs().max().item())
     log(json.dumps({"fused_radiance_slot_sum_ms": row}))
@@ -1360,6 +1362,7 @@ def phase_radiance_f32():
                                      g_out, skip)
             k3["stages_ms"] = {k: v["ms"] for k, v in stages.items()
                                if "ms" in v}
+            k3["host_us"] = stages["workspace"]["backward_host_us"]
         res[n] = (k2, k3)
         log(json.dumps({"fused_radiance_f32_ms": {"forward": k2,
                                                   "backward": k3}}))
@@ -1462,6 +1465,12 @@ def time_f32_stages(packed, inputs, g_e, g_out, skip):
         # last chunk's workspace: the check below takes them as they are)
         t_reduce = time_slot_reduce(lambda: (b.reduce(), b.sum)[1],
                                     reduce_plain, lambda: torch.sum(slots, 0))
+        # host µs of one backward as radiance_backward runs it: a new
+        # F32Backward (its buffers), then its launches
+        one_backward = lambda: fr.F32Backward(packed, em, de, vpe, p3, g_e,
+                                              g_out, skip).run()
+        one_backward()                 # the allocator keeps its buffers
+        backward_host_us = host_us(one_backward, 20, batch=1)
     del ws_kernel
     f_sweep, f_wgrad = f32_stage_flops(n, w, ke, kv, nt)
     ws_bytes = n * fr.ws_layout(w, ke, kv, nt)[1] * 4
@@ -1478,7 +1487,7 @@ def time_f32_stages(packed, inputs, g_e, g_out, skip):
                          bound_ms=bnd, bound_by=by, library_ms=None,
                          max_abs_err=err, flops=flops, n=n)
     bnd, by = bound_ms(0, slot_bytes + b.sum.numel() * 4, PEAK_TF32_FLOPS)
-    out["reduce"] = reduction_row(t_reduce, 0.0, bnd, by, flops=0, n=n,
+    out["reduce"] = reduction_row(t_reduce, bnd, by, flops=0, n=n,
                                   slots=b.partial.shape[0],
                                   slot_floats=b.slot_floats)
     for k in ("split", "sweep", "wgrad"):
@@ -1496,7 +1505,8 @@ def time_f32_stages(packed, inputs, g_e, g_out, skip):
     out["workspace"] = {"bytes": b.workspace_bytes(), "ws_bytes": ws_bytes,
                         "slot_bytes": slot_bytes, "chunk": fr.CHUNK,
                         "chunks": b.n_chunks, "splits": b.splits,
-                        "rows_per_point": fr.ws_layout(w, ke, kv, nt)[1]}
+                        "rows_per_point": fr.ws_layout(w, ke, kv, nt)[1],
+                        "backward_host_us": backward_host_us}
     log(json.dumps({"fused_radiance_f32_stages": out}))
     check(split_err == 0, "the prologue's split equals split_weights_plain")
     check(sweep_err < F32_GRAD_REL and wgrad_err < F32_GRAD_REL,

@@ -8,8 +8,8 @@ source, all at once, and waits for them; the builds use no PyTorch headers
 (seconds, not minutes), and a failed build raises with nvcc's output.
 
 It also holds what every kernel wrapper shares at the ctypes boundary:
-device routing, the operand checks made before each launch, a launch
-whose ctypes arguments are built once (`Launch`), and the k-step
+device routing, the operand checks made before each launch, the launch
+of an entry that takes (pointers, ints, stream) (`launch`), and the k-step
 slab layout in which the trunk kernels (csrc/trunk_wgmma.cuh) stream their
 weights.
 """
@@ -130,35 +130,22 @@ def unpack_slabs(slabs: torch.Tensor, width: int, depths) -> list:
     return out
 
 
-class Launch:
-    """One launch of a C entry `fn(ptrs, ints, stream)` with its arguments
-    built once: the tensors' device pointers and the ints as ctypes arrays
-    (it keeps the tensors alive). Each call launches on the current stream
-    of the tensors' device, entering that device only when it is not the
-    current one, and raises with `error(rc)`'s text if the entry returns
-    non-zero (a cudaError_t)."""
-
-    __slots__ = ("fn", "error", "what", "index", "tensors", "ptrs", "ints")
-
-    def __init__(self, fn, error, dev, tensors, ints, what: str):
-        self.fn, self.error, self.what = fn, error, what
-        self.index = dev.index
-        self.tensors = list(tensors)
-        self.ptrs = (ctypes.c_void_p * len(self.tensors))(
-            *[t.data_ptr() for t in self.tensors])
-        self.ints = (ctypes.c_int * len(ints))(*ints)
-
-    def __call__(self) -> None:
-        if torch.cuda.current_device() == self.index:
-            rc = self.fn(self.ptrs, self.ints,
-                         torch.cuda.current_stream(self.index).cuda_stream)
-        else:
-            with torch.cuda.device(self.index):
-                rc = self.fn(self.ptrs, self.ints,
-                             torch.cuda.current_stream(self.index).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.what} kernel launch failed: "
-                               + self.error(rc).decode())
+def launch(fn, error, dev, tensors, ints, what: str) -> None:
+    """Launch a C entry `fn(ptrs, ints, stream)` with the tensors' device
+    pointers and the ints on the current stream of `dev`, entering that
+    device only when it is not the current one; raises with `error(rc)`'s
+    text if the entry returns non-zero (a cudaError_t)."""
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    args = (ctypes.c_int * len(ints))(*ints)
+    if torch.cuda.current_device() == dev.index:
+        rc = fn(ptrs, args, torch.cuda.current_stream(dev.index).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(ptrs, args,
+                    torch.cuda.current_stream(dev.index).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + error(rc).decode())
 
 
 def route(t: torch.Tensor) -> str:

@@ -943,12 +943,11 @@ extern "C" int psnerf_radiance_bwd(void* const* ptrs, const int* ints,
 
 // The slots summed in fixed order by the engine (slot_reduce.cuh). ptrs:
 // in [slots, total], out [total] (f32, 16-byte aligned); ints: total (a
-// multiple of 4), slots, grid, column stride (ops/fused_radiance.py
-// `slot_reduce_plan`).
+// multiple of 4), slots.
 extern "C" int psnerf_radiance_slot_sum(void* const* ptrs, const int* ints,
                                         void* stream) {
-  return slot_reduce::launch(ptrs[0], ptrs[1], ints[0], ints[1], ints[2],
-                             ints[3], static_cast<cudaStream_t>(stream));
+  return slot_reduce::launch(ptrs[0], ptrs[1], ints[0], ints[1],
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* psnerf_cuda_error_string(int err) {

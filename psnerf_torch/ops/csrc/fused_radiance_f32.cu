@@ -1439,12 +1439,10 @@ extern "C" int psnerf_rf32_wgrad(void* const* ptrs, const int* ints,
 
 // The weight-gradient slots summed in fixed order by the engine
 // (slot_reduce.cuh) into the gradients' flat buffer. ptrs: the slots
-// [slots, slot_floats], the sum [slot_floats]. ints: slot_floats, slots,
-// grid, column stride (ops/fused_radiance.py `slot_reduce_plan`).
+// [slots, slot_floats], the sum [slot_floats]. ints: slot_floats, slots.
 extern "C" int psnerf_rf32_reduce(void* const* ptrs, const int* ints,
                                   void* stream) {
   return (int)slot_reduce::launch(ptrs[0], ptrs[1], ints[0], ints[1],
-                                  ints[2], ints[3],
                                   static_cast<cudaStream_t>(stream));
 }
 

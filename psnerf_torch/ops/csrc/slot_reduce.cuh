@@ -16,15 +16,13 @@
 // in, total x 4 out), and one add per 4 bytes read is nothing to the FP32
 // units. The work is float4 columns (an item: S 16-byte loads added in
 // slot order, one 16-byte store), and what keeps device memory busy to the
-// end, as measured on an H100 (tools/sweep_slot_reduce.py, PERF.md):
+// end, as measured on an H100 (PERF.md):
 //   * every column its own thread in one resident wave: THREADS threads a
 //     CTA at most 32 registers each, so PER_SM CTAs (64 warps) fit on an
 //     SM and 270,336 columns go in one pass on 132 SMs. The grid is one CTA
-//     per THREADS columns, at most the CTAs the card holds; past that the
-//     wrapper deals the columns evenly (`stride`, ops/fused_radiance.py
-//     `slot_reduce_plan`): thread g < stride adds g, g + stride, ..., so
-//     every busy thread adds the same count to one and none runs a short
-//     last pass alone. The slot sum kernel this replaced held 44
+//     per THREADS columns, at most the CTAs the card holds, striding over
+//     the columns past that (both callers' slots, at most 206,274 columns,
+//     fit one wave). The slot sum kernel this replaced held 44
 //     registers, so 5 CTAs an SM, and left 37,000 of the bf16 slots'
 //     206,273 columns to a second pass after the others had finished;
 //   * the whole grid walks the slots in step, so each slot row is read
@@ -35,8 +33,7 @@
 //     the 32-register cap and ran several times slower.)
 // A register ring refilled as each slot is added, on a persistent grid of
 // a few CTAs per SM, and one producer thread's cp.async.bulk copies into a
-// shared-memory ring under mbarriers were both measured slower
-// (tools/sweep_slot_reduce.py keeps the bulk-copy ring for comparison).
+// shared-memory ring under mbarriers were both measured slower (PERF.md).
 
 #pragma once
 
@@ -53,16 +50,14 @@ __device__ __forceinline__ void add4(float4& s, const float4& v) {
   s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
 }
 
-// Thread g = blockIdx.x THREADS + threadIdx.x adds columns g, g + stride,
-// ... below n, each over its slots in order, R loads a round.
+// Thread g = blockIdx.x THREADS + threadIdx.x adds columns g, g + gridDim.x
+// THREADS, ... below n, each over its slots in order, R loads a round.
 template <int R>
 __global__ void __launch_bounds__(THREADS, PER_SM)
     ordered_sum_kernel(const float4* __restrict__ in,
-                       float4* __restrict__ out, long long n, int slots,
-                       long long stride) {
-  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (g >= stride) return;
-  for (long long i = g; i < n; i += stride) {
+                       float4* __restrict__ out, long long n, int slots) {
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * THREADS) {
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
     int k = 0;
     for (; k + R <= slots; k += R) {
@@ -78,21 +73,25 @@ __global__ void __launch_bounds__(THREADS, PER_SM)
   }
 }
 
-// Launches the engine on `grid` CTAs with the wrapper's column stride on
-// `stream`: out = the slots of in summed in order.
+// Launches the engine on `stream`: out = the slots of in summed in order,
+// on one CTA per THREADS columns, at most the CTAs the current device
+// holds at once.
 inline cudaError_t launch(const void* in, void* out, long long total,
-                          int slots, int grid, long long stride,
-                          cudaStream_t stream) {
+                          int slots, cudaStream_t stream) {
   if (total <= 0) return cudaSuccess;
-  const long long n = total / 4;
-  if (slots < 1 || grid < 1 || total % 4 || stride < 1 || stride > n ||
-      (long long)grid * THREADS < stride ||
-      reinterpret_cast<uintptr_t>(in) % 16 ||
+  if (slots < 1 || total % 4 || reinterpret_cast<uintptr_t>(in) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 16)
     return cudaErrorInvalidValue;
-  ordered_sum_kernel<ROUND><<<grid, THREADS, 0, stream>>>(
-      static_cast<const float4*>(in), static_cast<float4*>(out), n, slots,
-      stride);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long n = total / 4;
+  long long grid = (n + THREADS - 1) / THREADS;
+  if (grid > (long long)sms * PER_SM) grid = (long long)sms * PER_SM;
+  ordered_sum_kernel<ROUND><<<(unsigned)grid, THREADS, 0, stream>>>(
+      static_cast<const float4*>(in), static_cast<float4*>(out), n, slots);
   return cudaGetLastError();
 }
 

@@ -30,8 +30,8 @@ import torch
 
 from psnerf_torch.core.encoding import nerf_embed
 from psnerf_torch.fields.mlp import wn_weight
-from psnerf_torch.ops.build import (check_operand, load_library, pack_slabs,
-                                    round_up, route)
+from psnerf_torch.ops.build import (check_operand, launch, load_library,
+                                    pack_slabs, round_up, route)
 
 KERNEL_WIDTHS = (128, 256)
 _lib_handle = []
@@ -162,16 +162,10 @@ def _launch(ops: dict, em: torch.Tensor, out: torch.Tensor) -> None:
             ("b0", f32, (w,)), ("trunk_b", f32, (nt, w)), ("w8", f32, (w,)),
             ("b8", f32, (1,)), ("out", f32, (n,))):
         check_operand(name, tensors[name], dtype, shape, dev)
-    ptrs = (ctypes.c_void_p * len(names))(
-        *[tensors[k].data_ptr() for k in names])
-    ints = (ctypes.c_int * 5)(n, w, ke, nt, ops["n_pre"])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        lib = _lib()
-        rc = lib.psnerf_fused_occ(ptrs, ints, stream)
-    if rc != 0:
-        raise RuntimeError("fused_occ kernel launch failed: "
-                           + lib.psnerf_cuda_error_string(rc).decode())
+    lib = _lib()
+    launch(lib.psnerf_fused_occ, lib.psnerf_cuda_error_string, dev,
+           [tensors[k] for k in names], [n, w, ke, nt, ops["n_pre"]],
+           "fused_occ")
 
 
 def _logit(ops: dict, p: torch.Tensor) -> torch.Tensor:

@@ -33,12 +33,9 @@ Both come in the two operand forms of the TPU kernels:
 
 Both fixed-order sums (`slot_sum`, the f32 `reduce`) run on one engine,
 csrc/slot_reduce.cuh: out[i] = ((0 + s_0[i]) + s_1[i]) + ... over the
-slots in order, one float4 column a thread in one resident wave where the
-card holds the threads, the columns dealt evenly past that
-(`slot_reduce_plan`; `slot_reduce_items` mirrors it). The f32 slot is laid out
+slots in order, one float4 column a thread. The f32 slot is laid out
 leaf after leaf (`f32_slot_layout`), so its sum holds every gradient as a
-view and the reduce is the same flat launch as the slot sum. The f32
-backward builds each launch's ctypes arguments once (`build.Launch`).
+view and the reduce is the same flat launch as the slot sum.
 
 Weight norm and the layout (skip row split, split geometry head,
 appearance input split into [p, view PE, normal, feat] rows) are folded
@@ -68,7 +65,7 @@ import torch
 
 from psnerf_torch.core.encoding import nerf_embed, nerf_embed_dim
 from psnerf_torch.fields.mlp import wn_weight
-from psnerf_torch.ops.build import (Launch, check_operand, load_library,
+from psnerf_torch.ops.build import (check_operand, launch, load_library,
                                     round_up, route)
 from psnerf_torch.ops.fused_occ import fold_geometry
 
@@ -82,10 +79,6 @@ CHUNK = 65536        # points per backward sweep of the f32 form
 BF16_TILE = 64       # points per tile of the bf16 kernels
 _lib_handle = []
 _lib_f32_handle = []
-# the slot reduction engine (csrc/slot_reduce.cuh): threads a CTA, and the
-# CTAs an SM holds at once (its __launch_bounds__ minimum)
-SLOT_REDUCE_THREADS = 256
-SLOT_REDUCE_PER_SM = 8
 
 
 def supports(cfg) -> bool:
@@ -544,32 +537,6 @@ def f32_slot_layout(w: int, ke: int, kv: int, nt: int) -> tuple:
     return {k: out[k] for k in PACK_ORDER}, at
 
 
-def slot_reduce_plan(n: int, sms: int) -> tuple:
-    """The engine's launch for n float4 columns on `sms` SMs: (grid, stride).
-    One CTA per SLOT_REDUCE_THREADS columns, at most the CTAs the card
-    holds at once; past that, the columns dealt evenly: p = ceil(n /
-    threads) passes, and thread g < stride = ceil(n / p) adds columns g,
-    g + stride, ... below n."""
-    grid = max(1, min(-(-n // SLOT_REDUCE_THREADS), sms * SLOT_REDUCE_PER_SM))
-    passes = -(-n // (grid * SLOT_REDUCE_THREADS))
-    return grid, -(-n // max(passes, 1))
-
-
-def slot_reduce_items(n: int, grid: int, stride: int) -> torch.Tensor:
-    """The columns each thread of the engine adds (the CPU tests' mirror of
-    csrc/slot_reduce.cuh): [passes, grid x threads], thread g's column in
-    pass j at [j, g], -1 for none."""
-    passes = -(-n // stride)
-    g = torch.arange(grid * SLOT_REDUCE_THREADS)
-    idx = g[None, :] + stride * torch.arange(passes)[:, None]
-    return torch.where((idx < n) & (g[None, :] < stride), idx, -1)
-
-
-def _reduce_ints(total: int, slots: int, dev) -> list:
-    """The engine's C ints: floats per slot, slots, grid, column stride."""
-    return [total, slots, *slot_reduce_plan(total // 4, _slots(dev))]
-
-
 def _dims(packed: dict, skip_pos: int) -> tuple:
     """(width, ke, kv, n_trunk) of the packed operands; raises for what the
     kernels do not take."""
@@ -615,18 +582,12 @@ def _launch(which: str, kw: dict, tensors: dict, names: list, n: int,
     for name in names:
         dt, shape = shapes[name]
         check_operand(name, tensors[name], dt, shape, dev)
-    scratch = _scratch(which, w, dev)
-    ptrs = (ctypes.c_void_p * (len(names) + 1))(
-        *[tensors[k].data_ptr() for k in names], scratch.data_ptr())
-    ints = (ctypes.c_int * 8)(n, w, ke, kv, nt, skip_pos, slots, slot_floats)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        lib = _lib()
-        rc = getattr(lib, f"psnerf_radiance_{which}")(ptrs, ints, stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_radiance {which} (bfloat16) kernel "
-                           "launch failed: "
-                           + lib.psnerf_cuda_error_string(rc).decode())
+    lib = _lib()
+    launch(getattr(lib, f"psnerf_radiance_{which}"),
+           lib.psnerf_cuda_error_string, dev,
+           [tensors[k] for k in names] + [_scratch(which, w, dev)],
+           [n, w, ke, kv, nt, skip_pos, slots, slot_floats],
+           f"fused_radiance {which} (bfloat16)")
 
 
 def _scratch(which: str, w: int, dev) -> torch.Tensor:
@@ -667,9 +628,8 @@ def slot_sum(slots: torch.Tensor) -> torch.Tensor:
                          f"{slots.data_ptr():#x}")
     out = torch.empty((total,), dtype=torch.float32, device=dev)
     lib = _lib()
-    Launch(lib.psnerf_radiance_slot_sum, lib.psnerf_cuda_error_string, dev,
-           [slots, out], _reduce_ints(total, n_slots, dev),
-           "fused_radiance slot sum")()
+    launch(lib.psnerf_radiance_slot_sum, lib.psnerf_cuda_error_string, dev,
+           [slots, out], [total, n_slots], "fused_radiance slot sum")
     slot_sum.launches += 1
     return out
 
@@ -685,21 +645,13 @@ _F32_VECTORS = ["b0", "trunk_b", "b8f", "w8l", "b8l", "wp", "wn", "ba0",
                 "bab", "ba4", "wa4"]
 
 
-def _f32_call(kernel: str, dev, tensors: list, ints: list):
-    """psnerf_rf32_<kernel> with the tensors' device pointers and the ints,
-    its ctypes arguments built once (`build.Launch`, kept as `.launch`):
-    a function that launches it on the current stream of `dev` and counts
-    it in f32_launches; it raises if the launch fails."""
+def _launch_f32(kernel: str, dev, tensors: list, ints: list) -> None:
+    """Launch psnerf_rf32_<kernel> on the current stream of `dev` with the
+    tensors' device pointers, and count it; raises if the launch fails."""
     lib = _lib_f32()
-    launch = Launch(getattr(lib, f"psnerf_rf32_{kernel}"),
-                    lib.psnerf_rf32_error_string, dev, tensors, ints,
-                    f"fused_radiance f32 {kernel}")
-
-    def run():
-        launch()
-        f32_launches[kernel] += 1
-    run.launch = launch
-    return run
+    launch(getattr(lib, f"psnerf_rf32_{kernel}"), lib.psnerf_rf32_error_string,
+           dev, tensors, ints, f"fused_radiance f32 {kernel}")
+    f32_launches[kernel] += 1
 
 
 def f32_sizes(w: int, ke: int, kv: int, nt: int) -> dict:
@@ -741,7 +693,7 @@ def split_weights(packed: dict, skip_pos: int) -> torch.Tensor:
     srcs = _f32_operands(packed, _F32_WEIGHTS, dims, dev)
     out = torch.empty((f32_sizes(*dims)["split_words"], 4), dtype=torch.int32,
                       device=dev)
-    _f32_call("split", dev, srcs + [out], list(dims))()
+    _launch_f32("split", dev, srcs + [out], list(dims))
     return out
 
 
@@ -776,8 +728,8 @@ def radiance_forward_f32(packed: dict, em, de, vpe, p3, skip_pos: int):
     g_e = torch.empty((n, ke), dtype=torch.float32, device=dev)
     scratch = torch.empty((slots * f32_sizes(*dims)["fwd_scratch"],),
                           dtype=torch.float32, device=dev)
-    _f32_call("fwd", dev, [*ins, frags, *vec, out, g_e, scratch],
-              [n, w, ke, kv, nt, skip_pos, slots])()
+    _launch_f32("fwd", dev, [*ins, frags, *vec, out, g_e, scratch],
+                [n, w, ke, kv, nt, skip_pos, slots])
     return out, g_e
 
 
@@ -796,16 +748,15 @@ class F32Backward:
     """The f32 form's backward, kernel by kernel, on one batch: `split()`
     (the prologue), then for each chunk c `sweep(c)` and `wgrad(c)`, then
     `reduce()` sums the split-K slots into `sum` and returns `grads`, its
-    views (`f32_slot_layout`). Allocates the split weights, the workspace
-    (ws_rows x round_up(min(N, CHUNK), 64) f32), the split-K slots, the
-    scratch and the sum once, and builds every launch's ctypes arguments
-    once; `run()` is all of it in order."""
+    views (`f32_slot_layout`). Allocates the workspace (ws_rows x
+    round_up(min(N, CHUNK), 64) f32), the split-K slots, the scratch and
+    the sum once; `run()` is all of it in order."""
 
     def __init__(self, packed, em, de, vpe, p3, g_e, g_out, skip_pos):
         self.dims = _dims(packed, skip_pos)
-        w, ke, kv, nt = self.dims
         self.n, dev = em.shape[0], em.device
         _need_cuda(dev)
+        self.dev, self.packed, self.skip_pos = dev, packed, skip_pos
         self.ins = _point_operands(self.dims, self.n, dev, em=em, de=de,
                                    vpe=vpe, p3=p3)
         self.grad_ins = _point_operands(self.dims, self.n, dev, g_e=g_e,
@@ -818,8 +769,6 @@ class F32Backward:
         self.ld = round_up(max(1, min(self.n, CHUNK)), 64)
         self.splits = wgrad_splits(sz["wgrad_tiles"], self.slots)
         f32 = torch.float32
-        self.frags = torch.empty((sz["split_words"], 4), dtype=torch.int32,
-                                 device=dev)
         self.ws = torch.empty((sz["ws_rows"] * self.ld,), dtype=f32,
                               device=dev)
         self.partial = torch.empty(
@@ -831,26 +780,7 @@ class F32Backward:
         shapes = _GRAD_SHAPES(*self.dims)
         self.grads = {k: self.sum[o:o + math.prod(shapes[k])].view(shapes[k])
                       for k, o in leaves.items()}
-        # every launch, its arguments built once
-        self._split = _f32_call(
-            "split", dev,
-            _f32_operands(packed, _F32_WEIGHTS, self.dims, dev) + [self.frags],
-            list(self.dims))
-        self._sweeps, self._wgrads = [], []
-        for c in range(self.n_chunks):
-            b, nc = self._chunk(c)
-            self._sweeps.append(_f32_call(
-                "sweep", dev,
-                [*self.ins, self.frags, *self.vec, *self.grad_ins, self.ws,
-                 self.scratch],
-                [nc, b, self.ld, w, ke, kv, nt, skip_pos, self.slots]))
-            self._wgrads.append(_f32_call(
-                "wgrad", dev, [self.ws, self.partial],
-                [round_up(nc, 64), self.ld, w, ke, kv, nt, skip_pos,
-                 self.splits, c * self.splits]))
-        self._reduce = _f32_call(
-            "reduce", dev, [self.partial, self.sum],
-            _reduce_ints(self.slot_floats, self.partial.shape[0], dev))
+        self.frags = None
 
     def workspace_bytes(self) -> int:
         return self.ws.numel() * 4 + self.partial.numel() * 4
@@ -860,16 +790,27 @@ class F32Backward:
         return b, min(CHUNK, self.n - b)
 
     def split(self):
-        self._split()
+        self.frags = split_weights(self.packed, self.skip_pos)
 
     def sweep(self, c):
-        self._sweeps[c]()
+        w, ke, kv, nt = self.dims
+        b, nc = self._chunk(c)
+        _launch_f32("sweep", self.dev,
+                    [*self.ins, self.frags, *self.vec, *self.grad_ins,
+                     self.ws, self.scratch],
+                    [nc, b, self.ld, w, ke, kv, nt, self.skip_pos,
+                     self.slots])
 
     def wgrad(self, c):
-        self._wgrads[c]()
+        w, ke, kv, nt = self.dims
+        _, nc = self._chunk(c)
+        _launch_f32("wgrad", self.dev, [self.ws, self.partial],
+                    [round_up(nc, 64), self.ld, w, ke, kv, nt, self.skip_pos,
+                     self.splits, c * self.splits])
 
     def reduce(self) -> dict:
-        self._reduce()
+        _launch_f32("reduce", self.dev, [self.partial, self.sum],
+                    [self.slot_floats, self.partial.shape[0]])
         return self.grads
 
     def workspace(self, c: int = 0) -> dict:

@@ -171,7 +171,7 @@ def test_supports_and_f32_refused_on_cuda(setup, monkeypatch):
     monkeypatch.setattr(fr, "_need_cuda", lambda dev: None)
     monkeypatch.setattr(fr, "_slots", lambda dev: 2)
     monkeypatch.setattr(fr, "f32_sizes", fake_sizes)
-    monkeypatch.setattr(fr, "_f32_call", lambda *a: lambda: fake_launch(*a))
+    monkeypatch.setattr(fr, "_launch_f32", fake_launch)
     fr.reset_launches()
     field.zero_grad()
     rgb, a = fr.fused_radiance_and_alpha(field, t(p), t(rd), cfg,

@@ -399,9 +399,10 @@ def test_fused_radiance_bf16_backward_is_deterministic(width, layers, n):
 
 # slot counts of one, a few, the f32 reduce's 27 (3 chunks x 9 splits at
 # 196,608 points), one per SM of an H100 and one more; totals of the bf16
-# backward's slot at widths 256 and 128, and float4 counts that the grid's
-# CTAs do not divide evenly: fewer items than CTAs (3), a few per CTA
-# (1,001), and more than the bf16 slot (400,009)
+# backward's slot at widths 256 and 128, and float4 counts that 256-thread
+# CTAs do not divide evenly: fewer than one CTA's (3), a few CTAs' (1,001),
+# and more than one resident wave holds (400,009 > 270,336 on an H100, so
+# threads take a second column)
 @pytest.mark.parametrize("total", [825092, 149892, 12, 4 * 1001,
                                    4 * 400009])
 @pytest.mark.parametrize("slots", [1, 8, 27, 132, 133])

@@ -219,7 +219,7 @@ def _fake_f32(monkeypatch):
     monkeypatch.setattr(fr, "_need_cuda", lambda dev: None)
     monkeypatch.setattr(fr, "_slots", lambda dev: 6)
     monkeypatch.setattr(fr, "f32_sizes", fake_sizes)
-    monkeypatch.setattr(fr, "_f32_call", lambda *a: lambda: fake_launch(*a))
+    monkeypatch.setattr(fr, "_launch_f32", fake_launch)
     return launched
 
 
@@ -244,6 +244,6 @@ def test_f32_launch_sequence_over_chunks(setup, monkeypatch):
         [(96, 0, 128), (96, 96, 128), (64, 192, 128)]
     assert [(i[0], i[1], i[7], i[8]) for i in wgrads] == \
         [(128, 128, splits, 0), (128, 128, splits, 3), (64, 128, splits, 6)]
-    assert launched[-1][1][1] == 3 * splits       # the reduce's slots
+    assert launched[-1][1][-1] == 3 * splits
     assert fr.radiance_backward.launches == {"bfloat16": 0, "float32": 1}
     fr.reset_launches()

@@ -1,12 +1,11 @@
 """What the wrappers of the slot reduction engine (csrc/slot_reduce.cuh)
-decide on the host, on the CPU: its launch plan (`slot_reduce_plan`: the
-grid and the column stride, with `slot_reduce_items`, the kernel's split
-mirrored), the f32 backward's
-weight-gradient slot layout (`f32_slot_layout`, the library's `wplan`
-mirrored), and the f32 backward's launches, whose ctypes arguments are
-built once (`build.Launch`). The engine itself runs on the card
+decide on the host, on the CPU: the f32 backward's weight-gradient slot
+layout (`f32_slot_layout`, the library's `wplan` mirrored), the f32
+backward's launches on its buffers, and the launch helper they share
+(`build.launch`). The engine itself runs on the card
 (tests/test_torch_gpu.py)."""
 
+import contextlib
 import math
 import types
 
@@ -16,44 +15,6 @@ import torch
 
 from psnerf_torch.ops import build
 from psnerf_torch.ops import fused_radiance as fr
-
-CAPACITY = 132 * fr.SLOT_REDUCE_PER_SM * fr.SLOT_REDUCE_THREADS
-
-
-# the bf16 slot at widths 256 and 128 (825,092 and 149,892 floats) and the
-# f32 slot at width 256 on an H100 (132 SMs); one item; past one resident
-# wave (270,336 columns), by one column and by far; one SM
-@pytest.mark.parametrize("n,sms", [(206273, 132), (37473, 132),
-                                   (206274, 132), (1, 132),
-                                   (CAPACITY + 1, 132), (900001, 132),
-                                   (5000, 1)])
-def test_plan_covers_every_column_once(n, sms):
-    """The engine's launch plan: every float4 column added exactly once,
-    the grid at most the CTAs the card holds at once, and every busy
-    thread adds the same number of columns, to one."""
-    grid, stride = fr.slot_reduce_plan(n, sms)
-    assert 1 <= grid <= sms * fr.SLOT_REDUCE_PER_SM
-    assert stride <= grid * fr.SLOT_REDUCE_THREADS
-    table = fr.slot_reduce_items(n, grid, stride)
-    got = table[table >= 0]
-    assert torch.equal(got.sort().values, torch.arange(n))
-    per_thread = (table >= 0).sum(0)
-    busy = per_thread[per_thread > 0]
-    assert busy.max() - busy.min() <= 1
-    assert (per_thread > 0).sum() == stride
-
-
-def test_plan_takes_the_slots_in_one_wave():
-    """Up to the card's resident threads, each column gets its own thread
-    in one pass: at the bf16 slot sum's 206,273 columns on an H100, 806
-    CTAs (6.1 an SM, at most 8 resident); past the resident threads, each
-    thread takes two columns, none takes a third."""
-    grid, stride = fr.slot_reduce_plan(206273, 132)
-    assert (grid, stride) == (806, 206273)
-    assert fr.slot_reduce_items(206273, grid, stride).shape[0] == 1
-    grid, stride = fr.slot_reduce_plan(CAPACITY + 1, 132)
-    assert grid == 132 * fr.SLOT_REDUCE_PER_SM
-    assert fr.slot_reduce_items(CAPACITY + 1, grid, stride).shape[0] == 2
 
 
 @pytest.mark.parametrize("w,ke,kv,nt", [(256, 48, 32, 7), (128, 48, 32, 3),
@@ -120,27 +81,22 @@ def _f32_backward(monkeypatch, n, calls, fail=None):
                           t(n, ke), t(n, 4), cfg.skips[0] - 1)
 
 
-def test_f32_backward_builds_each_launch_once(monkeypatch):
-    """F32Backward builds every launch's pointer and int arrays in its
-    constructor; the launches pass exactly those arrays, equal to
-    pointers taken afresh from its buffers, and the reduce sums all the
-    split-K slots of its partial buffer into the sum whose views are the
-    gradients, on the engine's grid."""
+def test_f32_backward_launches_on_its_buffers(monkeypatch):
+    """Each launch of F32Backward passes the pointers of its own buffers:
+    the sweeps and weight-gradient passes chunk by chunk, then the reduce
+    of every split-K slot of its partial buffer into the sum whose views
+    are the gradients; a second run makes the same launches (on new split
+    weights, which each split allocates)."""
     calls = []
     monkeypatch.setattr(fr, "CHUNK", 96)
     b = _f32_backward(monkeypatch, 200, calls)
     assert calls == []                      # nothing launched yet
     ptr = lambda ts: [x.data_ptr() for x in ts]
-    reduce = b._reduce.launch
-    assert list(reduce.ptrs) == ptr([b.partial, b.sum])
-    assert list(reduce.ints) == [b.slot_floats, b.n_chunks * b.splits,
-                                 *fr.slot_reduce_plan(b.slot_floats // 4, 4)]
     grads = b.run()
     fr.reset_launches()
     names = [k for k, _, _ in calls]
     assert names == ["split"] + ["sweep", "wgrad"] * 3 + ["reduce"]
-    assert calls[-1][1] == ptr([b.partial, b.sum])
-    assert calls[-1][2] == list(reduce.ints)
+    assert calls[0][1][-1] == b.frags.data_ptr()
     for c in range(3):
         sweep, wgrad = calls[1 + 2 * c], calls[2 + 2 * c]
         assert sweep[1] == ptr([*b.ins, b.frags, *b.vec, *b.grad_ins, b.ws,
@@ -148,17 +104,20 @@ def test_f32_backward_builds_each_launch_once(monkeypatch):
         assert sweep[2][:2] == [min(96, 200 - 96 * c), 96 * c]
         assert wgrad[1] == ptr([b.ws, b.partial])
         assert wgrad[2][-1] == c * b.splits
-    assert calls[0][1][-1] == b.frags.data_ptr()
+    assert calls[-1][1] == ptr([b.partial, b.sum])
+    assert calls[-1][2] == [b.slot_floats, b.n_chunks * b.splits]
     leaves, total = fr.f32_slot_layout(*b.dims)
     assert b.sum.shape == (total,) and b.partial.shape[1] == total
     for k, x in grads.items():
         assert x.data_ptr() == b.sum.data_ptr() + 4 * leaves[k], k
         assert x.is_contiguous(), k
-    # a second run launches the same arrays again
     n_calls = len(calls)
     b.run()
     fr.reset_launches()
-    assert calls[n_calls:] == calls[:n_calls]
+    again = calls[n_calls:]
+    assert [(k, i) for k, _, i in again] == [(k, i) for k, _, i in
+                                            calls[:n_calls]]
+    assert again[-1][1] == ptr([b.partial, b.sum])
 
 
 def test_f32_launch_failure_raises(monkeypatch):
@@ -171,9 +130,26 @@ def test_f32_launch_failure_raises(monkeypatch):
     fr.reset_launches()
 
 
-def test_launch_keeps_its_tensors():
-    """build.Launch holds the tensors whose pointers it passes."""
-    x = torch.ones(8)
-    launch = build.Launch(lambda *a: 0, None, x.device, [x], [1, 2], "t")
-    assert launch.tensors[0] is x
-    assert list(launch.ptrs) == [x.data_ptr()] and list(launch.ints) == [1, 2]
+@pytest.mark.parametrize("current", [0, 1])
+def test_launch_enters_the_device_only_when_not_current(monkeypatch,
+                                                        current):
+    """build.launch passes the tensors' pointers and the ints with the
+    stream of the tensors' device (here 0), and enters that device only
+    when another one is current."""
+    entered, got = [], []
+
+    @contextlib.contextmanager
+    def device(d):
+        entered.append(d)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda i=None: types.SimpleNamespace(cuda_stream=7 + i))
+    x, y = torch.ones(8), torch.zeros(4)
+    dev = types.SimpleNamespace(index=0)
+    build.launch(lambda p, i, s: got.append((list(p), list(i), s)) or 0,
+                 None, dev, [x, y], [3, 5], "t")
+    assert got == [([x.data_ptr(), y.data_ptr()], [3, 5], 7)]
+    assert entered == ([] if current == 0 else [dev])

@@ -148,20 +148,17 @@ def main():
 
     fwd = lambda: fr.radiance_forward(packed, em, de, vpe, p3, skip,
                                       "float32")
-    def backward():                  # its launches bind the library now
-        b = fr.F32Backward(packed, em, de, vpe, p3, g_e, g_out, skip)
+    b = fr.F32Backward(packed, em, de, vpe, p3, g_e, g_out, skip)
 
-        def bwd():                   # the backward's prologue and sweeps
-            b.split()
-            for c in range(b.n_chunks):
-                b.sweep(c)
-        return bwd
+    def bwd():                       # the backward's prologue and sweeps
+        b.split()
+        for c in range(b.n_chunks):
+            b.sweep(c)
     got = {k: {"fwd": [], "bwd": []} for k in PATCHES}
     order = list(PATCHES) + list(PATCHES)[::-1]
     with torch.no_grad():
         for name in order:
             use(name)
-            bwd = backward()
             got[name]["fwd"].append(ms(fwd, args.reps))
             got[name]["bwd"].append(ms(bwd, args.reps))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

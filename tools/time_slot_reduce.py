@@ -14,7 +14,10 @@ time of 20 launches that torch.profiler sums (device only; up to commit
 110aa76 a CUDA graph of 20 captured launches), and by the host clock over
 1,000 launches (host µs per launch), and held bit for bit against its
 plain version (the f32 reduce where the checkout's gradients are views
-of one flat sum). --root imports psnerf_torch from another checkout (e.g.
+of one flat sum). Also the host µs of one whole f32 backward as
+`radiance_backward` runs it (a new `F32Backward`, then its launches; a
+synchronize between backwards, outside the clock), and the prologue's
+`split_weights` by events and host µs. --root imports psnerf_torch from another checkout (e.g.
 the parent commit unpacked by `git archive` into _chipcheck/), which
 builds its own kernels there, so two commits compare on one card: run
 parent, change, change, parent. Prints one JSON line, with the card's
@@ -108,6 +111,16 @@ def main():
         fns = {"kernel": b.reduce, "torch_sum": lambda: torch.sum(parts, 0)}
         out["f32_reduce"] = dict(three_ways(fns), slots=parts.shape[0],
                                  slot_floats=parts.shape[1], n=n)
+        # one whole backward as radiance_backward runs it: a new
+        # F32Backward, then its launches; and the prologue's split_weights
+        g_out = f(rng.uniform(0.5, 1.5, (n, 4)))
+        one = lambda: fr.F32Backward(packed, em, de, vpe, p3, g_e, g_out,
+                                     skip).run()
+        split = lambda: fr.split_weights(packed, skip)
+        one()
+        out["f32_backward_host_us"] = host_us(one, 50, batch=1)
+        out["split"] = dict(ms=cuda_ms(split, 20),
+                            host_us=host_us(split, 1000))
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
