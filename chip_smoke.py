@@ -25,9 +25,11 @@ Phases (any failure exits non-zero; nothing is caught):
      at the integration batch of 2048 x 96 samples, each held against its
      plain version and timed the same way (yardsticks: the bf16 matmul
      chain for fused_occ, the plain autograd route for fused_radiance);
-     the bf16 backward bit for bit over three launches, at most
-     K3_BF16_MAX_MS and faster than autograd, and its slot sum (the CTA
-     slots added in fixed order) against its plain version and torch.sum;
+     the bf16 forward at most K2_BF16_MAX_MS, the bf16 backward bit for
+     bit over three launches, at most K3_BF16_MAX_MS and faster than
+     autograd, and each of its kernels (sweep, split-K weight-gradient
+     products, the two fixed-order sums) held against its plain version
+     and timed alone;
   5. the f32-operand form of fused_radiance (the default field's) at 2048
      x 64 and 2048 x 96 points, held against its plain f32 version at the
      JAX kernel tests' bars (rgb and alpha 1e-5, each gradient leaf 2e-4
@@ -107,7 +109,16 @@ GRAD_REL, GRAD_CORR = 2e-2, 0.999   # per-leaf gradient bars
 F32_RGB, F32_GRAD_REL = 1e-5, 2e-4
 KINK = 1e-4          # appearance pre-activations this close to 0 may flip
 TILE = 4096          # the runners' pixel tile
-K3_BF16_MAX_MS = 40.0   # the bf16 backward at N_RAD, with its slot sum
+K2_BF16_MAX_MS = 5.0    # the bf16 forward at N_RAD
+K3_BF16_MAX_MS = 25.0   # the bf16 backward at N_RAD: sweeps, wgrad, reduce
+K2_BF16_TARGET_MS, K3_BF16_TARGET_MS = 4.0, 20.0   # recorded, not held
+# the bf16 sweep's workspace against radiance_sweep_plain (bf16): relu
+# masks that a bf16 rounding flips move single elements by their size, so
+# each array is held by its mean error over its mean and its correlation
+SWEEP_MEAN_REL, SWEEP_CORR = 1e-2, 0.999
+# the bf16 weight-gradient products against weight_grads_plain on the
+# kernel's own workspace: the same bf16 operands, f32 sums in another order
+WGRAD_REL = 1e-4
 K3_SPREAD_RUNS = 10     # single launches of it timed for its spread
 # stage-2 training at the bear config (configs/stage2/bear.conf) with
 # bench.py's batch: 8,192 pixels x 10 lights, a vis_plus pool of 8
@@ -1031,7 +1042,7 @@ def time_radiance(field, cfg, p, rd, packed, inputs, g_e, g_out, skip,
     w, ke, kv = cfg.hidden_dim, em.shape[1], vpe.shape[1]
     f_fwd, f_bwd = radiance_flops(n, w, ke, kv, cfg.num_layers - 1)
     bf16 = compute == "bfloat16"
-    w_bytes = (nbytes(*fr._kernel_weights(packed).values()) if bf16
+    w_bytes = (nbytes(fr.bf16_slabs(packed)) if bf16
                else sum(x.numel() * 4 for x in packed.values()))
     op = 2 if bf16 else 4                          # em and vpe reach it so
     in_bytes = n * (ke * op + ke * 4 + kv * op + 3 * 4)
@@ -1163,8 +1174,8 @@ def phase_stage1_kernels(card):
                 if name == "positive":
                     check(e["rel"] < GRAD_REL, f"K3 {name} {k} {e}")
             del got, want
-        # each CTA's own gradient slot, the slots summed in fixed order:
-        # the same bits from run to run
+        # split-K and column-sum slots summed in fixed order: the same
+        # bits from run to run
         rerun = [fr.radiance_backward(packed, em, de, vpe, p3, g_e_ref,
                                       g_pos, skip) for _ in range(3)]
         bitwise = all(torch.equal(rerun[0][k], r[k])
@@ -1193,41 +1204,171 @@ def phase_stage1_kernels(card):
     check(k3["ms"] <= K3_BF16_MAX_MS and k3["ms"] < k3["library_ms"],
           f"K3 bf16 at most {K3_BF16_MAX_MS} ms and faster than autograd: "
           f"{k3['ms']} ms, autograd {k3['library_ms']} ms")
-    sums = time_slot_sum(packed, skip)
-    return k1, k2, k3, sums
+    check(k2["ms"] <= K2_BF16_MAX_MS,
+          f"K2 bf16 at most {K2_BF16_MAX_MS} ms: {k2['ms']} ms")
+    k2["meets_target"] = k2["ms"] <= K2_BF16_TARGET_MS
+    k3["meets_target"] = k3["ms"] <= K3_BF16_TARGET_MS
+    stages = time_bf16_stages(packed, (em, de, vpe, p3), g_e_ref, g_out,
+                              skip)
+    k3["stages_ms"] = {k: v["ms"] for k, v in stages.items() if "ms" in v}
+    k3["host_us"] = stages["workspace"]["backward_host_us"]
+    return k1, k2, k3, stages
 
 
-def time_slot_sum(packed, skip):
-    """The bf16 backward's slot sum at the integration batch's grid (one
-    slot per CTA, min(tiles, SMs)) over random slots, against its plain
-    version (the same order: bitwise) and torch.sum over the slots
-    (time_slot_reduce); and the backward's zeroing of those slots
-    (torch.zeros, recorded only)."""
+def bf16_stage_flops(n, w, ke, kv, nt):
+    """Tensor-core FLOPs of the bf16 backward's stages at the kernels'
+    padded K: the sweep's activation products (as the f32 form's, one bf16
+    pass) and the weight-gradient products (the trunk's two segments 2 nt,
+    w8f, wf and wa 5, W x W each; wv's kv rows, w0 and wskip's 4 ke, the
+    rgb head's 8 columns)."""
+    sweep = f32_stage_flops(n, w, ke, kv, nt)[0]
+    wgrad = n * 2 * w * ((2 * nt + 5) * w + kv + 4 * ke + 8)
+    return sweep, wgrad
+
+
+def time_bf16_stages(packed, inputs, g_e, g_out, skip):
+    """The bf16 backward kernel by kernel (Bf16Backward: sweeps, split-K
+    weight-gradient passes, the two fixed-order sums), each held against
+    its plain version on the same inputs and timed in turns with it
+    (plain, kernel, kernel, plain): radiance_sweep_plain at bf16 per chunk
+    (each workspace array by SWEEP_MEAN_REL and SWEEP_CORR; the column
+    sums, the bias-like leaves, wp, wn and w8l, against weight_grads_plain
+    of the plain sweep by GRAD_REL); weight_grads_plain on the kernel's
+    own workspace, summed over the chunks, for the products' leaves
+    (WGRAD_REL); the reduce bit for bit against slot_sum_plain of each
+    kind of slot. Its library_ms is torch.sum over each kind of slot; no
+    single PyTorch call computes the sweep or the weight-gradient pass,
+    so theirs is null."""
     from psnerf_torch.ops import fused_radiance as fr
 
-    total = sum(fr.bf16_slot_layout(*fr._dims(packed, skip))[1])
-    grid = min(-(-N_RAD // fr.BF16_TILE),
-               torch.cuda.get_device_properties(0).multi_processor_count)
-    gen = torch.Generator(device=DEV).manual_seed(SEED)
-    slots = torch.randn((grid, total), generator=gen, device=DEV)
-    before = fr.slot_sum.launches
-    got = fr.slot_sum(slots)
-    torch.cuda.synchronize()
-    check(fr.slot_sum.launches == before + 1, "slot_sum counted its launch")
-    want = fr.slot_sum_plain(slots)
-    err = (got - want).abs().max().item()
-    check(err == 0.0, f"slot sum against its plain version: {err}")
-    t = time_slot_reduce(lambda: fr.slot_sum(slots),
-                         lambda: fr.slot_sum_plain(slots),
-                         lambda: torch.sum(slots, 0))
-    zeros_ms = cuda_ms(lambda: torch.zeros((grid, total), device=DEV), 20)
-    b, by = bound_ms(grid * total, (grid + 1) * total * 4, PEAK_F32_FLOPS)
-    row = reduction_row(
-        t, b, by, flops=grid * total, n=N_RAD, slots=grid,
-        slot_floats=total, zeros_ms=zeros_ms,
-        library_max_abs_err=(torch.sum(slots, 0) - got).abs().max().item())
-    log(json.dumps({"fused_radiance_slot_sum_ms": row}))
-    return row
+    em, de, vpe, p3 = inputs
+    n = em.shape[0]
+    b = fr.Bf16Backward(packed, em, de, vpe, p3, g_e, g_out, skip)
+    w, ke, kv, nt = b.dims
+    chunks = range(b.n_chunks)
+    rows = [slice(c * fr.CHUNK, c * fr.CHUNK + b._chunk(c)[1])
+            for c in chunks]
+    leaves, p_floats, c_floats = fr.bf16_slot_layout(*b.dims)
+    sums = [k for k in fr.PACK_ORDER if leaves[k] >= p_floats]
+    prods = [k for k in fr.PACK_ORDER if leaves[k] < p_floats]
+    f32_only = ("p3", "n3", "w8lt")
+    with torch.no_grad():
+        sweep_mean, sweep_corr, ws_kernel, cs_plain = 0.0, 1.0, [], None
+        for c in chunks:
+            b.sweep(c)
+            b.wgrad(c)
+            got = b.workspace(c)
+            r = rows[c]
+            want = fr.radiance_sweep_plain(packed, em[r], de[r], vpe[r],
+                                           p3[r], g_e[r], g_out[r], skip)
+            for k, x in got.items():
+                y = want[k].to(torch.bfloat16).float()
+                sweep_mean = max(sweep_mean, ((x - y).abs().mean()
+                                              / (y.abs().mean() + 1e-30))
+                                 .item())
+                if x.numel() > 1 and y.std() > 0:
+                    sweep_corr = min(sweep_corr, float(np.corrcoef(
+                        x.flatten().cpu().numpy(),
+                        y.flatten().cpu().numpy())[0, 1]))
+            d = fr.weight_grads_plain(want, skip)
+            cs_plain = d if cs_plain is None else {
+                k: cs_plain[k] + d[k] for k in d}
+            ws_kernel.append(dict(got, **{k: want[k] for k in f32_only}))
+            del want
+        grads = b.reduce()
+        torch.cuda.synchronize()
+        reduce_plain = lambda: torch.cat([fr.slot_sum_plain(b.partial),
+                                          fr.slot_sum_plain(b.colsums)])
+        sum_want = reduce_plain()
+        check(torch.equal(b.sum, sum_want),
+              "the bf16 reduce against its plain version: "
+              f"{(b.sum - sum_want).abs().max().item()}")
+        rel = lambda a, x: ((a - x).abs().max()
+                            / (x.abs().max() + 1e-30)).item()
+        colsum_err = max(rel(grads[k], cs_plain[k]) for k in sums)
+        wg_plain = None
+        for ws in ws_kernel:
+            d = fr.weight_grads_plain(ws, skip)
+            wg_plain = d if wg_plain is None else {
+                k: wg_plain[k] + d[k] for k in d}
+        wgrad_err = max(rel(grads[k], wg_plain[k]) for k in prods)
+        t = in_turns(
+            {"sweep": lambda: [b.sweep(c) for c in chunks],
+             "sweep_plain": lambda: [fr.radiance_sweep_plain(
+                 packed, em[r], de[r], vpe[r], p3[r], g_e[r], g_out[r],
+                 skip) for r in rows],
+             "wgrad": lambda: [b.wgrad(c) for c in chunks],
+             "wgrad_plain": lambda: [fr.weight_grads_plain(ws, skip)
+                                     for ws in ws_kernel]},
+            {"sweep": 3, "sweep_plain": 2, "wgrad": 3, "wgrad_plain": 2},
+            ["sweep_plain", "sweep", "sweep", "sweep_plain",
+             "wgrad_plain", "wgrad", "wgrad", "wgrad_plain"])
+        # (the wgrad turns above recomputed every chunk's slots from the
+        # last chunk's workspace: the check below takes them as they are)
+        t_reduce = time_slot_reduce(
+            lambda: (b.reduce(), b.sum)[1], reduce_plain,
+            lambda: torch.cat([torch.sum(b.partial, 0),
+                               torch.sum(b.colsums, 0)]))
+        one_backward = lambda: fr.Bf16Backward(packed, em, de, vpe, p3, g_e,
+                                               g_out, skip).run()
+        one_backward()
+        backward_host_us = host_us(one_backward, 20, batch=1)
+    del ws_kernel
+    f_sweep, f_wgrad = bf16_stage_flops(n, w, ke, kv, nt)
+    ws_bytes = n * fr.ws_layout(w, ke, kv, nt, "bfloat16")[1] * 2
+    w_bytes = b.weights[0].numel() * 2 + sum(
+        x.numel() * 4 for x in b.weights[1:])
+    in_bytes = n * ((ke + kv) * 2 + (2 * ke + 3 + 4) * 4)
+    p_bytes, c_bytes = b.partial.numel() * 4, b.colsums.numel() * 4
+    out = {}
+    for name, flops, nbytes_, err in (
+            ("sweep", f_sweep, in_bytes + w_bytes + ws_bytes + c_bytes,
+             sweep_mean),
+            ("wgrad", f_wgrad, ws_bytes + p_bytes, wgrad_err)):
+        bnd, by = bound_ms(flops, nbytes_)
+        out[name] = dict(ms=t[name], plain_ms=t[name + "_plain"],
+                         bound_ms=bnd, bound_by=by, library_ms=None,
+                         max_abs_err=err, flops=flops, n=n,
+                         bound_ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
+                         bound_bytes_ms=nbytes_ / PEAK_BYTES * 1e3)
+    out["sweep"].update(corr_min=sweep_corr, colsum_rel_err=colsum_err)
+    bnd, by = bound_ms(0, p_bytes + c_bytes + b.sum.numel() * 4)
+    out["reduce"] = reduction_row(
+        t_reduce, bnd, by, flops=0, n=n,
+        slots=b.partial.shape[0] + b.colsums.shape[0],
+        slot_floats=[p_floats, c_floats])
+    for k in ("sweep", "wgrad"):
+        out[k]["library_note"] = ("null: no single PyTorch call computes "
+                                  "this stage")
+    out["reduce"]["library_note"] = ("torch.sum over the split-K slots and "
+                                     "over the column-sum slots; the "
+                                     "gradients are views of the sums")
+    out["sweep"]["err_is"] = ("max over workspace arrays of mean |diff| / "
+                              "mean |plain| (relu flips move single "
+                              "elements); corr_min the least correlation")
+    out["wgrad"]["err_is"] = ("max over the products' leaves of max |diff| "
+                              "/ max |plain|, on the kernel's workspace, "
+                              "wgrad and reduce together")
+    out["reduce"]["err_is"] = ("max |diff| against each kind of slot summed "
+                               "one by one (bitwise)")
+    out["workspace"] = {"bytes": b.workspace_bytes(), "ws_bytes": ws_bytes,
+                        "split_k_slot_bytes": p_bytes,
+                        "column_sum_slot_bytes": c_bytes,
+                        "chunk": fr.CHUNK, "chunks": b.n_chunks,
+                        "splits": b.splits,
+                        "rows_per_point": fr.ws_layout(w, ke, kv, nt,
+                                                       "bfloat16")[1],
+                        "backward_host_us": backward_host_us}
+    log(json.dumps({"fused_radiance_bf16_stages": out}))
+    check(sweep_mean < SWEEP_MEAN_REL and sweep_corr > SWEEP_CORR
+          and colsum_err < GRAD_REL,
+          f"the bf16 sweep against its plain version {sweep_mean} "
+          f"{sweep_corr} {colsum_err}")
+    check(wgrad_err < WGRAD_REL,
+          f"the bf16 weight-gradient products against their plain "
+          f"version {wgrad_err}")
+    del b
+    return out
 
 
 def kink_free(packed, em, de, vpe, p3, g_e, skip):
@@ -1617,6 +1758,7 @@ def phase_stage1_main(scene, compute, steps, steps96, vis_every=0):
                 "fused_radiance_fwd": dict(fr.radiance_forward.launches),
                 "fused_radiance_bwd": dict(fr.radiance_backward.launches),
                 "fused_radiance_f32": dict(fr.f32_launches),
+                "fused_radiance_bf16": dict(fr.bf16_launches),
                 "fused_radiance_slot_sum": fr.slot_sum.launches}
     if vis_every:
         # the strip's render_view of 2 views: a march (proposal pass and 8
@@ -1638,13 +1780,20 @@ def phase_stage1_main(scene, compute, steps, steps96, vis_every=0):
         check(f32k["fwd"] >= steps and f32k["split"] >= 2 * steps
               and f32k["sweep"] >= steps and f32k["wgrad"] >= steps
               and f32k["reduce"] >= steps, f"f32 kernels {f32k}")
-        check(launches["fused_radiance_slot_sum"] == 0,
-              f"the bf16 slot sum at the f32 field {launches}")
+        check(not any(launches["fused_radiance_bf16"].values())
+              and launches["fused_radiance_slot_sum"] == 0,
+              f"bf16 kernels at the f32 field {launches}")
     else:
         check(not any(f32k.values()), f"f32 kernels at the bf16 field {f32k}")
-        check(launches["fused_radiance_slot_sum"]
-              == launches["fused_radiance_bwd"]["bfloat16"],
-              f"one slot sum per bf16 backward {launches}")
+        # every kernel of the bf16 form: the forward per forward; a sweep
+        # and a weight-gradient pass per chunk of a backward; two fixed-
+        # order sums per backward
+        bf16k = launches["fused_radiance_bf16"]
+        n_bwd = launches["fused_radiance_bwd"]["bfloat16"]
+        check(bf16k["fwd"] == launches["fused_radiance_fwd"]["bfloat16"]
+              and bf16k["sweep"] == bf16k["wgrad"] >= n_bwd
+              and launches["fused_radiance_slot_sum"] == 2 * n_bwd,
+              f"bf16 kernels per forward and backward {launches}")
     recs = read_losses(wd)
     check(runner.it == steps
           and [r["it"] for r in recs] == [steps // 2, steps],
@@ -1919,7 +2068,7 @@ def main():
             card = phase_card()
             regs = phase_build()
             k4, k5 = phase_kernels()
-        k1, k2, k3, sums = phase_stage1_kernels(card)
+        k1, k2, k3, bstages = phase_stage1_kernels(card)
         k2f, k3f, stages = phase_radiance_f32()
         scene = make_scene()
         with torch.no_grad():
@@ -1952,7 +2101,9 @@ def main():
                                      "single_launch_ms",
                                      "launches_stage2_train", "device_ms",
                                      "host_us", "library_device_ms",
-                                     "library_host_us", "zeros_ms")
+                                     "library_host_us", "meets_target",
+                                     "corr_min", "colsum_rel_err",
+                                     "bound_ops_ms", "bound_bytes_ms")
                    if x in k}}
 
     log(json.dumps({"card": card["nvidia_smi"], "main_path": e2e,
@@ -1960,7 +2111,8 @@ def main():
                     "stage1_main_path_bfloat16": e2e_bf,
                     "stage1_main_path_float32": e2e1,
                     "stage1_eval_export": e2e_export,
-                    "f32_workspace": stages["workspace"], "ptxas": regs}))
+                    "f32_workspace": stages["workspace"],
+                    "bf16_workspace": bstages["workspace"], "ptxas": regs}))
     log(card["nvidia_smi"])
     # K1 counts the default-field train path, K2/K3 each form's own path
     log(json.dumps({"kernels": [
@@ -1973,10 +2125,18 @@ def main():
         entry("fused_radiance_and_alpha (backward)", "fused_radiance.cu",
               "psnerf_tpu/ops/fused_radiance.py:410", k3,
               launches_bf["fused_radiance_bwd"]["bfloat16"]),
-        entry("fused_radiance_and_alpha bf16 slot sum (the backward's CTA "
-              "slots added in fixed order)", "slot_reduce.cuh",
-              "psnerf_tpu/ops/fused_radiance.py:410", sums,
-              launches_bf["fused_radiance_slot_sum"]),
+        *[entry(f"fused_radiance_and_alpha bf16 {name}",
+                "slot_reduce.cuh" if kern == "reduce"
+                else "fused_radiance.cu",
+                "psnerf_tpu/ops/fused_radiance.py:410", bstages[kern],
+                launches_bf["fused_radiance_slot_sum"] if kern == "reduce"
+                else launches_bf["fused_radiance_bf16"][kern])
+          for kern, name in (
+              ("sweep", "backward sweep (writes the workspace and the "
+               "column sums)"),
+              ("wgrad", "weight-gradient products (split-K)"),
+              ("reduce", "reduce (the split-K and column-sum slots in "
+               "fixed order)"))],
         entry("fused_radiance_and_alpha (forward, f32 operands: prologue "
               "and forward kernel)", "fused_radiance_f32.cu",
               "psnerf_tpu/ops/fused_radiance.py:390", k2f,

@@ -1,944 +1,1405 @@
-// Fused radiance+alpha, forward and second-order backward, for NVIDIA
-// Hopper (sm_90a).
+// Fused radiance+alpha in the bf16-operand form (compute="bfloat16"),
+// forward and second-order backward, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of psnerf_tpu/ops/fused_radiance.py
-// (fused_radiance_and_alpha) in their bf16-operand form (wdt = bf16; the
-// f32 form is fused_radiance_f32.cu):
-//   * forward (_fwd_kernel over _forward_core): geometry trunk -> feature
-//     and logit (split head), reverse sweep g_e = d logit / d emb, normals
-//     n = (d emb / d x)^T g_e, ReLU appearance MLP -> pre-tanh rgb;
-//   * backward (_bwd_kernel): recompute with the saved g_e, appearance
-//     backward, tangent forward of the normal path, and one doubled reverse
-//     sweep carrying (h_bar, t_bar) through softplus'' = 100 s (1 - s);
-//     weight gradients only.
+// (fused_radiance_and_alpha) at wdt = bf16 (the f32 form is
+// fused_radiance_f32.cu): the forward (_fwd_kernel, pallas_call at :390)
+// and the backward (_bwd_kernel, :410). Rounding points as in the TPU
+// kernel: every product operand is bf16, accumulation is f32; biases,
+// softplus, sigmoid and the sweeps' elementwise work are f32; the logit
+// row w8l and the position and normal rows of appearance layer 0 (wp, wn)
+// are f32; the bias-like gradients are column sums of f32 values.
 //
-// What bounds it: operations. Per point the forward runs ~19 and the
-// backward ~57 products of 2 W^2 FLOPs (W = 256): ~2.6 and ~7.7 MFLOP,
-// against a few hundred bytes of inputs per point.
+// Four launches, made by ops/fused_radiance.py:
+//   * fwd_kernel (K2): geometry trunk -> feature and logit, reverse sweep
+//     g_e = d logit / d emb, normals n = (d emb / d x)^T g_e, appearance
+//     MLP -> pre-tanh rgb;
+//   * sweep_kernel (K3, part 1, per chunk of points): recompute with the
+//     saved g_e, appearance backward, tangent forward of the normal path,
+//     and the doubled reverse sweep carrying (h_bar, t_bar) through
+//     softplus'' = 100 s (1 - s). It computes no weight-gradient product:
+//     it writes each product's operand pair, bf16, to a device workspace
+//     (WsRows below, ~41 W + 2 ke + kv + 8 rows, 21.8 KB a point at W =
+//     256), and each 64-point tile's f32 column sums (the bias-like
+//     gradients, wp, wn and w8l) into its consumer's own slot, the chunks
+//     one after another onto the same slots;
+//   * wgrad_kernel (K3, part 2, per chunk): every weight gradient x^T y as
+//     bf16 wgmma m64n128k16 of depth K = points, split-K over CTAs, each
+//     split's partial in its own slot (wplan: leaf after leaf), no atomics;
+//   * the reduce (K3, part 3): the slot reduction engine (slot_reduce.cuh,
+//     psnerf_radiance_slot_sum) adds the split-K slots and the column-sum
+//     slots in fixed order into one flat buffer of which the 18 gradients
+//     are views. The backward is the same bits from run to run.
 //
-// Design. One CTA of 8 warps owns a tile of points; a persistent grid (one
-// CTA per SM) loops over the tiles. Each product runs mma.sync over an
-// operand tile in shared memory, with the weight fragments read from
-// global memory (L2-resident); each warp owns W/8 output columns
-// (mma_tile.cuh). The per-layer f32 values the sweeps need again (sigmoid
-// s, tangents tz, h_bar) and the operands of the weight gradients (trunk
-// and appearance activations, tangents) do not fit in shared memory (eight
-// layers of s alone are 512 KB per 64-point tile): each CTA keeps them in
-// its own slot of device memory, in the fragment layout, so every thread
-// reads back exactly the values it wrote (coalesced, no synchronisation;
-// the slots of all CTAs are a few hundred MB, mostly L2 traffic). They
-// stay f32 where the TPU kernel keeps them f32.
+// What bounds it: operations for the products (per point the forward runs
+// ~19 and the backward ~57 W x W products, 2 W^2 FLOPs each), bytes for
+// the backward's workspace (written once, read about twice) and for the
+// sweeps' per-layer f32 values (s', tz, h_bar: written once, read once).
 //
-// Weight gradients x^T y (a reduction over points) run as mma.sync over
-// transposed [feature][point] tiles in shared memory (the trunk's two
-// terms a^T z_bar + t^T tz_bar as one product of depth 2 x tile).
-// Bias-like gradients are column sums (a shuffle over the fragment's rows).
-// Every CTA adds its tiles' sums into its own zeroed f32 slot of the
-// gradients (slot blockIdx.x, the gradients' concatenation in the packed
-// order, each at a multiple of 4 floats, so a thread's two adjacent
-// columns go as one float2 reduction). The sums come out the same on every
-// run: the persistent grid gives each CTA the same tiles in the same
-// order, and inside a CTA each gradient element has exactly one owning
-// thread (the g == 0 lane of colsum_atomic's shuffle, the fragment's own
-// elements in dtn_atomic, tid in the rgb head's sums), whose atomicAdds to
-// one address take effect in program order. The slot reduction engine
-// (slot_reduce.cuh, psnerf_radiance_slot_sum) then adds the slots in a
-// fixed order (slot 0, then 1, ...), as the TPU kernel adds its tiles over
-// a sequential grid. The slots (132 x 3.3 MB at W = 256) do not fit in L2,
-// so each tile's sums go to device memory and back: the cost of
-// determinism here.
+// Design. The forward and the sweep run on the bf16 trunk engine
+// (trunk_wgmma.cuh): per CTA a producer warpgroup streams the weights'
+// k-step slabs (packed once per packing, in the order the consumers read
+// them: `mats` and the per-kernel schedules below) by cp.async.bulk
+// through an mbarrier ring, and two consumer warpgroups of 64 points each
+// run every product as wgmma m64nWk16 with A from registers: the
+// epilogue turns each layer's accumulator into the next layer's bf16 A
+// fragments, so the layer chain never leaves registers and every weight
+// byte read from L2 serves 128 points. The g_e products run as wide as
+// the others (w0^T and wskip^T padded to W columns: a narrower product
+// into a slice of the accumulators made ptxas spill them). The narrow point
+// operands (embedding, view PE, tangent c_e) are K-major tiles in shared
+// memory. What the sweeps need again later (s' of every layer, tz, h_bar,
+// the appearance relu masks, the tz_bar A fragments) does not fit in
+// registers (W / 2 accumulators and W / 4 A registers of 240) nor in
+// shared memory: each consumer thread keeps it in its own words of device
+// scratch, so it rereads exactly what it wrote (coalesced, no
+// synchronisation). The doubled reverse sweep runs its two products
+// (z_bar W^T and tz_bar W^T) one after the other, each over its own pass
+// of the layer's slabs: both accumulators at once would need W registers.
 //
-// Rounding points as in the TPU kernel at wdt = bf16: every product's
-// operands are bf16; accumulation, biases, softplus, sigmoid and the
-// sweeps' elementwise work are f32; the logit row w8l and the normals' and
-// position rows of appearance layer 0 (wn, wp) are f32. Tiles of 64
-// points; bf16 m16n8k16. The kernels are templated on the operand type T
-// (instantiated at bf16 only).
+// The workspace is K-major for the weight-gradient products: feature rows
+// over the points, in core matrices of 8 features x 8 points (128 bytes),
+// so one feature group's run of points is contiguous (ws_idx). The wgrad
+// kernel's producer copies each 8-feature group of a 64-point stage with
+// one 1 KB cp.async.bulk straight into wgmma's no-swizzle layout.
 //
 // ptxas reports registers, spills and shared memory per instantiation
 // into ops/_build/fused_radiance.ptxas.txt.
 
-#include "mma_tile.cuh"
 #include "slot_reduce.cuh"
+#include "trunk_wgmma.cuh"
 
-using namespace psnerf;
+using namespace trunk;
 
 namespace {
 
-constexpr int ROWF = 16;             // per-point f32 values in shared memory
-// ROWF slots: 0-2 p, 3 logit (fwd) / g_logit (bwd), 4-6 n, 7-9 g_n,
-// 10-12 g_rgb
-constexpr int RF_P = 0, RF_L = 3, RF_N = 4, RF_GN = 7, RF_GRGB = 10;
-// scratch buffers per slot (each TBM * W values in the fragment layout):
-// f32 buffers, then operand-type buffers
-constexpr int F_SP = 0, F_TZ = 8, F_HB = 16, N_F32_BWD = 17, N_F32_FWD = 8;
-constexpr int H_A = 0, H_T = 8, H_AA = 15, H_FEAT = 19, H_TZB = 20,
-              N_OP_BWD = 21;
-
 typedef __nv_bfloat16 bf16;
 
-// Tile shape of one operand form.
-template <typename T> struct Tile;
-template <> struct Tile<bf16> {
-  static constexpr int BM = psnerf::BM;      // 64 points
-  static constexpr int LDK = 64 + 8;         // narrow tiles (ke, kv <= 64)
-  static constexpr int LDT = 2 * BM + 8;     // transposed [feature][point]
+constexpr int TROWS = NCONS * ROWS;  // points of a CTA tile
+constexpr int MAXL = 8;              // trunk layers + 1, at most
+constexpr int ROWF = 16;             // per-point f32 values in shared memory
+// ROWF slots: 0-2 p, 3 g_logit, 4-6 n, 7-9 g_n, 10-12 g_rgb
+constexpr int RF_P = 0, RF_GL = 3, RF_N = 4, RF_GN = 7, RF_GRGB = 10;
+constexpr int MAX_SEGS = 64;
+
+// ---------------------------------------------------------------- layouts
+
+// The packed slabs (ops/fused_radiance.py `bf16_slab_mats` lists the same
+// matrices in the same order, each as [N, K]), byte offsets: the narrow-K
+// products' w0, wskip, wv; the forward products' W x W matrices; the
+// reverse products' (w0^T and wskip^T padded to W columns).
+struct Mats {
+  long long w0, wskip, wv, trunk, w8f, wf, wa, trunkT, wskipT, w0T, waT, wfT,
+      w8fT, total;
 };
 
-template <typename T>
-struct RadParams {
-  const T* em; const float* de; const T* vpe; const float* p3;
-  const float* g_e_in; const float* g_out;
-  const T *w0T, *w0; const float* b0;
-  const T *wskipT, *wskip;
-  const T *trunkT, *trunk; const float* trunk_b;
-  const T *w8fT, *w8f; const float *b8f, *w8l, *b8l, *wp, *wn;
-  const T *wvT, *wfT, *wf; const float* ba0;
-  const T *waT, *wa; const float* bab;
-  const T *wa4T, *wa4; const float* ba4;
-  float* out; float* g_e;
-  float *d_w0, *d_b0, *d_wskip, *d_trunk_w, *d_trunk_b, *d_w8f, *d_b8f,
-      *d_w8l, *d_b8l, *d_wp, *d_wv, *d_wn, *d_wf, *d_ba0, *d_wa, *d_bab,
-      *d_wa4, *d_ba4;
-  unsigned char* scratch;
-  int n, ke, kv, n_trunk, skip_pos;
-  long long slot_floats;      // backward: floats in one CTA's gradient slot
+__host__ Mats mats(int w, int ke, int kv, int nt) {
+  Mats m;
+  long long at = 0;
+  auto take = [&](long long rows, long long k) {
+    at += rows * k * 2;
+    return at - rows * k * 2;
+  };
+  m.w0 = take(w, ke);
+  m.wskip = take(w, ke);
+  m.wv = take(w, kv);
+  m.trunk = take((long long)nt * w, w);
+  m.w8f = take(w, w);
+  m.wf = take(w, w);
+  m.wa = take(3LL * w, w);
+  m.trunkT = take((long long)nt * w, w);
+  m.wskipT = take(w, w);
+  m.w0T = take(w, w);
+  m.waT = take(3LL * w, w);
+  m.wfT = take(w, w);
+  m.w8fT = take(w, w);
+  m.total = at;
+  return m;
+}
+
+// A run of `count` slabs of `bytes` each from byte `off` of the slabs.
+struct Seg { long long off; int count, bytes; };
+struct Sched { Seg seg[MAX_SEGS]; int n; };
+
+struct SchedBuilder {
+  Sched s = {};
+  int w;
+  __host__ void add(long long off, int count, int n_cols) {
+    s.seg[s.n].off = off;
+    s.seg[s.n].count = count;
+    s.seg[s.n].bytes = n_cols * 32;
+    ++s.n;
+  }
+  __host__ void mat(long long off, int k) { add(off, k / 16, w); }
 };
 
+// the slabs the forward's consumers read, per tile, in order
+__host__ Sched sched_fwd(int w, int ke, int kv, int nt, int skip) {
+  const Mats m = mats(w, ke, kv, nt);
+  const long long ww = (long long)w * w * 2;
+  SchedBuilder b;
+  b.w = w;
+  b.mat(m.w0, ke);
+  for (int li = 0; li < nt; ++li) {
+    b.mat(m.trunk + li * ww, w);
+    if (li == skip) b.mat(m.wskip, ke);
+  }
+  b.mat(m.w8f, w);
+  b.mat(m.wf, w);
+  for (int li = nt; li >= 1; --li) {
+    if (li == skip + 1) b.mat(m.wskipT, w);
+    b.mat(m.trunkT + (li - 1) * ww, w);
+  }
+  b.mat(m.w0T, w);
+  b.mat(m.wv, kv);
+  for (int j = 0; j < 3; ++j) b.mat(m.wa + j * ww, w);
+  return b.s;
+}
+
+// the slabs the sweep's consumers read, per tile, in order
+__host__ Sched sched_sweep(int w, int ke, int kv, int nt, int skip) {
+  const Mats m = mats(w, ke, kv, nt);
+  const long long ww = (long long)w * w * 2;
+  SchedBuilder b;
+  b.w = w;
+  for (int pass = 0; pass < 2; ++pass) {      // recompute, then tangents
+    b.mat(m.w0, ke);
+    for (int li = 0; li < nt; ++li) {
+      b.mat(m.trunk + li * ww, w);
+      if (li == skip) b.mat(m.wskip, ke);
+    }
+    if (pass == 1) break;
+    b.mat(m.w8f, w);
+    b.mat(m.wf, w);
+    b.mat(m.wv, kv);
+    for (int j = 0; j < 3; ++j) b.mat(m.wa + j * ww, w);
+    for (int j = 2; j >= 0; --j) b.mat(m.waT + j * ww, w);
+    b.mat(m.wfT, w);
+    b.mat(m.w8fT, w);
+  }
+  for (int li = nt; li >= 1; --li) {
+    b.mat(m.trunkT + (li - 1) * ww, w);
+    b.mat(m.trunkT + (li - 1) * ww, w);
+  }
+  return b.s;
+}
+
+// The workspace rows (features), each over the chunk's points; mirrored by
+// ops/fused_radiance.py ws_layout(..., "bfloat16"). [feat; vpe] is one
+// product's x rows; a, t, aa, gz, zb and tzb stack their layers.
+struct WsRows { int feat, vpe, em, ce, a, t, aa, gz, gfeat, g8, zb, tzb, rows; };
+
+__host__ __device__ WsRows ws_rows(int w, int ke, int kv, int nt) {
+  WsRows L;
+  L.feat = 0; L.vpe = w; L.em = w + kv; L.ce = L.em + ke; L.a = L.ce + ke;
+  L.t = L.a + (nt + 1) * w; L.aa = L.t + nt * w; L.gz = L.aa + 4 * w;
+  L.gfeat = L.gz + 4 * w; L.g8 = L.gfeat + w; L.zb = L.g8 + 8;
+  L.tzb = L.zb + (nt + 1) * w; L.rows = L.tzb + (nt + 1) * w;
+  return L;
+}
+
+// element (feature f, point p) of a workspace of ld points (ld a multiple
+// of TROWS): core matrices of 8 features x 8 points, an 8-feature group's
+// points contiguous
+__device__ __forceinline__ size_t ws_idx(long long ld, int f, int p) {
+  return ((size_t)(f >> 3) * (size_t)(ld >> 3) + (size_t)(p >> 3)) * 64 +
+         (f & 7) * 8 + (p & 7);
+}
+
+// One column-sum slot (a consumer's tiles' f32 sums), leaf after leaf;
+// mirrored by ops/fused_radiance.py bf16_slot_layout.
+struct CsLayout { int trunk_b, b0, b8f, bab, ba0, wp, wn, w8l, ba4, b8l, floats; };
+
+__host__ __device__ CsLayout cs_layout(int w, int nt) {
+  CsLayout C;
+  C.trunk_b = 0; C.b0 = nt * w; C.b8f = C.b0 + w; C.bab = C.b8f + w;
+  C.ba0 = C.bab + 3 * w; C.wp = C.ba0 + w; C.wn = C.wp + 3 * w;
+  C.w8l = C.wn + 3 * w; C.ba4 = C.w8l + w; C.b8l = C.ba4 + 3;
+  C.floats = C.b8l + 5;                      // a multiple of 4
+  return C;
+}
+
+struct RParams {
+  const bf16 *em, *vpe;
+  const float *de, *p3, *g_e_in, *g_out;
+  const unsigned char* slabs;
+  const float *b0, *trunk_b, *b8f, *w8l, *b8l, *wp, *wn, *ba0, *bab, *wa4t,
+      *ba4;
+  float *out, *g_e;                  // forward
+  bf16* ws;                          // sweep: the workspace
+  float* colsum;                     // sweep: this chunk's column-sum slots
+  float* scratch;
+  long long ld;
+  int n, row_begin, ke, kv, n_trunk, skip_pos, ring, scr_words;
+  int accumulate;                    // sweep: add onto the slots' sums
+  Sched sched;
+};
+
+// ------------------------------------------------------------ consumers
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// softplus(100 x) / 100 and its derivative sigmoid(100 x) from one
+// exponential, e = exp(-|100 x|) in (0, 1]: log1p(e) = ln 2 log2(1 + e)
+// and 1 / (1 + e) by the special-function unit (errors of a few 1e-7,
+// far below the bf16 rounding of the activation that follows; K1's
+// softplus, fused_occ.cu, is the same)
 __device__ __forceinline__ void sp_sig(float x, float& sp, float& sg) {
   const float bx = 100.f * x;
-  const float e = expf(-fabsf(bx));
-  sp = (fmaxf(bx, 0.f) + log1pf(e)) / 100.f;
-  const float inv = 1.f / (1.f + e);
+  const float e = ex2_approx(fabsf(bx) * -1.4426950408889634f);
+  sp = (fmaxf(bx, 0.f) + lg2_approx(1.f + e) * 0.6931471805599453f) * 0.01f;
+  const float inv = __fdividef(1.f, 1.f + e);
   sg = bx >= 0.f ? inv : e * inv;
 }
 
-// x rounded to the operand type and back (exact for T = float)
-template <typename T>
-__device__ __forceinline__ float rnd(float x) {
-  return Operand<T>::to_f(Operand<T>::from_f(x));
+__device__ __forceinline__ float bf_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// thread-private scratch: element q of this thread's fragment
-__device__ __forceinline__ size_t sq(int q) {
-  return (size_t)q * NTHREADS + threadIdx.x;
+// A consumer thread's words of device scratch: word q at base[q * 128]
+__device__ __forceinline__ float* scr_base(const RParams& p) {
+  const int wg = threadIdx.x >> 7;
+  return p.scratch +
+         ((size_t)blockIdx.x * NCONS + wg) * (size_t)p.scr_words * 128 +
+         (threadIdx.x & 127);
 }
 
-template <int NT>
-__device__ __forceinline__ int fq(int i, int j, int r) {
-  return (i * NT + j) * 4 + r;
+template <int W>
+__device__ __forceinline__ void store_scr(float* s, const float (&y)[W / 2]) {
+#pragma unroll
+  for (int q = 0; q < W / 2; ++q) s[q * 128] = y[q];
 }
 
-// xT[col][koff + row] = operand(v): the tile transposed to [feature][point]
-template <typename T, int MI, int NT>
-__device__ __forceinline__ void put_T(T* xT, int koff,
-                                      const float (&v)[MI][NT][4], int n_base) {
-  constexpr int LDT = Tile<T>::LDT;
+template <int W>
+__device__ __forceinline__ void add_scr(float (&y)[W / 2], const float* s) {
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        xT[frag_col(n_base, j, r) * LDT + koff + frag_row(i, r)] =
-            Operand<T>::from_f(v[i][j][r]);
+  for (int q = 0; q < W / 2; ++q) y[q] += s[q * 128];
 }
 
-// the same from an operand-type scratch buffer (exact)
-template <typename T, int MI, int NT>
-__device__ __forceinline__ void put_T_scr(T* xT, int koff, const T* buf,
-                                          int n_base) {
-  constexpr int LDT = Tile<T>::LDT;
+template <int W>
+__device__ __forceinline__ void mul_scr(float (&y)[W / 2], const float* s) {
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        xT[frag_col(n_base, j, r) * LDT + koff + frag_row(i, r)] =
-            buf[sq(fq<NT>(i, j, r))];
+  for (int q = 0; q < W / 2; ++q) y[q] *= s[q * 128];
 }
 
-// dst[0:2] += (a, b) as one vector reduction (sm_90; dst 8-byte aligned:
-// every leaf starts at a multiple of 4 floats of its slot). Each element's
-// adds keep their order: one owning thread, in program order.
-__device__ __forceinline__ void add2(float* dst, float a, float b) {
-  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
-}
-
-// dst[col] += sum over the tile's rows of rw[row] * v (rw null: 1)
-template <int MI, int NT>
-__device__ __forceinline__ void colsum_atomic(float* dst,
-                                              const float (&v)[MI][NT][4],
-                                              int n_base, const float* rw) {
-  const int g = (threadIdx.x & 31) >> 2;
+// y[col] = v[col] for the thread's columns
+template <int W>
+__device__ __forceinline__ void set_cols(float (&y)[W / 2], const float* v) {
+  const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    float s[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[e] = 0.f;
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float x = v[i][j][2 * h + e];
-          s[e] += rw ? rw[frag_row(i, 2 * h) * ROWF] * x : x;
-        }
-      s[e] += __shfl_xor_sync(0xffffffffu, s[e], 4);
-      s[e] += __shfl_xor_sync(0xffffffffu, s[e], 8);
-      s[e] += __shfl_xor_sync(0xffffffffu, s[e], 16);
-    }
-    if (g == 0) add2(dst + frag_col(n_base, j, 0), s[0], s[1]);
+  for (int j = 0; j < W / 8; ++j) {
+    const float2 c = __ldg(reinterpret_cast<const float2*>(v + 8 * j + 2 * t));
+    y[4 * j] = c.x; y[4 * j + 1] = c.y; y[4 * j + 2] = c.x; y[4 * j + 3] = c.y;
   }
 }
 
-// dst[a_rows, W] += xT[0:a_rows, 0:K] @ yT[0:W, 0:K]^T (a reduction over
-// K points, both tiles transposed in shared memory)
-template <typename T, int W>
-__device__ __forceinline__ void dtn_atomic(const T* xT, int a_rows,
-                                           const T* yT, int K, float* dst,
-                                           int n_base) {
-  constexpr int NT = W / 64, TBM = Tile<T>::BM, MI = TBM / 16;
-  constexpr int LDT = Tile<T>::LDT;
-  for (int mc = 0; mc < a_rows; mc += TBM) {
-    float acc[MI][NT][4];
-    warp_gemm<NT, false, MI>(xT + mc * LDT, LDT, K, yT, LDT, n_base, acc,
-                             true);
+template <int W>
+__device__ __forceinline__ void add_bias(float (&y)[W / 2], const float* b) {
+  const int t = threadIdx.x & 3;
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {      // the fragment's two rows
-          const int row = mc + frag_row(i, 2 * h);
-          if (row < a_rows)
-            add2(dst + (size_t)row * W + frag_col(n_base, j, 0),
-                 acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        }
+  for (int j = 0; j < W / 8; ++j) {
+    const float2 c = __ldg(reinterpret_cast<const float2*>(b + 8 * j + 2 * t));
+    y[4 * j] += c.x; y[4 * j + 1] += c.y; y[4 * j + 2] += c.x; y[4 * j + 3] += c.y;
   }
 }
 
-// [rows, cols] rows of a [N, cols] input into a shared tile (zeros past N)
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
-                                          int cols, int rows, int row0,
-                                          int n) {
-  const int kw = cols / 2;
-  for (int idx = threadIdx.x; idx < rows * kw; idx += NTHREADS) {
-    const int r = idx / kw, c = (idx % kw) * 2;
-    uint32_t v = 0;
-    if (row0 + r < n) v = ldg_u32(src + (size_t)(row0 + r) * cols + c);
-    *reinterpret_cast<uint32_t*>(dst + r * ld + c) = v;
+template <int W>
+__device__ __forceinline__ void relu_bias(float (&y)[W / 2], const float* b) {
+  add_bias<W>(y, b);
+#pragma unroll
+  for (int q = 0; q < W / 2; ++q) y[q] = fmaxf(y[q], 0.f);
+}
+
+// y = softplus(y + bias), its derivative s' into scratch
+template <int W>
+__device__ __forceinline__ void softplus_layer(float (&y)[W / 2],
+                                               const float* bias, float* sp) {
+  add_bias<W>(y, bias);
+#pragma unroll
+  for (int q = 0; q < W / 2; ++q) {
+    float s, g;
+    sp_sig(y[q], s, g);
+    y[q] = s;
+    sp[q * 128] = g;
   }
 }
 
-// the geometry trunk's forward over the tile in ems; leaves a_last (f32)
-// in acc and operand(a_last) in act. Stores s per layer (f32 scratch) and,
-// with abuf, every activation (operand scratch). With rw_last, adds
-// sum_rows rw * a_last into d_w8l.
-template <typename T, int W>
-__device__ __forceinline__ void trunk_forward(
-    const RadParams<T>& p, T* act, const T* ems,
-    float (&acc)[Tile<T>::BM / 16][W / 64][4], float* spbuf, T* abuf,
-    const float* rw_last, int n_base) {
-  constexpr int NT = W / 64, LDA = W + Operand<T>::PAD;
-  constexpr int MI = Tile<T>::BM / 16, LDK = Tile<T>::LDK;
-  constexpr size_t TILE = (size_t)Tile<T>::BM * W;
-  for (int li = 0; li <= p.n_trunk; ++li) {
-    if (li == 0) {
-      warp_gemm<NT, true, MI>(ems, LDK, p.ke, p.w0T, p.ke, n_base, acc, true);
-    } else {
-      warp_gemm<NT, true, MI>(act, LDA, W, p.trunkT + (size_t)(li - 1) * W * W,
-                              W, n_base, acc, true);
-      if (li - 1 == p.skip_pos)
-        warp_gemm<NT, true, MI>(ems, LDK, p.ke, p.wskipT, p.ke, n_base, acc,
-                                false);
-    }
-    __syncthreads();                 // every warp has finished reading act
-    const float* bias = li == 0 ? p.b0 : p.trunk_b + (size_t)(li - 1) * W;
-    float* sp_l = spbuf + li * TILE;
+// n[h][m] (rows lo / hi, column classes c % 3 == m) of g_e, the first 32
+// accumulators (columns 0 .. 63, ke of them used); every lane of the quad
+// gets the sums. The forward and the sweep both compute n here: the same
+// bits from the same g_e.
+template <int W>
+__device__ __forceinline__ void normals(const float (&ge)[W / 2],
+                                        const float* de, int row0, int nv,
+                                        int ke, float (&n)[2][3]) {
+  const int rl = row_lo(), t = threadIdx.x & 3;
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+    for (int m = 0; m < 3; ++m) n[h][m] = 0.f;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float s, sg;
-          sp_sig(acc[i][j][r] + __ldg(bias + frag_col(n_base, j, r)), s, sg);
-          acc[i][j][r] = s;
-          sp_l[sq(fq<NT>(i, j, r))] = sg;
-          if (abuf)
-            abuf[li * TILE + sq(fq<NT>(i, j, r))] = Operand<T>::from_f(s);
-        }
-    put_act<NT, MI>(act, LDA, acc, n_base);
-    if (li == p.n_trunk && rw_last)
-      colsum_atomic<MI, NT>(p.d_w8l, acc, n_base, rw_last);
-    __syncthreads();
-  }
-}
-
-// n[row][j] = sum over columns c % 3 == j of g_e[row][c] * de[row][c]
-template <typename T>
-__device__ __forceinline__ void normals(const RadParams<T>& p, const float* ge,
-                                        int ldg, float* rowf, int row0) {
-  const int tid = threadIdx.x;
-  if (tid < Tile<T>::BM * 3) {
-    const int row = tid / 3, j = tid % 3;
-    float s = 0.f;
-    if (row0 + row < p.n) {
-      const float* de = p.de + (size_t)(row0 + row) * p.ke;
-      for (int c = j; c < p.ke; c += 3) s += ge[row * ldg + c] * __ldg(de + c);
-    }
-    rowf[row * ROWF + RF_N + j] = s;
-  }
-}
-
-// appearance layer 0 epilogue: relu(acc + ba0 + sum_j p_j wp[j] + n_j wn[j])
-template <typename T, int W>
-__device__ __forceinline__ void app0_epilogue(
-    const RadParams<T>& p, float (&acc)[Tile<T>::BM / 16][W / 64][4],
-    const float* rowf, int n_base) {
-  constexpr int NT = W / 64, MI = Tile<T>::BM / 16;
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = frag_row(i, r), col = frag_col(n_base, j, r);
-        float z = acc[i][j][r] + __ldg(p.ba0 + col);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          z = z + rowf[row * ROWF + RF_P + c] * __ldg(p.wp + c * W + col);
-          z = z + rowf[row * ROWF + RF_N + c] * __ldg(p.wn + c * W + col);
-        }
-        acc[i][j][r] = fmaxf(z, 0.f);
+    for (int r = 0; r < 4; ++r) {
+      const int h = r >> 1, row = rl + 8 * h, col = 8 * j + 2 * t + (r & 1);
+      if (col < ke && row < nv) {
+        const float x = ge[4 * j + r] * __ldg(de + (size_t)(row0 + row) * ke + col);
+        const int m = col % 3;
+        n[h][0] += m == 0 ? x : 0.f;
+        n[h][1] += m == 1 ? x : 0.f;
+        n[h][2] += m == 2 ? x : 0.f;
       }
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      n[h][m] += __shfl_xor_sync(0xffffffffu, n[h][m], 1);
+      n[h][m] += __shfl_xor_sync(0xffffffffu, n[h][m], 2);
+    }
+}
+
+// appearance layer 0's epilogue: y = relu(y + zf + ba0 + sum_c p_c wp[c] +
+// n_c wn[c]), p and n of the thread's rows from rowf; one pass over the
+// columns, so few weights are live at a time
+template <int W>
+__device__ __forceinline__ void app0(float (&y)[W / 2], const float* zf,
+                                     const RParams& p, const float* rowf) {
+  const int rl = row_lo(), t = threadIdx.x & 3;
+  add_scr<W>(y, zf);
+  add_bias<W>(y, p.ba0);
+  float pc[2][3], nc[2][3];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      pc[h][c] = rowf[(rl + 8 * h) * ROWF + RF_P + c];
+      nc[h][c] = rowf[(rl + 8 * h) * ROWF + RF_N + c];
+    }
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    float2 a[3], b[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      a[c] = __ldg(reinterpret_cast<const float2*>(p.wp + c * W + 8 * j + 2 * t));
+      b[c] = __ldg(reinterpret_cast<const float2*>(p.wn + c * W + 8 * j + 2 * t));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float y0 = y[4 * j + 2 * h], y1 = y[4 * j + 2 * h + 1];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        y0 = y0 + pc[h][c] * a[c].x;
+        y0 = y0 + nc[h][c] * b[c].x;
+        y1 = y1 + pc[h][c] * a[c].y;
+        y1 = y1 + nc[h][c] * b[c].y;
+      }
+      y[4 * j + 2 * h] = fmaxf(y0, 0.f);
+      y[4 * j + 2 * h + 1] = fmaxf(y1, 0.f);
+    }
+  }
+}
+
+// Row sums of r(y) * w[k][col] for k < 3 in f32 over all W columns, r the
+// bf16 rounding (BF) or none: s[k][0] the thread's lo row, s[k][1] its hi
+// row; every lane of the quad gets them. One pass over the columns.
+template <int W, bool BF>
+__device__ __forceinline__ void row_dot3(const float (&y)[W / 2],
+                                         const float* w, float (&s)[3][2]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) s[k][0] = s[k][1] = 0.f;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    float v[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) v[r] = BF ? bf_round(y[4 * j + r]) : y[4 * j + r];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float2 c = __ldg(reinterpret_cast<const float2*>(w + k * W + 8 * j + 2 * t));
+      s[k][0] += v[0] * c.x + v[1] * c.y;
+      s[k][1] += v[2] * c.x + v[3] * c.y;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s[k][h] += __shfl_xor_sync(0xffffffffu, s[k][h], 1);
+      s[k][h] += __shfl_xor_sync(0xffffffffu, s[k][h], 2);
+    }
+}
+
+// The slab stream of one CTA: the schedule once per tile it owns.
+__device__ __forceinline__ void produce(const RingSpec& rs,
+                                        const unsigned char* src,
+                                        const Sched& sc, int tiles) {
+  uint32_t it = 0, phase = 0;
+  int slot = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+    for (int g = 0; g < sc.n; ++g) {
+      const Seg sg = sc.seg[g];
+      for (int k = 0; k < sg.count; ++k) {
+        if (it >= (uint32_t)rs.ring) mbar_wait(rs.empty + slot, phase ^ 1);
+        mbar_expect_tx(rs.full + slot, sg.bytes);
+        bulk_load(rs.slots + (size_t)slot * rs.slab,
+                  src + sg.off + (long long)k * sg.bytes, sg.bytes,
+                  rs.full + slot);
+        ++it;
+        if (++slot == rs.ring) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+}
+
+// Shared memory of a consumer warpgroup: the embedding, view PE and (sweep)
+// tangent A tiles, the per-point values, (sweep) the column sums' cross-
+// warp buffers and the workspace's staging tile. Offsets in bytes from
+// the consumer's base.
+struct ConsSmem { int em, vpe, ce, rowf, red, stg, bytes; };
+
+__host__ __device__ ConsSmem cons_smem(int w, int ke, int kv, bool sweep) {
+  ConsSmem S;
+  S.em = 0;
+  S.vpe = S.em + ke / 16 * A_KSTEP;
+  S.ce = S.vpe + kv / 16 * A_KSTEP;
+  S.rowf = S.ce + (sweep ? ke / 16 * A_KSTEP : 0);
+  S.red = S.rowf + ROWS * ROWF * 4;
+  S.stg = S.red + (sweep ? 2 * 4 * w * 4 : 0);
+  S.bytes = S.stg + (sweep ? ROWS * w * 2 : 0);
+  return S;
+}
+
+// the ring, then NCONS consumer regions, then the ring's barriers
+__host__ __device__ size_t ring_bytes(int ring, int w) {
+  return (size_t)ring * w * 32;
 }
 
 // ------------------------------------------------------------- forward
 
-template <typename T, int W>
+template <int W>
 __global__ void __launch_bounds__(NTHREADS, 1)
-    rad_fwd_kernel(const RadParams<T> p) {
-  constexpr int NT = W / 64, LDA = W + Operand<T>::PAD;
-  constexpr int TBM = Tile<T>::BM, MI = TBM / 16, LDK = Tile<T>::LDK;
-  constexpr size_t TILE = (size_t)TBM * W;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* act = reinterpret_cast<T*>(smem);                     // [TBM][LDA]
-  T* feats = act + TBM * LDA;                              // [TBM][LDA]
-  T* ems = feats + TBM * LDA;                              // [TBM][LDK]
-  T* vps = ems + TBM * LDK;                                // [TBM][LDK]
-  float* ges = reinterpret_cast<float*>(vps + TBM * LDK);  // [TBM][LDK]
-  float* rowf = ges + TBM * LDK;                           // [TBM][ROWF]
-  float* red = rowf + TBM * ROWF;                          // [NWARPS][TBM]
+    fwd_kernel(const __grid_constant__ RParams p) {
+  constexpr int KS = W / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kes = p.ke / 16, kvs = p.kv / 16, nt = p.n_trunk;
+  const ConsSmem S = cons_smem(W, p.ke, p.kv, false);
+  RingSpec rs;
+  rs.ring = p.ring;
+  rs.slab = W * 32;
+  rs.slots = smem;
+  unsigned char* cons0 = smem + ring_bytes(p.ring, W);
+  rs.full = reinterpret_cast<uint64_t*>(cons0 + NCONS * S.bytes);
+  rs.empty = rs.full + MAX_RING;
+  ring_init(rs);
+  __syncthreads();
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int n_base = warp * (W / NWARPS);
-  const int n_tiles = (p.n + TBM - 1) / TBM;
-  float* spbuf = reinterpret_cast<float*>(p.scratch) +
-                 (size_t)blockIdx.x * N_F32_FWD * TILE;
+  const int wg = threadIdx.x >> 7;
+  const int tiles = (p.n + TROWS - 1) / TROWS;
+  if (wg == NCONS) {                       // producer
+    set_max_regs_dec<24>();
+    if ((threadIdx.x & 127) == 0) produce(rs, p.slabs, p.sched, tiles);
+    return;
+  }
+  set_max_regs_inc<240>();
+  Consumer c;
+  c.s = rs;
+  unsigned char* cs = cons0 + wg * S.bytes;
+  unsigned char* emt = cs + S.em;
+  unsigned char* vpt = cs + S.vpe;
+  float* rowf = reinterpret_cast<float*>(cs + S.rowf);
+  const int tw = threadIdx.x & 127, t = threadIdx.x & 3, rl = row_lo();
+  float* sc = scr_base(p);
+  const int ZF = (nt + 1) * W / 2;         // scratch: s' per layer, zf
+  float acc[W / 2];
+  uint32_t a[KS][4];
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TBM;
-    load_rows(ems, LDK, p.em, p.ke, TBM, row0, p.n);
-    load_rows(vps, LDK, p.vpe, p.kv, TBM, row0, p.n);
-    for (int idx = tid; idx < TBM * 3; idx += NTHREADS) {
-      const int r = idx / 3, c = idx % 3;
-      rowf[r * ROWF + RF_P + c] =
-          row0 + r < p.n ? __ldg(p.p3 + (size_t)(row0 + r) * 3 + c) : 0.f;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * TROWS + wg * ROWS;
+    const int nv = min(ROWS, p.n - row0);  // may be <= 0
+    bar_sync(BAR_WG + wg, 128);            // the last tile's readers are done
+    load_a_tile(emt, p.em, row0, p.n, p.ke, tw, 128);
+    load_a_tile(vpt, p.vpe, row0, p.n, p.kv, tw, 128);
+    for (int i = tw; i < ROWS * 3; i += 128) {
+      const int r = i / 3, k = i % 3;
+      rowf[r * ROWF + RF_P + k] =
+          r < nv ? __ldg(p.p3 + (size_t)(row0 + r) * 3 + k) : 0.f;
     }
-    __syncthreads();
+    fence_async_shared();
+    bar_sync(BAR_WG + wg, 128);
 
-    float acc[MI][NT][4];
-    trunk_forward<T, W>(p, act, ems, acc, spbuf, nullptr, nullptr, n_base);
-    rowsum_partial<NT, MI>(acc, p.w8l, n_base, red);
-    __syncthreads();
-    if (tid < TBM) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) s += red[w * TBM + tid];
-      rowf[tid * ROWF + RF_L] = s + __ldg(p.b8l);
+    // geometry trunk; s' of every layer into scratch
+    c.product_smem<W>(acc, emt, kes, false);
+    c.drain(acc);
+    softplus_layer<W>(acc, p.b0, sc);
+    to_afrag<W>(acc, a);
+#pragma unroll 1
+    for (int li = 0; li < nt; ++li) {
+      c.product<W>(acc, a, false);
+      if (li == p.skip_pos) c.product_smem<W>(acc, emt, kes, true);
+      c.drain(acc);
+      softplus_layer<W>(acc, p.trunk_b + (size_t)li * W,
+                        sc + (size_t)(li + 1) * (W / 2) * 128);
+      to_afrag<W>(acc, a);
     }
-    // feature head: feat = a_last @ w8f + b8f
-    warp_gemm<NT, true, MI>(act, LDA, W, p.w8fT, W, n_base, acc, true);
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          acc[i][j][r] += __ldg(p.b8f + frag_col(n_base, j, r));
-    put_act<NT, MI>(feats, LDA, acc, n_base);
-    __syncthreads();
+    float lg_lo, lg_hi;                    // the logit, f32 a_last . w8l
+    row_dot<W>(acc, p.w8l, lg_lo, lg_hi);
+    // feature head, and at once feat @ wf (appearance layer 0's feat rows)
+    c.product<W>(acc, a, false);
+    c.drain(acc);
+    add_bias<W>(acc, p.b8f);
+    to_afrag<W>(acc, a);
+    c.product<W>(acc, a, false);
+    c.drain(acc);
+    store_scr<W>(sc + (size_t)ZF * 128, acc);
 
-    // reverse sweep: g = d logit / d a, from g = w8l down to the embedding
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          acc[i][j][r] = __ldg(p.w8l + frag_col(n_base, j, r));
-    const bool owns_e = warp * 8 < p.ke;       // warps holding g_e columns
-    float ge_skip[MI][1][4];
-    for (int li = p.n_trunk; li >= 0; --li) {
-      const float* sp_l = spbuf + li * TILE;
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[i][j][r] *= sp_l[sq(fq<NT>(i, j, r))];
-      put_act<NT, MI>(act, LDA, acc, n_base);
-      __syncthreads();
+    // reverse sweep: g = d logit / d a from w8l down to the embedding
+    set_cols<W>(acc, p.w8l);
+#pragma unroll 1
+    for (int li = nt; li >= 0; --li) {
+      mul_scr<W>(acc, sc + (size_t)li * (W / 2) * 128);
+      to_afrag<W>(acc, a);
       if (li == 0) break;
-      if (li == p.skip_pos + 1 && owns_e)
-        warp_gemm<1, true, MI>(act, LDA, W, p.wskip, W, warp * 8, ge_skip,
-                               true);
-      warp_gemm<NT, true, MI>(act, LDA, W, p.trunk + (size_t)(li - 1) * W * W,
-                              W, n_base, acc, true);
-      __syncthreads();
+      if (li == p.skip_pos + 1) {
+        // gz_skip @ wskip^T: kept in g_e until the w0 half is added
+        c.product<W>(acc, a, false);
+        c.drain(acc);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int row = rl + 8 * (r >> 1), col = 8 * j + 2 * t + (r & 1);
+            if (row < nv && col < p.ke)
+              p.g_e[(size_t)(row0 + row) * p.ke + col] = acc[4 * j + r];
+          }
+      }
+      c.product<W>(acc, a, false);
+      c.drain(acc);
     }
-    // g_e = (g s0) @ w0^T + gz_skip @ wskip^T
-    if (owns_e) {
-      float ge[MI][1][4];
-      warp_gemm<1, true, MI>(act, LDA, W, p.w0, W, warp * 8, ge, true);
+    // g_e = (g s0) @ w0^T + gz_skip @ wskip^T, then the normals
+    c.product<W>(acc, a, false);
+    c.drain(acc);
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = frag_row(i, r), col = frag_col(warp * 8, 0, r);
-          const float v = ge[i][0][r] + ge_skip[i][0][r];
-          ges[row * LDK + col] = v;
-          if (row0 + row < p.n) p.g_e[(size_t)(row0 + row) * p.ke + col] = v;
+      for (int r = 0; r < 4; ++r) {
+        const int row = rl + 8 * (r >> 1), col = 8 * j + 2 * t + (r & 1);
+        if (row < nv && col < p.ke) {
+          float* g = p.g_e + (size_t)(row0 + row) * p.ke + col;
+          acc[4 * j + r] += *g;
+          *g = acc[4 * j + r];
         }
+      }
+    {
+      float n[2][3];
+      normals<W>(acc, p.de, row0, nv, p.ke, n);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int m = 0; m < 3; ++m) rowf[(rl + 8 * h) * ROWF + RF_N + m] = n[h][m];
     }
-    __syncthreads();
-    normals(p, ges, LDK, rowf, row0);
-    __syncthreads();
 
     // appearance: relu layers on [p, view PE, n, feat] -> pre-tanh rgb
-    warp_gemm<NT, true, MI>(vps, LDK, p.kv, p.wvT, p.kv, n_base, acc, true);
-    warp_gemm<NT, true, MI>(feats, LDA, W, p.wfT, W, n_base, acc, false);
-    app0_epilogue<T, W>(p, acc, rowf, n_base);
-    put_act<NT, MI>(act, LDA, acc, n_base);
-    __syncthreads();
+    c.product_smem<W>(acc, vpt, kvs, false);
+    c.drain(acc);
+    app0<W>(acc, sc + (size_t)ZF * 128, p, rowf);
+    to_afrag<W>(acc, a);
+#pragma unroll 1
     for (int jl = 0; jl < 3; ++jl) {
-      warp_gemm<NT, true, MI>(act, LDA, W, p.waT + (size_t)jl * W * W, W,
-                              n_base, acc, true);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            acc[i][j][r] = fmaxf(
-                acc[i][j][r] + __ldg(p.bab + jl * W + frag_col(n_base, j, r)),
-                0.f);
-      put_act<NT, MI>(act, LDA, acc, n_base);
-      __syncthreads();
+      c.product<W>(acc, a, false);
+      c.drain(acc);
+      relu_bias<W>(acc, p.bab + jl * W);
+      if (jl < 2) to_afrag<W>(acc, a);
     }
-    if (warp == 0) {
-      float rgb[MI][1][4];
-      warp_gemm<1, true, MI>(act, LDA, W, p.wa4T, W, 0, rgb, true);
+    // rgb = bf16(aa3) @ wa4 + ba4 on the CUDA cores (3 columns)
+    float o[3][2];
+    row_dot3<W, true>(acc, p.wa4t, o);
+    if (t < 2) {
+      const int row = rl + 8 * t;
+      if (row < nv) {
+        float* out = p.out + (size_t)(row0 + row) * 4;
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = frag_row(i, r), col = frag_col(0, 0, r);
-          if (col < 3 && row0 + row < p.n)
-            p.out[(size_t)(row0 + row) * 4 + col] = rgb[i][0][r] + __ldg(p.ba4 + col);
-        }
+        for (int k = 0; k < 3; ++k)
+          out[k] = (t == 0 ? o[k][0] : o[k][1]) + __ldg(p.ba4 + k);
+        out[3] = (t == 0 ? lg_lo : lg_hi) + __ldg(p.b8l);
+      }
     }
-    if (tid < TBM && row0 + tid < p.n)
-      p.out[(size_t)(row0 + tid) * 4 + 3] = rowf[tid * ROWF + RF_L];
-    __syncthreads();
   }
 }
 
-// ------------------------------------------------------------ backward
+// ------------------------------------------------- backward: the sweep
 
-template <typename T, int W>
+__device__ __forceinline__ void bulk_store(void* gdst, const void* ssrc,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          gdst),
+      "r"(smem_u32(ssrc)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the bulk stores committed so far have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A consumer's writes to the workspace: a tile's W features x 64 points
+// are staged in shared memory in the workspace's own layout (an 8-feature
+// group's 64 points are 1 KB, contiguous there and in the workspace), and
+// its first thread copies each group out with one cp.async.bulk store.
+struct WsOut {
+  bf16* ws;
+  long long ld;
+  unsigned char* stg;            // ROWS x W bf16
+  int r0, nv;                    // the tile's first point (in the chunk), valid rows
+
+  // the staging buffer is free again: the last stores have read it
+  __device__ __forceinline__ void acquire() const {
+    if ((threadIdx.x & 127) == 0) bulk_wait_read();
+    bar_sync(BAR_WG + (threadIdx.x >> 7), 128);
+  }
+  // element (feature col, tile row) = bf16(v), 0 past the valid rows
+  __device__ __forceinline__ void stage(int col, int row, float v) const {
+    *reinterpret_cast<bf16*>(stg + (col >> 3) * (ROWS * 16) +
+                             (row >> 3) * 128 + (col & 7) * 16 +
+                             (row & 7) * 2) =
+        __float2bfloat16_rn(row < nv ? v : 0.f);
+  }
+  // the staged features [0, nf) to workspace rows [f0, f0 + nf)
+  __device__ __forceinline__ void flush(int f0, int nf) const {
+    fence_async_shared();
+    bar_sync(BAR_WG + (threadIdx.x >> 7), 128);
+    if ((threadIdx.x & 127) == 0) {
+      for (int g = 0; g < nf / 8; ++g)
+        bulk_store(ws + ws_idx(ld, f0 + 8 * g, r0), stg + g * (ROWS * 16),
+                   ROWS * 16);
+      bulk_commit();
+    }
+  }
+};
+
+// workspace rows f0 + col, the tile's points: bf16(y)
+template <int W>
+__device__ __forceinline__ void put_ws(const WsOut& o, int f0,
+                                       const float (&y)[W / 2]) {
+  const int rl = row_lo(), t = threadIdx.x & 3;
+  o.acquire();
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      o.stage(8 * j + 2 * t + (r & 1), rl + 8 * (r >> 1), y[4 * j + r]);
+  o.flush(f0, W);
+}
+
+// Column sums over the tile's valid rows of w_row * y (rf < 0: weight 1)
+// into slot[0 .. W) (add: onto what is there): the thread's two rows, a
+// shuffle over the warp's 16, the 4 warps in order through red (two
+// buffers, alternated: one barrier a call).
+template <int W>
+__device__ __forceinline__ void colsum(const float (&y)[W / 2],
+                                       const float* rowf, int rf, int nv,
+                                       float* red, int& buf, float* slot,
+                                       bool add) {
+  const int tw = threadIdx.x & 127, warp = tw >> 5, t = tw & 3;
+  const int rl = row_lo(), g = (tw & 31) >> 2;
+  const bool v0 = rl < nv, v1 = rl + 8 < nv;
+  const float w0 = rf < 0 ? 1.f : rowf[rl * ROWF + rf];
+  const float w1 = rf < 0 ? 1.f : rowf[(rl + 8) * ROWF + rf];
+  float* rb = red + buf * 4 * W;
+  buf ^= 1;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = (v0 ? w0 * y[4 * j + e] : 0.f) + (v1 ? w1 * y[4 * j + 2 + e] : 0.f);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (g == 0) rb[warp * W + 8 * j + 2 * t + e] = s;
+    }
+  bar_sync(BAR_WG + (threadIdx.x >> 7), 128);
+  for (int col = tw; col < W; col += 128) {
+    const float v = ((rb[col] + rb[W + col]) + rb[2 * W + col]) + rb[3 * W + col];
+    slot[col] = add ? slot[col] + v : v;
+  }
+}
+
+// relu masks (y > 0) of the thread's elements as W / 64 words
+template <int W>
+__device__ __forceinline__ void put_mask(const float (&y)[W / 2], float* s) {
+#pragma unroll
+  for (int wd = 0; wd < W / 64; ++wd) {
+    uint32_t m = 0;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) m |= (y[32 * wd + b] > 0.f ? 1u : 0u) << b;
+    s[wd * 128] = __uint_as_float(m);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void apply_mask(float (&y)[W / 2], const float* s) {
+#pragma unroll
+  for (int wd = 0; wd < W / 64; ++wd) {
+    const uint32_t m = __float_as_uint(s[wd * 128]);
+#pragma unroll
+    for (int b = 0; b < 32; ++b)
+      if (!((m >> b) & 1u)) y[32 * wd + b] = 0.f;
+  }
+}
+
+template <int W>
 __global__ void __launch_bounds__(NTHREADS, 1)
-    rad_bwd_kernel(const RadParams<T> slot0) {
-  // the gradient pointers of this CTA's own slot
-  RadParams<T> p = slot0;
-  const size_t so = (size_t)blockIdx.x * slot0.slot_floats;
-  p.d_w0 += so; p.d_b0 += so; p.d_wskip += so; p.d_trunk_w += so;
-  p.d_trunk_b += so; p.d_w8f += so; p.d_b8f += so; p.d_w8l += so;
-  p.d_b8l += so; p.d_wp += so; p.d_wv += so; p.d_wn += so; p.d_wf += so;
-  p.d_ba0 += so; p.d_wa += so; p.d_bab += so; p.d_wa4 += so; p.d_ba4 += so;
-  typedef Operand<T> Op;
-  constexpr int NT = W / 64, LDA = W + Op::PAD;
-  constexpr int TBM = Tile<T>::BM, MI = TBM / 16;
-  constexpr int LDK = Tile<T>::LDK, LDT = Tile<T>::LDT;
-  constexpr size_t TILE = (size_t)TBM * W;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* act = reinterpret_cast<T*>(smem);                     // [TBM][LDA]
-  T* ems = act + TBM * LDA;                                // [TBM][LDK]
-  T* ces = ems + TBM * LDK;                                // [TBM][LDK]
-  T* vps = ces + TBM * LDK;                                // [TBM][LDK]
-  T* xT = vps + TBM * LDK;                                 // [W][LDT]
-  T* yT = xT + W * LDT;                                    // [W][LDT]
-  float* rowf = reinterpret_cast<float*>(yT + W * LDT);    // [TBM][ROWF]
-  float* red = rowf + TBM * ROWF;                          // [3][NWARPS][TBM]
+    sweep_kernel(const __grid_constant__ RParams p) {
+  constexpr int KS = W / 16;
+  constexpr int H = W / 2;                 // scratch words of one tile value
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kes = p.ke / 16, kvs = p.kv / 16, nt = p.n_trunk;
+  const ConsSmem S = cons_smem(W, p.ke, p.kv, true);
+  RingSpec rs;
+  rs.ring = p.ring;
+  rs.slab = W * 32;
+  rs.slots = smem;
+  unsigned char* cons0 = smem + ring_bytes(p.ring, W);
+  rs.full = reinterpret_cast<uint64_t*>(cons0 + NCONS * S.bytes);
+  rs.empty = rs.full + MAX_RING;
+  ring_init(rs);
+  __syncthreads();
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int n_base = warp * (W / NWARPS);
-  const int n_tiles = (p.n + TBM - 1) / TBM;
-  const size_t slot_bytes = N_F32_BWD * TILE * 4 + N_OP_BWD * TILE * sizeof(T);
-  float* fbuf = reinterpret_cast<float*>(p.scratch + blockIdx.x * slot_bytes);
-  T* hbuf = reinterpret_cast<T*>(fbuf + N_F32_BWD * TILE);
-  float* spbuf = fbuf + F_SP * TILE;
-  float* tzbuf = fbuf + F_TZ * TILE;
-  float* hb = fbuf + F_HB * TILE;
+  const int wg = threadIdx.x >> 7;
+  const int tiles = (p.n + TROWS - 1) / TROWS;
+  if (wg == NCONS) {                       // producer
+    set_max_regs_dec<24>();
+    if ((threadIdx.x & 127) == 0) produce(rs, p.slabs, p.sched, tiles);
+    return;
+  }
+  set_max_regs_inc<240>();
+  Consumer c;
+  c.s = rs;
+  unsigned char* cs = cons0 + wg * S.bytes;
+  unsigned char* emt = cs + S.em;
+  unsigned char* vpt = cs + S.vpe;
+  unsigned char* cet = cs + S.ce;
+  float* rowf = reinterpret_cast<float*>(cs + S.rowf);
+  float* red = reinterpret_cast<float*>(cs + S.red);
+  int buf = 0;
+  const int tw = threadIdx.x & 127, t = threadIdx.x & 3, rl = row_lo();
+  float* sc = scr_base(p);
+  // scratch words: s' and tz per layer, h_bar (first zf), the tz_bar A
+  // fragments, the relu masks of appearance layers 0-2
+  const int TZ = (nt + 1) * H, HB = 2 * (nt + 1) * H, TZBF = HB + H,
+            MASK = TZBF + W / 4;
+  const WsRows L = ws_rows(W, p.ke, p.kv, nt);
+  const CsLayout C = cs_layout(W, nt);
+  float* slot = p.colsum + ((size_t)blockIdx.x * NCONS + wg) * C.floats;
+  const long long ld = p.ld;
+  bf16* ws = p.ws;
+  const int n_end = p.row_begin + p.n;
+  unsigned char* stg = cs + S.stg;
+  float acc[W / 2];
+  uint32_t a[KS][4];
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TBM;
-    load_rows(ems, LDK, p.em, p.ke, TBM, row0, p.n);
-    load_rows(vps, LDK, p.vpe, p.kv, TBM, row0, p.n);
-    for (int idx = tid; idx < TBM * 4; idx += NTHREADS) {
-      const int r = idx / 4, c = idx % 4;
-      const bool in = row0 + r < p.n;
-      if (c < 3)
-        rowf[r * ROWF + RF_P + c] =
-            in ? __ldg(p.p3 + (size_t)(row0 + r) * 3 + c) : 0.f;
-      rowf[r * ROWF + (c < 3 ? RF_GRGB + c : RF_L)] =
-          in ? __ldg(p.g_out + (size_t)(row0 + r) * 4 + c) : 0.f;
+  // the consumer's first tile of the first chunk sets its slot
+  bool add = p.accumulate != 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, add = true) {
+    const int r0 = tile * TROWS + wg * ROWS;       // within the chunk
+    const int row0 = p.row_begin + r0;             // within the batch
+    const int nv = min(ROWS, p.n - r0);            // may be <= 0
+    const WsOut wo = {ws, ld, stg, r0, nv};
+    bar_sync(BAR_WG + wg, 128);
+    load_a_tile(emt, p.em, row0, n_end, p.ke, tw, 128);
+    load_a_tile(vpt, p.vpe, row0, n_end, p.kv, tw, 128);
+    for (int i = tw; i < ROWS * 4; i += 128) {
+      const int r = i / 4, k = i % 4;
+      const bool in = r < nv;
+      if (k < 3)
+        rowf[r * ROWF + RF_P + k] = in ? __ldg(p.p3 + (size_t)(row0 + r) * 3 + k) : 0.f;
+      rowf[r * ROWF + (k < 3 ? RF_GRGB + k : RF_GL)] =
+          in ? __ldg(p.g_out + (size_t)(row0 + r) * 4 + k) : 0.f;
     }
-    __syncthreads();
+    // the narrow x rows: em, vpe
+    for (int i = tw; i < ROWS * p.ke; i += 128) {
+      const int r = i % ROWS, k = i / ROWS;
+      ws[ws_idx(ld, L.em + k, r0 + r)] =
+          r < nv ? p.em[(size_t)(row0 + r) * p.ke + k] : __float2bfloat16_rn(0.f);
+    }
+    for (int i = tw; i < ROWS * p.kv; i += 128) {
+      const int r = i % ROWS, k = i / ROWS;
+      ws[ws_idx(ld, L.vpe + k, r0 + r)] =
+          r < nv ? p.vpe[(size_t)(row0 + r) * p.kv + k] : __float2bfloat16_rn(0.f);
+    }
+    fence_async_shared();
+    bar_sync(BAR_WG + wg, 128);
+    // the rgb head's y rows [g_rgb, g_logit, 0 x 4] (its product reads
+    // g_rgb) and the column sums of g_rgb, g_logit (ba4, b8l)
+    for (int i = tw; i < ROWS * 8; i += 128) {
+      const int r = i % ROWS, k = i / ROWS;
+      ws[ws_idx(ld, L.g8 + k, r0 + r)] = __float2bfloat16_rn(
+          k < 3 ? rowf[r * ROWF + RF_GRGB + k]
+                : (k == 3 ? rowf[r * ROWF + RF_GL] : 0.f));
+    }
+    if (tw < 4) {
+      const int rf = tw < 3 ? RF_GRGB + tw : RF_GL;
+      float s = 0.f;
+      for (int r = 0; r < ROWS; ++r) s += rowf[r * ROWF + rf];
+      float* dst = slot + (tw < 3 ? C.ba4 + tw : C.b8l);
+      *dst = add ? *dst + s : s;
+    }
 
-    // ---- forward recompute (the reverse sweep's g_e is an input)
-    float acc[MI][NT][4];
-    trunk_forward<T, W>(p, act, ems, acc, spbuf, hbuf + H_A * TILE,
-                        rowf + RF_L, n_base);
-    warp_gemm<NT, true, MI>(act, LDA, W, p.w8fT, W, n_base, acc, true);
-    __syncthreads();
+    // ---- forward recompute (g_e is an input)
+    c.product_smem<W>(acc, emt, kes, false);
+    c.drain(acc);
+    softplus_layer<W>(acc, p.b0, sc);
+    put_ws<W>(wo, L.a, acc);
+    to_afrag<W>(acc, a);
+#pragma unroll 1
+    for (int li = 0; li < nt; ++li) {
+      c.product<W>(acc, a, false);
+      if (li == p.skip_pos) c.product_smem<W>(acc, emt, kes, true);
+      c.drain(acc);
+      softplus_layer<W>(acc, p.trunk_b + (size_t)li * W,
+                        sc + (size_t)(li + 1) * H * 128);
+      put_ws<W>(wo, L.a + (li + 1) * W, acc);
+      to_afrag<W>(acc, a);
+    }
+    // w8l's first half: the column sums of g_logit a_last (f32)
+    colsum<W>(acc, rowf, RF_GL, nv, red, buf, slot + C.w8l, add);
+    c.product<W>(acc, a, false);
+    c.drain(acc);
+    add_bias<W>(acc, p.b8f);
+    put_ws<W>(wo, L.feat, acc);
+    to_afrag<W>(acc, a);
+    c.product<W>(acc, a, false);
+    c.drain(acc);
+    store_scr<W>(sc + (size_t)HB * 128, acc);      // zf = feat @ wf
+    {
+      // n from the saved g_e, as the forward computed it
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          acc[i][j][r] += __ldg(p.b8f + frag_col(n_base, j, r));
-          hbuf[H_FEAT * TILE + sq(fq<NT>(i, j, r))] = Op::from_f(acc[i][j][r]);
+          const int row = rl + 8 * (r >> 1), col = 8 * j + 2 * t + (r & 1);
+          acc[4 * j + r] = row < nv && col < p.ke
+                             ? __ldg(p.g_e_in + (size_t)(row0 + row) * p.ke + col)
+                             : 0.f;
         }
-    put_act<NT, MI>(act, LDA, acc, n_base);
-    if (tid < TBM * 3) {
-      // n from the saved g_e, in the forward's summation order
-      const int row = tid / 3, j = tid % 3;
-      float s = 0.f;
-      if (row0 + row < p.n) {
-        const float* ge = p.g_e_in + (size_t)(row0 + row) * p.ke;
-        const float* de = p.de + (size_t)(row0 + row) * p.ke;
-        for (int c = j; c < p.ke; c += 3) s += __ldg(ge + c) * __ldg(de + c);
-      }
-      rowf[row * ROWF + RF_N + j] = s;
+      float n[2][3];
+      normals<W>(acc, p.de, row0, nv, p.ke, n);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int m = 0; m < 3; ++m) rowf[(rl + 8 * h) * ROWF + RF_N + m] = n[h][m];
     }
-    __syncthreads();
-    warp_gemm<NT, true, MI>(vps, LDK, p.kv, p.wvT, p.kv, n_base, acc, true);
-    warp_gemm<NT, true, MI>(act, LDA, W, p.wfT, W, n_base, acc, false);
-    __syncthreads();
-    app0_epilogue<T, W>(p, acc, rowf, n_base);
-    for (int jl = 0; jl <= 3; ++jl) {
-      // acc holds aa[jl]
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            hbuf[(H_AA + jl) * TILE + sq(fq<NT>(i, j, r))] =
-                Op::from_f(acc[i][j][r]);
-      put_act<NT, MI>(act, LDA, acc, n_base);
-      __syncthreads();
-      if (jl == 3) break;
-      warp_gemm<NT, true, MI>(act, LDA, W, p.waT + (size_t)jl * W * W, W,
-                              n_base, acc, true);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            acc[i][j][r] = fmaxf(
-                acc[i][j][r] + __ldg(p.bab + jl * W + frag_col(n_base, j, r)),
-                0.f);
+    c.product_smem<W>(acc, vpt, kvs, false);
+    c.drain(acc);
+    app0<W>(acc, sc + (size_t)HB * 128, p, rowf);
+    put_ws<W>(wo, L.aa, acc);
+    put_mask<W>(acc, sc + (size_t)MASK * 128);
+    to_afrag<W>(acc, a);
+#pragma unroll 1
+    for (int jl = 0; jl < 3; ++jl) {
+      c.product<W>(acc, a, false);
+      c.drain(acc);
+      relu_bias<W>(acc, p.bab + jl * W);
+      put_ws<W>(wo, L.aa + (jl + 1) * W, acc);
+      if (jl < 2) {
+        put_mask<W>(acc, sc + (size_t)(MASK + (jl + 1) * (W / 64)) * 128);
+        to_afrag<W>(acc, a);
+      }
     }
 
-    // ---- appearance backward
-    // d_wa4 = aa3^T g_rgb and d_ba4 on the CUDA cores (3 output columns)
-    if (tid < W) {
-      float s[3] = {0.f, 0.f, 0.f};
-      for (int row = 0; row < TBM; ++row) {
-        const float a = Op::to_f(act[row * LDA + tid]);
+    // ---- appearance backward: gz = bf16(g_rgb) @ wa4^T where aa3 > 0
+    {
+      float g[2][3];
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
-          s[c] += a * rnd<T>(rowf[row * ROWF + RF_GRGB + c]);
-      }
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int c = 0; c < 3; ++c) atomicAdd(p.d_wa4 + tid * 3 + c, s[c]);
-    }
-    if (tid < 3) {
-      float s = 0.f;
-      for (int row = 0; row < TBM; ++row) s += rowf[row * ROWF + RF_GRGB + tid];
-      atomicAdd(p.d_ba4 + tid, s);
-    }
-    if (tid == 3) {
-      float s = 0.f;
-      for (int row = 0; row < TBM; ++row) s += rowf[row * ROWF + RF_L];
-      atomicAdd(p.d_b8l, s);
-    }
-    // gz = operand(g_rgb) @ wa4^T
+        for (int k = 0; k < 3; ++k)
+          g[h][k] = bf_round(rowf[(rl + 8 * h) * ROWF + RF_GRGB + k]);
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+      for (int j = 0; j < W / 8; ++j) {
+        float2 c[3];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+        for (int k = 0; k < 3; ++k)
+          c[k] = __ldg(reinterpret_cast<const float2*>(p.wa4t + k * W + 8 * j + 2 * t));
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const int row = frag_row(i, r), col = frag_col(n_base, j, r);
           float s = 0.f;
 #pragma unroll
-          for (int c = 0; c < 3; ++c)
-            s += rnd<T>(rowf[row * ROWF + RF_GRGB + c]) *
-                 Op::to_f(p.wa4[col * 3 + c]);
-          acc[i][j][r] = s;
+          for (int k = 0; k < 3; ++k) s += g[r >> 1][k] * ((r & 1) ? c[k].y : c[k].x);
+          acc[4 * j + r] = acc[4 * j + r] > 0.f ? s : 0.f;
         }
-    __syncthreads();                 // act (aa3) is read; free to overwrite
+      }
+    }
+    put_ws<W>(wo, L.gz + 3 * W, acc);
+    colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.bab + 2 * W, add);
+#pragma unroll 1
     for (int jl = 2; jl >= 0; --jl) {
-      const T* aa_next = hbuf + (H_AA + jl + 1) * TILE;
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            if (!(Op::to_f(aa_next[sq(fq<NT>(i, j, r))]) > 0.f))
-              acc[i][j][r] = 0.f;
-      put_T<T, MI, NT>(yT, 0, acc, n_base);
-      put_T_scr<T, MI, NT>(xT, 0, hbuf + (H_AA + jl) * TILE, n_base);
-      colsum_atomic<MI, NT>(p.d_bab + jl * W, acc, n_base, nullptr);
-      put_act<NT, MI>(act, LDA, acc, n_base);
-      __syncthreads();
-      dtn_atomic<T, W>(xT, W, yT, TBM, p.d_wa + (size_t)jl * W * W, n_base);
-      warp_gemm<NT, true, MI>(act, LDA, W, p.wa + (size_t)jl * W * W, W,
-                              n_base, acc, true);
-      __syncthreads();
+      to_afrag<W>(acc, a);
+      c.product<W>(acc, a, false);
+      c.drain(acc);
+      apply_mask<W>(acc, sc + (size_t)(MASK + jl * (W / 64)) * 128);
+      put_ws<W>(wo, L.gz + jl * W, acc);
+      if (jl > 0) colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.bab + (jl - 1) * W, add);
+    }
+    // gz is appearance layer 0's z_bar: ba0, wp, wn, g_n, then g_feat
+    colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.ba0, add);
+#pragma unroll 1
+    for (int k = 0; k < 3; ++k) {
+      colsum<W>(acc, rowf, RF_P + k, nv, red, buf, slot + C.wp + k * W, add);
+      colsum<W>(acc, rowf, RF_N + k, nv, red, buf, slot + C.wn + k * W, add);
     }
     {
-      const T* aa0 = hbuf + H_AA * TILE;
+      float gn[3][2];
+      row_dot3<W, false>(acc, p.wn, gn);
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            if (!(Op::to_f(aa0[sq(fq<NT>(i, j, r))]) > 0.f))
-              acc[i][j][r] = 0.f;
+      for (int k = 0; k < 3; ++k) {
+        rowf[rl * ROWF + RF_GN + k] = gn[k][0];
+        rowf[(rl + 8) * ROWF + RF_GN + k] = gn[k][1];
+      }
     }
-    // gz is appearance layer 0's z_bar: d_wf, d_wv, d_ba0, d_wp, d_wn, g_n
-    put_T<T, MI, NT>(yT, 0, acc, n_base);
-    put_T_scr<T, MI, NT>(xT, 0, hbuf + H_FEAT * TILE, n_base);
-    colsum_atomic<MI, NT>(p.d_ba0, acc, n_base, nullptr);
+    to_afrag<W>(acc, a);
+    c.product<W>(acc, a, false);             // g_feat = gz @ wf^T
+    c.drain(acc);
+    put_ws<W>(wo, L.gfeat, acc);
+    colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.b8f, add);
+    to_afrag<W>(acc, a);
+    c.product<W>(acc, a, false);             // g_feat @ w8f^T
+    c.drain(acc);
+    {
+      // h_bar = g_feat @ w8f^T + g_logit w8l
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      colsum_atomic<MI, NT>(p.d_wp + c * W, acc, n_base, rowf + RF_P + c);
-      colsum_atomic<MI, NT>(p.d_wn + c * W, acc, n_base, rowf + RF_N + c);
-      rowsum_partial<NT, MI>(acc, p.wn + c * W, n_base,
-                             red + c * NWARPS * TBM);
+      for (int j = 0; j < W / 8; ++j) {
+        const float2 w8 = __ldg(reinterpret_cast<const float2*>(p.w8l + 8 * j + 2 * t));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float gl = rowf[(rl + 8 * h) * ROWF + RF_GL];
+          acc[4 * j + 2 * h] += gl * w8.x;
+          acc[4 * j + 2 * h + 1] += gl * w8.y;
+        }
+      }
+      store_scr<W>(sc + (size_t)HB * 128, acc);
     }
-    put_act<NT, MI>(act, LDA, acc, n_base);
-    __syncthreads();
-    if (tid < TBM * 3) {
-      const int row = tid / 3, c = tid % 3;
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) s += red[(c * NWARPS + w) * TBM + row];
-      rowf[row * ROWF + RF_GN + c] = s;
-    }
-    dtn_atomic<T, W>(xT, W, yT, TBM, p.d_wf, n_base);
-    __syncthreads();
-    for (int idx = tid; idx < TBM * p.kv; idx += NTHREADS) {
-      const int c = idx / TBM, row = idx % TBM;
-      xT[c * LDT + row] = vps[row * LDK + c];
-    }
-    __syncthreads();
-    dtn_atomic<T, W>(xT, p.kv, yT, TBM, p.d_wv, n_base);
-    // g_feat = operand(gz) @ wf^T
-    warp_gemm<NT, true, MI>(act, LDA, W, p.wf, W, n_base, acc, true);
-    __syncthreads();
-
-    // ---- first-order seeds through the split geometry head
-    put_T<T, MI, NT>(yT, 0, acc, n_base);
-    put_T_scr<T, MI, NT>(xT, 0, hbuf + (H_A + p.n_trunk) * TILE, n_base);
-    colsum_atomic<MI, NT>(p.d_b8f, acc, n_base, nullptr);
-    put_act<NT, MI>(act, LDA, acc, n_base);
-    __syncthreads();
-    dtn_atomic<T, W>(xT, W, yT, TBM, p.d_w8f, n_base);
-    // h_bar = operand(g_feat) @ w8f^T + g_logit w8l
-    warp_gemm<NT, true, MI>(act, LDA, W, p.w8f, W, n_base, acc, true);
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          hb[sq(fq<NT>(i, j, r))] =
-              acc[i][j][r] + rowf[frag_row(i, r) * ROWF + RF_L] *
-                                 __ldg(p.w8l + frag_col(n_base, j, r));
-    __syncthreads();
+    bar_sync(BAR_WG + wg, 128);              // every row's g_n is in rowf
 
     // ---- tangent forward of the normal path: c_e = de * g_n[c % 3]
-    for (int idx = tid; idx < TBM * p.ke; idx += NTHREADS) {
-      const int row = idx / p.ke, c = idx % p.ke;
-      const float v = row0 + row < p.n
-                          ? __ldg(p.de + (size_t)(row0 + row) * p.ke + c) *
-                                rowf[row * ROWF + RF_GN + c % 3]
-                          : 0.f;
-      ces[row * LDK + c] = Op::from_f(v);
+    for (int i = tw; i < ROWS * p.ke; i += 128) {
+      const int r = i % ROWS, k = i / ROWS;
+      const float v = r < nv ? __ldg(p.de + (size_t)(row0 + r) * p.ke + k) *
+                                   rowf[r * ROWF + RF_GN + k % 3]
+                             : 0.f;
+      const bf16 b = __float2bfloat16_rn(v);
+      ws[ws_idx(ld, L.ce + k, r0 + r)] = b;
+      *reinterpret_cast<bf16*>(cet + (k >> 4) * A_KSTEP + (r >> 3) * 256 +
+                               ((k >> 3) & 1) * 128 + (r & 7) * 16 +
+                               (k & 7) * 2) = b;
     }
-    __syncthreads();
-    for (int li = 0; li <= p.n_trunk; ++li) {
-      if (li == 0) {
-        warp_gemm<NT, true, MI>(ces, LDK, p.ke, p.w0T, p.ke, n_base, acc,
-                                true);
+    fence_async_shared();
+    bar_sync(BAR_WG + wg, 128);
+    c.product_smem<W>(acc, cet, kes, false);
+    c.drain(acc);
+    store_scr<W>(sc + (size_t)TZ * 128, acc);
+    mul_scr<W>(acc, sc);
+    put_ws<W>(wo, L.t, acc);
+    to_afrag<W>(acc, a);
+#pragma unroll 1
+    for (int li = 0; li < nt; ++li) {
+      c.product<W>(acc, a, false);
+      if (li == p.skip_pos) c.product_smem<W>(acc, cet, kes, true);
+      c.drain(acc);
+      store_scr<W>(sc + (size_t)(TZ + (li + 1) * H) * 128, acc);
+      mul_scr<W>(acc, sc + (size_t)(li + 1) * H * 128);
+      if (li < nt - 1) {
+        put_ws<W>(wo, L.t + (li + 1) * W, acc);
+        to_afrag<W>(acc, a);
       } else {
-        warp_gemm<NT, true, MI>(act, LDA, W,
-                                p.trunkT + (size_t)(li - 1) * W * W, W,
-                                n_base, acc, true);
-        if (li - 1 == p.skip_pos)
-          warp_gemm<NT, true, MI>(ces, LDK, p.ke, p.wskipT, p.ke, n_base,
-                                  acc, false);
+        // w8l's second half: the column sums of t_last
+        colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.w8l, true);
       }
-      __syncthreads();
-      const float* sp_l = spbuf + li * TILE;
-      float* tz_l = tzbuf + li * TILE;
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int q = fq<NT>(i, j, r);
-            tz_l[sq(q)] = acc[i][j][r];
-            acc[i][j][r] *= sp_l[sq(q)];
-            if (li < p.n_trunk)
-              hbuf[(H_T + li) * TILE + sq(q)] = Op::from_f(acc[i][j][r]);
-          }
-      if (li < p.n_trunk) {
-        put_act<NT, MI>(act, LDA, acc, n_base);
-      } else {
-        colsum_atomic<MI, NT>(p.d_w8l, acc, n_base, nullptr);
-      }
-      __syncthreads();
     }
 
-    // ---- doubled reverse sweep: (h_bar, t_bar) through s and s'
+    // ---- doubled reverse sweep: (h_bar, t_bar) through s and s''
+    set_cols<W>(acc, p.w8l);                 // t_bar
+#pragma unroll 1
+    for (int li = nt; li >= 0; --li) {
+      const float* sp = sc + (size_t)li * H * 128;
+      const float* tz = sc + (size_t)(TZ + li * H) * 128;
+      const float* hb = sc + (size_t)HB * 128;
+      float* tzbf = sc + (size_t)TZBF * 128;
+      const int o_tzb = L.tzb + li * W;
+      // z_bar = h_bar s + t_bar s'' tz -> acc; tz_bar = t_bar s -> the
+      // workspace and its A fragments (scratch)
+      wo.acquire();
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+      for (int j = 0; j < W / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+        for (int h = 0; h < 2; ++h) {
+          float v[2];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          acc[i][j][r] = __ldg(p.w8l + frag_col(n_base, j, r));   // t_bar
-    for (int li = p.n_trunk; li >= 0; --li) {
-      const float* sp_l = spbuf + li * TILE;
-      const float* tz_l = tzbuf + li * TILE;
-      // z_bar = h_bar s + t_bar s'' tz -> act, yT[:, 0:TBM]
-      // tz_bar = t_bar s               -> scratch, yT[:, TBM:2 TBM]
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int q = fq<NT>(i, j, r);
-            const float s = sp_l[sq(q)];
-            const float tb = acc[i][j][r];
-            const float zb = hb[sq(q)] * s + tb * (100.f * s * (1.f - s)) * tz_l[sq(q)];
-            const float tzb = tb * s;
-            const int row = frag_row(i, r), col = frag_col(n_base, j, r);
-            yT[col * LDT + row] = Op::from_f(zb);
-            yT[col * LDT + TBM + row] = Op::from_f(tzb);
-            hbuf[H_TZB * TILE + sq(q)] = Op::from_f(tzb);
-            acc[i][j][r] = zb;
+          for (int e = 0; e < 2; ++e) {
+            const int q = 4 * j + 2 * h + e;
+            const float s = sp[q * 128], tb = acc[q];
+            acc[q] = hb[q * 128] * s + tb * (100.f * s * (1.f - s)) * tz[q * 128];
+            v[e] = tb * s;
+            wo.stage(8 * j + 2 * t + e, rl + 8 * h, v[e]);
           }
-      colsum_atomic<MI, NT>(
-          li == 0 ? p.d_b0 : p.d_trunk_b + (size_t)(li - 1) * W, acc, n_base,
-          nullptr);
-      if (li == 0) {
-        for (int idx = tid; idx < TBM * p.ke; idx += NTHREADS) {
-          const int c = idx / TBM, row = idx % TBM;
-          xT[c * LDT + row] = ems[row * LDK + c];
-          xT[c * LDT + TBM + row] = ces[row * LDK + c];
+          tzbf[(2 * j + h) * 128] = __uint_as_float(pack_bf16(v[0], v[1]));
         }
-        __syncthreads();
-        dtn_atomic<T, W>(xT, p.ke, yT, 2 * TBM, p.d_w0, n_base);
-        break;
-      }
-      put_act<NT, MI>(act, LDA, acc, n_base);
-      put_T_scr<T, MI, NT>(xT, 0, hbuf + (H_A + li - 1) * TILE, n_base);
-      put_T_scr<T, MI, NT>(xT, TBM, hbuf + (H_T + li - 1) * TILE, n_base);
-      __syncthreads();
-      dtn_atomic<T, W>(xT, W, yT, 2 * TBM,
-                       p.d_trunk_w + (size_t)(li - 1) * W * W, n_base);
-      if (li - 1 == p.skip_pos) {
-        __syncthreads();             // xT is read; its rows take [em; c_e]
-        for (int idx = tid; idx < TBM * p.ke; idx += NTHREADS) {
-          const int c = idx / TBM, row = idx % TBM;
-          xT[c * LDT + row] = ems[row * LDK + c];
-          xT[c * LDT + TBM + row] = ces[row * LDK + c];
-        }
-        __syncthreads();
-        dtn_atomic<T, W>(xT, p.ke, yT, 2 * TBM, p.d_wskip, n_base);
-      }
-      // h_bar = operand(z_bar) @ W^T, then t_bar = operand(tz_bar) @ W^T
-      const T* wl = p.trunk + (size_t)(li - 1) * W * W;
-      warp_gemm<NT, true, MI>(act, LDA, W, wl, W, n_base, acc, true);
+      wo.flush(o_tzb, W);
+      put_ws<W>(wo, L.zb + li * W, acc);
+      colsum<W>(acc, rowf, -1, nv, red, buf,
+                slot + (li == 0 ? C.b0 : C.trunk_b + (li - 1) * W), add);
+      if (li == 0) break;
+      // h_bar = bf16(z_bar) @ W^T, then t_bar = bf16(tz_bar) @ W^T, each
+      // over its own pass of the layer's slabs
+      to_afrag<W>(acc, a);
+      c.product<W>(acc, a, false);
+      c.drain(acc);
+      store_scr<W>(sc + (size_t)HB * 128, acc);
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
+      for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) hb[sq(fq<NT>(i, j, r))] = acc[i][j][r];
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            acc[i][j][r] = Op::to_f(hbuf[H_TZB * TILE + sq(fq<NT>(i, j, r))]);
-      put_act<NT, MI>(act, LDA, acc, n_base);
-      __syncthreads();
-      warp_gemm<NT, true, MI>(act, LDA, W, wl, W, n_base, acc, true);
-      __syncthreads();
+        for (int i = 0; i < 4; ++i)
+          a[kk][i] = __float_as_uint(tzbf[(4 * kk + i) * 128]);
+      c.product<W>(acc, a, false);
+      c.drain(acc);
     }
-    __syncthreads();
   }
+  if (tw == 0) bulk_wait();              // the staging reads, the stores
 }
 
-template <typename T, int W>
-size_t fwd_smem() {
-  constexpr size_t TBM = Tile<T>::BM, LDK = Tile<T>::LDK;
-  return 2 * TBM * (W + Operand<T>::PAD) * sizeof(T) + 2 * TBM * LDK * sizeof(T) +
-         TBM * LDK * sizeof(float) + TBM * ROWF * sizeof(float) +
-         (size_t)NWARPS * TBM * sizeof(float);
+// ------------------------------------- backward: the weight gradients
+
+constexpr int GB = 128, GK = 64;           // tile rows and columns, stage points
+constexpr int GSTAGES = 4;                 // stages in the ring
+constexpr int TILE_BYTES = GB * GK * 2;    // one operand's stage tile
+constexpr size_t WGRAD_SMEM = (size_t)GSTAGES * 2 * TILE_BYTES + 2 * GSTAGES * 8;
+
+// One product x^T y over the chunk's points: x rows [x, x + r), y rows
+// [y, y + c) of the workspace; a second segment (x2, y2) adds into the
+// same sums (the trunk's a^T z_bar + t^T tz_bar). Its tiles are GB x GB;
+// in a slot its product goes to [r x oc] at `out` (the first oc of its c
+// columns).
+struct WJob { int x, x2, y, y2, r, c, oc, rt, ct, tile0; long long out; };
+struct WPlan { WJob job[16]; int n_jobs, n_tiles; long long p_floats, c_floats;
+               long long leaf[18]; };
+
+// The jobs, and the gradients' flat buffer leaf after leaf: the products'
+// region (what the split-K slots hold, p_floats) trunk_w, w0, wskip, w8f,
+// wa, [wf; wv] (one product's rows), wa4 (3 of the rgb head's 8 columns),
+// then the column sums' region (cs_layout, c_floats). leaf[] holds each
+// gradient's offset in the packed order (w0, b0, wskip, trunk_w, trunk_b,
+// w8f, b8f, w8l, b8l, wp, wv, wn, wf, ba0, wa, bab, wa4, ba4); ops/
+// fused_radiance.py `bf16_slot_layout` mirrors it.
+__host__ WPlan wplan(int w, int ke, int kv, int nt, int skip) {
+  const WsRows L = ws_rows(w, ke, kv, nt);
+  const CsLayout C = cs_layout(w, nt);
+  WPlan P = {};
+  const long long ww = (long long)w * w;
+  long long at = 0;
+  auto take = [&](long long floats) { at += floats; return at - floats; };
+  const long long tw = take(nt * ww), w0 = take((long long)ke * w);
+  const long long wsk = take((long long)ke * w), w8f = take(ww);
+  const long long wa = take(3 * ww), app = take((long long)(w + kv) * w);
+  const long long wa4 = take(3 * w);
+  at = (at + 3) / 4 * 4;
+  P.p_floats = at;
+  P.c_floats = C.floats;
+  const long long c0 = at;
+  const long long leaf[18] = {
+      w0, c0 + C.b0, wsk, tw, c0 + C.trunk_b, w8f, c0 + C.b8f, c0 + C.w8l,
+      c0 + C.b8l, c0 + C.wp, app + ww, c0 + C.wn, app, c0 + C.ba0, wa,
+      c0 + C.bab, wa4, c0 + C.ba4};
+  for (int i = 0; i < 18; ++i) P.leaf[i] = leaf[i];
+  auto add = [&](int x, int x2, int y, int y2, int r, int c, int oc,
+                 long long out) {
+    WJob& J = P.job[P.n_jobs++];
+    J.x = x; J.x2 = x2; J.y = y; J.y2 = y2; J.r = r; J.c = c; J.oc = oc;
+    J.rt = (r + GB - 1) / GB;
+    J.ct = (c + GB - 1) / GB;
+    J.tile0 = P.n_tiles;
+    P.n_tiles += J.rt * J.ct;
+    J.out = out;
+  };
+  for (int i = 1; i <= nt; ++i)
+    add(L.a + (i - 1) * w, L.t + (i - 1) * w, L.zb + i * w, L.tzb + i * w,
+        w, w, w, tw + (i - 1) * ww);
+  add(L.em, L.ce, L.zb, L.tzb, ke, w, w, w0);
+  add(L.em, L.ce, L.zb + (skip + 1) * w, L.tzb + (skip + 1) * w, ke, w, w,
+      wsk);
+  add(L.a + nt * w, -1, L.gfeat, -1, w, w, w, w8f);
+  for (int j = 0; j < 3; ++j)
+    add(L.aa + j * w, -1, L.gz + (j + 1) * w, -1, w, w, w, wa + j * ww);
+  add(L.feat, -1, L.gz, -1, w + kv, w, w, app);
+  add(L.aa + 3 * w, -1, L.g8, -1, w, 8, 3, wa4);
+  return P;
 }
 
-template <typename T, int W>
-size_t bwd_smem() {
-  constexpr size_t TBM = Tile<T>::BM, LDK = Tile<T>::LDK, LDT = Tile<T>::LDT;
-  return TBM * (W + Operand<T>::PAD) * sizeof(T) + 3 * TBM * LDK * sizeof(T) +
-         2 * (size_t)W * LDT * sizeof(T) + TBM * ROWF * sizeof(float) +
-         3 * (size_t)NWARPS * TBM * sizeof(float);
+// wgmma descriptor of a stage tile: K-major core matrices, 128 bytes apart
+// along K (8 points), 1024 bytes apart along the rows (8 features)
+__device__ __forceinline__ uint64_t stage_desc(const void* p) {
+  const uint32_t a = smem_u32(p);
+  return (uint64_t)((a >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32);
 }
 
-template <typename T>
-size_t scratch_bytes(int which, int width) {
-  const size_t tile = (size_t)Tile<T>::BM * width;
-  return which == 0 ? N_F32_FWD * tile * 4
-                    : N_F32_BWD * tile * 4 + N_OP_BWD * tile * sizeof(T);
+// Each CTA: one GB x GB output tile of one job over its split's points,
+// GK points a stage. One producer thread copies each stage's 8-feature
+// groups (1 KB each) by cp.async.bulk into a ring of GSTAGES stages; each
+// consumer warpgroup owns 64 rows of the tile: a stage's four wgmma
+// m64n128k16 chain in the tensor core from zero, FADD adds the stage into
+// the accumulator, and the stage's slot is freed.
+__global__ void __launch_bounds__(NTHREADS, 1)
+    wgrad_kernel(const __grid_constant__ WPlan plan, const bf16* __restrict__ ws,
+                 long long ld, int kpts, float* partial, int slot0) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + GSTAGES * 2 * TILE_BYTES);
+  uint64_t* empty = full + GSTAGES;
+  int jb = 0;
+  while (jb + 1 < plan.n_jobs && (int)blockIdx.x >= plan.job[jb + 1].tile0)
+    ++jb;
+  const WJob& J = plan.job[jb];
+  const int local = blockIdx.x - J.tile0;
+  const int rt = local / J.ct, ct = local % J.ct;
+  const int s = blockIdx.y, S = gridDim.y;
+  const int nk = kpts / GK;
+  const int k_beg = (int)((long long)nk * s / S);
+  const int per = (int)((long long)nk * (s + 1) / S) - k_beg;
+  const int nit = (J.x2 >= 0 ? 2 : 1) * per;
+  const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < GSTAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, NCONS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NCONS) {                       // producer
+    if (tw == 0) {
+      // 8-feature groups of the tile that lie inside the job's rows
+      const int xg = min(GB, J.r - rt * GB) / 8, yg = min(GB, J.c - ct * GB) / 8;
+      const uint32_t bytes = (uint32_t)(xg + yg) * GK * 16;
+      for (int it = 0; it < nit; ++it) {
+        const int st = it % GSTAGES;
+        if (it >= GSTAGES) mbar_wait(empty + st, ((it / GSTAGES) & 1) ^ 1);
+        const int seg = it / per, p0 = (k_beg + it % per) * GK;
+        const int xo = (seg ? J.x2 : J.x) + rt * GB, yo = (seg ? J.y2 : J.y) + ct * GB;
+        unsigned char* xs = smem + st * 2 * TILE_BYTES;
+        unsigned char* ys = xs + TILE_BYTES;
+        mbar_expect_tx(full + st, bytes);
+        for (int g = 0; g < xg; ++g)
+          bulk_load(xs + g * GK * 16, ws + ws_idx(ld, xo + 8 * g, p0), GK * 16,
+                    full + st);
+        for (int g = 0; g < yg; ++g)
+          bulk_load(ys + g * GK * 16, ws + ws_idx(ld, yo + 8 * g, p0), GK * 16,
+                    full + st);
+      }
+    }
+    return;
+  }
+
+  // a warpgroup whose 64 rows lie past the job's rows (a ragged last row
+  // tile) skips its products
+  const bool active = rt * GB + wg * 64 < J.r;
+  float acc[64], d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int it = 0; it < nit; ++it) {
+    const int st = it % GSTAGES;
+    mbar_wait(full + st, (it / GSTAGES) & 1);
+    if (active) {
+      const unsigned char* xs = smem + st * 2 * TILE_BYTES + wg * 8 * GK * 16;
+      const unsigned char* ys = smem + st * 2 * TILE_BYTES + TILE_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < GK / 16; ++ks)
+        Mma<128>::ss(d, stage_desc(xs + ks * 256), stage_desc(ys + ks * 256),
+                     ks > 0 ? 1 : 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(d);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += d[i];
+    }
+    if (tw == 0) mbar_arrive(empty + st);
+  }
+  float* out = partial + (size_t)(slot0 + s) * plan.p_floats + J.out;
+  const int rl = row_lo(), t = tw & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = rt * GB + wg * 64 + rl + 8 * (r >> 1);
+      const int col = ct * GB + 8 * j + 2 * t + (r & 1);
+      if (row < J.r && col < J.oc) out[(size_t)row * J.oc + col] = acc[4 * j + r];
+    }
 }
 
-template <typename T, int W, bool FWD>
-cudaError_t launch(const RadParams<T>& p, int slots, cudaStream_t stream) {
-  const size_t smem = FWD ? fwd_smem<T, W>() : bwd_smem<T, W>();
-  auto kernel = FWD ? rad_fwd_kernel<T, W> : rad_bwd_kernel<T, W>;
+// ------------------------------------------------------------- launches
+
+bool dims_ok(int w, int ke, int kv, int nt) {
+  return (w == 128 || w == 256) && ke > 0 && ke % 16 == 0 && ke <= 64 &&
+         kv > 0 && kv % 16 == 0 && kv <= 64 && nt >= 1 && nt < MAXL;
+}
+
+// scratch words of one consumer thread
+int scr_words(int w, int nt, bool sweep) {
+  return sweep ? (2 * (nt + 1) + 1) * (w / 2) + w / 4 + 3 * (w / 64)
+               : (nt + 2) * (w / 2);
+}
+
+template <int W, bool SWEEP>
+cudaError_t launch_engine(RParams p, int slots, cudaStream_t stream) {
+  const ConsSmem S = cons_smem(W, p.ke, p.kv, SWEEP);
+  const size_t fixed = (size_t)NCONS * S.bytes;
+  p.ring = ring_slots(fixed, (size_t)W * 32);
+  if (p.ring < LAG + 2) return cudaErrorInvalidValue;
+  const size_t smem = ring_bytes(p.ring, W) + fixed + 2 * MAX_RING * sizeof(uint64_t);
+  auto kernel = SWEEP ? sweep_kernel<W> : fwd_kernel<W>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_tiles = (p.n + Tile<T>::BM - 1) / Tile<T>::BM;
-  const int grid = n_tiles < slots ? n_tiles : slots;
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
+  const int tiles = (p.n + TROWS - 1) / TROWS;
+  kernel<<<tiles < slots ? tiles : slots, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// ptrs: em, de, vpe, p3, [g_e, g_out (bwd)], 25 weights (w0T, w0, b0,
-// wskipT, wskip, trunkT, trunk, trunk_b, w8fT, w8f, b8f, w8l, b8l, wp, wn,
-// wvT, wfT, wf, ba0, waT, wa, bab, wa4T, wa4, ba4), then the outputs
-// (fwd: out, g_e; bwd: slot 0 of the 18 gradients in the packed order),
-// then the scratch. ints: n, width, ke, kv, n_trunk, skip_pos, slots and
-// (bwd) the floats of one gradient slot; the grid is min(tiles, slots).
-// em, vpe and the product weights are of the operand type T, everything
-// else f32.
-template <typename T>
-int run(bool fwd, void* const* ptrs, const int* ints, void* stream) {
-  RadParams<T> p = {};
-  int k = 0;
-  auto tp = [&]() { return static_cast<const T*>(ptrs[k++]); };
+RParams point_params(void* const* ptrs, int& k) {
+  RParams p = {};
   auto fp = [&]() { return static_cast<const float*>(ptrs[k++]); };
-  auto op = [&]() { return static_cast<float*>(ptrs[k++]); };
-  p.em = tp(); p.de = fp(); p.vpe = tp(); p.p3 = fp();
-  if (!fwd) { p.g_e_in = fp(); p.g_out = fp(); }
-  p.w0T = tp(); p.w0 = tp(); p.b0 = fp();
-  p.wskipT = tp(); p.wskip = tp();
-  p.trunkT = tp(); p.trunk = tp(); p.trunk_b = fp();
-  p.w8fT = tp(); p.w8f = tp(); p.b8f = fp(); p.w8l = fp(); p.b8l = fp();
-  p.wp = fp(); p.wn = fp();
-  p.wvT = tp(); p.wfT = tp(); p.wf = tp(); p.ba0 = fp();
-  p.waT = tp(); p.wa = tp(); p.bab = fp();
-  p.wa4T = tp(); p.wa4 = tp(); p.ba4 = fp();
-  if (fwd) {
-    p.out = op(); p.g_e = op();
-  } else {
-    p.d_w0 = op(); p.d_b0 = op(); p.d_wskip = op(); p.d_trunk_w = op();
-    p.d_trunk_b = op(); p.d_w8f = op(); p.d_b8f = op(); p.d_w8l = op();
-    p.d_b8l = op(); p.d_wp = op(); p.d_wv = op(); p.d_wn = op();
-    p.d_wf = op(); p.d_ba0 = op(); p.d_wa = op(); p.d_bab = op();
-    p.d_wa4 = op(); p.d_ba4 = op();
-  }
-  p.scratch = static_cast<unsigned char*>(ptrs[k++]);
-  p.n = ints[0];
-  const int width = ints[1];
-  p.ke = ints[2];
-  p.kv = ints[3];
-  p.n_trunk = ints[4];
-  p.skip_pos = ints[5];
-  const int slots = ints[6];
-  if (!fwd) {
-    // the float2 reductions: every slot and leaf 8-byte aligned
-    p.slot_floats = ints[7];
-    bool aligned = p.slot_floats % 4 == 0;
-    for (int g = k - 19; g < k - 1; ++g)
-      aligned = aligned && reinterpret_cast<uintptr_t>(ptrs[g]) % 8 == 0;
-    if (!aligned) return cudaErrorInvalidValue;
-  }
-  if (p.n <= 0) return cudaSuccess;
-  if (p.ke <= 0 || p.ke % 16 || p.ke > 64 || p.kv <= 0 || p.kv % 16 ||
-      p.kv > 64 || p.n_trunk < 1 || p.n_trunk > 7 || p.skip_pos < 0 ||
-      p.skip_pos >= p.n_trunk || slots < 1)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (width) {
-    case 128: return fwd ? launch<T, 128, true>(p, slots, s) : launch<T, 128, false>(p, slots, s);
-    case 256: return fwd ? launch<T, 256, true>(p, slots, s) : launch<T, 256, false>(p, slots, s);
-    default: return cudaErrorInvalidValue;
-  }
+  p.em = static_cast<const bf16*>(ptrs[k++]);
+  p.vpe = static_cast<const bf16*>(ptrs[k++]);
+  p.de = fp(); p.p3 = fp();
+  return p;
+}
+
+void weight_params(RParams& p, void* const* ptrs, int& k) {
+  auto fp = [&]() { return static_cast<const float*>(ptrs[k++]); };
+  p.slabs = static_cast<const unsigned char*>(ptrs[k++]);
+  p.b0 = fp(); p.trunk_b = fp(); p.b8f = fp(); p.w8l = fp(); p.b8l = fp();
+  p.wp = fp(); p.wn = fp(); p.ba0 = fp(); p.bab = fp(); p.wa4t = fp();
+  p.ba4 = fp();
 }
 
 }  // namespace
 
-// Bytes of device scratch one CTA slot needs (which: 0 forward, 1
-// backward).
-extern "C" long long psnerf_radiance_scratch_bytes(int which, int width) {
-  return (long long)scratch_bytes<bf16>(which, width);
+// Sizes of one shape (ints: width, ke, kv, n_trunk): out[0] bytes of the
+// packed slabs, out[1] workspace rows, out[2] forward and out[3] sweep
+// scratch floats per CTA, out[4] floats of a split-K slot (the products'
+// region), out[5] floats of a column-sum slot, out[6] weight-gradient
+// tiles, out[7 .. 24] each gradient's offset in the flat buffer (the
+// products' region, then the column sums'), in the packed order.
+extern "C" int psnerf_radiance_sizes(const int* ints, long long* out) {
+  const int w = ints[0], ke = ints[1], kv = ints[2], nt = ints[3];
+  if (!dims_ok(w, ke, kv, nt)) return (int)cudaErrorInvalidValue;
+  const WPlan P = wplan(w, ke, kv, nt, 0);
+  out[0] = mats(w, ke, kv, nt).total;
+  out[1] = ws_rows(w, ke, kv, nt).rows;
+  out[2] = (long long)NCONS * 128 * scr_words(w, nt, false);
+  out[3] = (long long)NCONS * 128 * scr_words(w, nt, true);
+  out[4] = P.p_floats;
+  out[5] = P.c_floats;
+  out[6] = P.n_tiles;
+  for (int i = 0; i < 18; ++i) out[7 + i] = P.leaf[i];
+  return 0;
 }
 
-// Return a cudaError_t (0 = cudaSuccess). The backward adds into its
-// gradient slots (one per CTA, laid out back to back), which the caller
-// zeroes and then sums with psnerf_radiance_slot_sum.
+// Each returns a cudaError_t (0 = cudaSuccess).
+// ptrs: em, vpe (bf16), de, p3, the packed slabs, b0, trunk_b, b8f, w8l,
+// b8l, wp, wn, ba0, bab, wa4t ([3, W], the rgb head's bf16 values in f32),
+// ba4, then out, g_e, scratch. ints: n, width, ke, kv, n_trunk, skip_pos,
+// slots (the grid is min(tiles of 128 points, slots)).
 extern "C" int psnerf_radiance_fwd(void* const* ptrs, const int* ints,
                                    void* stream) {
-  return run<bf16>(true, ptrs, ints, stream);
+  const int w = ints[1], ke = ints[2], kv = ints[3], nt = ints[4];
+  if (!dims_ok(w, ke, kv, nt) || ints[5] < 0 || ints[5] >= nt || ints[6] < 1)
+    return (int)cudaErrorInvalidValue;
+  int k = 0;
+  RParams p = point_params(ptrs, k);
+  weight_params(p, ptrs, k);
+  p.out = static_cast<float*>(ptrs[k++]);
+  p.g_e = static_cast<float*>(ptrs[k++]);
+  p.scratch = static_cast<float*>(ptrs[k++]);
+  p.n = ints[0]; p.ke = ke; p.kv = kv; p.n_trunk = nt; p.skip_pos = ints[5];
+  p.scr_words = scr_words(w, nt, false);
+  p.sched = sched_fwd(w, ke, kv, nt, p.skip_pos);
+  if (p.n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(w == 128 ? launch_engine<128, false>(p, ints[6], s)
+                        : launch_engine<256, false>(p, ints[6], s));
 }
 
-extern "C" int psnerf_radiance_bwd(void* const* ptrs, const int* ints,
-                                   void* stream) {
-  return run<bf16>(false, ptrs, ints, stream);
+// ptrs: em, vpe, de, p3, the packed slabs, b0 .. ba4 (as the forward's),
+// g_e, g_out, the workspace (bf16), the column-sum slots (NCONS per CTA
+// of the grid), scratch. ints: n (the chunk's points), row_begin, ld (the
+// workspace's points, a multiple of 128), width, ke, kv, n_trunk,
+// skip_pos, slots, accumulate (0: the chunk's sums set the slots, else
+// they add onto them: every chunk after the first).
+extern "C" int psnerf_radiance_sweep(void* const* ptrs, const int* ints,
+                                     void* stream) {
+  const int w = ints[3], ke = ints[4], kv = ints[5], nt = ints[6];
+  if (!dims_ok(w, ke, kv, nt) || ints[7] < 0 || ints[7] >= nt ||
+      ints[8] < 1 || ints[2] % TROWS || ints[2] < ints[0] || ints[9] < 0)
+    return (int)cudaErrorInvalidValue;
+  int k = 0;
+  RParams p = point_params(ptrs, k);
+  weight_params(p, ptrs, k);
+  p.g_e_in = static_cast<const float*>(ptrs[k++]);
+  p.g_out = static_cast<const float*>(ptrs[k++]);
+  p.ws = static_cast<bf16*>(ptrs[k++]);
+  p.colsum = static_cast<float*>(ptrs[k++]);
+  p.scratch = static_cast<float*>(ptrs[k++]);
+  p.n = ints[0]; p.row_begin = ints[1]; p.ld = ints[2];
+  p.ke = ke; p.kv = kv; p.n_trunk = nt; p.skip_pos = ints[7];
+  p.accumulate = ints[9];
+  p.scr_words = scr_words(w, nt, true);
+  p.sched = sched_sweep(w, ke, kv, nt, p.skip_pos);
+  if (p.n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(w == 128 ? launch_engine<128, true>(p, ints[8], s)
+                        : launch_engine<256, true>(p, ints[8], s));
+}
+
+// ptrs: the workspace, the split-K slots. ints: kpts (the chunk's points
+// rounded up to 128), ld, width, ke, kv, n_trunk, skip_pos, splits, slot0.
+extern "C" int psnerf_radiance_wgrad(void* const* ptrs, const int* ints,
+                                     void* stream) {
+  const int w = ints[2], ke = ints[3], kv = ints[4], nt = ints[5];
+  if (!dims_ok(w, ke, kv, nt) || ints[0] % TROWS || ints[0] > ints[1] ||
+      ints[1] % TROWS || ints[7] < 1 || ints[6] < 0 || ints[6] >= nt)
+    return (int)cudaErrorInvalidValue;
+  const WPlan P = wplan(w, ke, kv, nt, ints[6]);
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)WGRAD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  wgrad_kernel<<<dim3(P.n_tiles, ints[7]), NTHREADS, WGRAD_SMEM,
+                 static_cast<cudaStream_t>(stream)>>>(
+      P, static_cast<const bf16*>(ptrs[0]), ints[1], ints[0],
+      static_cast<float*>(ptrs[1]), ints[8]);
+  return (int)cudaGetLastError();
 }
 
 // The slots summed in fixed order by the engine (slot_reduce.cuh). ptrs:

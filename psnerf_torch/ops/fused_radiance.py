@@ -16,26 +16,29 @@ normal path injects. Two kernels compute it:
     doubled reverse sweep carrying (h_bar, t_bar) through softplus'' =
     100 s (1 - s). It returns weight gradients only.
 
-Both come in the two operand forms of the TPU kernels:
-  * bf16 operands (`compute="bfloat16"`, csrc/fused_radiance.cu): one
-    forward and one backward kernel; the backward adds each tile's weight
-    gradients into its CTA's own slot, and `slot_sum` adds the slots in a
-    fixed order: deterministic from run to run;
+Both come in the two operand forms of the TPU kernels, and both backwards
+are a sweep over chunks of at most CHUNK points that writes every weight-
+gradient operand to a device workspace (`sweep`), a split-K product of
+those operands per chunk (`wgrad`), and a fixed-order sum of the partial
+products (the reduce): deterministic from run to run.
+  * bf16 operands (`compute="bfloat16"`, csrc/fused_radiance.cu): the
+    forward (`fwd`) and the sweep run on the bf16 trunk engine
+    (csrc/trunk_wgmma.cuh, weights packed once per call into k-step slabs,
+    `bf16_slabs`); the workspace is bf16 in core-matrix tiles
+    (`ws_index`), and the sweep also writes each tile's f32 column sums
+    (the bias-like gradients, wp, wn, w8l) to its consumer's slot; both
+    kinds of slot are summed by `slot_sum`. `bf16_launches` counts the
+    fwd, sweep and wgrad launches, `slot_sum.launches` the reduces;
   * f32 operands (`compute="float32"`, the default field's form,
     csrc/fused_radiance_f32.cu; 3xTF32 wgmma, close to f32 products):
     a prologue splits the weights into tf32 hi/lo fragments (`split`),
-    then the forward (`fwd`); the backward is a sweep over chunks of at
-    most CHUNK points that writes every weight-gradient operand to a
-    device workspace (`sweep`), a split-K product of those operands per
-    chunk (`wgrad`), and a fixed-order sum of the partial products
-    (`reduce`): deterministic from run to run. Each of the five counts its
-    launches in `f32_launches`.
+    then the forward (`fwd`), `sweep`, `wgrad` and `reduce`; each of the
+    five counts its launches in `f32_launches`.
 
-Both fixed-order sums (`slot_sum`, the f32 `reduce`) run on one engine,
-csrc/slot_reduce.cuh: out[i] = ((0 + s_0[i]) + s_1[i]) + ... over the
-slots in order, one float4 column a thread. The f32 slot is laid out
-leaf after leaf (`f32_slot_layout`), so its sum holds every gradient as a
-view and the reduce is the same flat launch as the slot sum.
+Both fixed-order sums run on one engine, csrc/slot_reduce.cuh: out[i] =
+((0 + s_0[i]) + s_1[i]) + ... over the slots in order, one float4 column a
+thread. Each slot is laid out leaf after leaf (`f32_slot_layout`,
+`bf16_slot_layout`), so the sum holds every gradient as a view.
 
 Weight norm and the layout (skip row split, split geometry head,
 appearance input split into [p, view PE, normal, feat] rows) are folded
@@ -48,12 +51,13 @@ the no-grad march).
 its forward and backward run the plain versions (`radiance_forward_plain`,
 `radiance_backward_plain`: the kernels' arithmetic, and the backward's
 explicit sweep, in PyTorch; the backward is the composition of
-`radiance_sweep_plain` and `weight_grads_plain`, chunked as the f32
-kernels chunk; `split_weights_plain` is the prologue's). On CUDA tensors
-they launch the kernels or raise. Launches are counted per form in
+`radiance_sweep_plain` and `weight_grads_plain`, chunked as the kernels
+chunk; `split_weights_plain` is the f32 prologue's). On CUDA tensors they
+launch the kernels or raise. Launches are counted per form in
 `radiance_forward.launches` and `radiance_backward.launches`
-({"bfloat16": n, "float32": n}), per f32 kernel in `f32_launches`, and
-the bf16 backward's slot sum in `slot_sum.launches`.
+({"bfloat16": n, "float32": n}), per kernel in `f32_launches` and
+`bf16_launches`, and the fixed-order sums of the bf16 form in
+`slot_sum.launches`.
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ import torch
 from psnerf_torch.core.encoding import nerf_embed, nerf_embed_dim
 from psnerf_torch.fields.mlp import wn_weight
 from psnerf_torch.ops.build import (check_operand, launch, load_library,
-                                    round_up, route)
+                                    pack_slabs, round_up, route)
 from psnerf_torch.ops.fused_occ import fold_geometry
 
 KERNEL_WIDTHS = (128, 256)
@@ -75,8 +79,9 @@ FORMS = tuple(_OP_DTYPE)        # the operand forms, by `compute` name
 PACK_ORDER = ["w0", "b0", "wskip", "trunk_w", "trunk_b", "w8f", "b8f", "w8l",
               "b8l", "wp", "wv", "wn", "wf", "ba0", "wa", "bab", "wa4", "ba4"]
 F32_KERNELS = ("split", "fwd", "sweep", "wgrad", "reduce")
-CHUNK = 65536        # points per backward sweep of the f32 form
-BF16_TILE = 64       # points per tile of the bf16 kernels
+BF16_KERNELS = ("fwd", "sweep", "wgrad")   # the reduce is slot_sum
+CHUNK = 65536        # points per backward sweep (both forms)
+BF16_TILE = 128      # points per CTA tile of the bf16 kernels
 _lib_handle = []
 _lib_f32_handle = []
 
@@ -233,15 +238,23 @@ def radiance_forward_plain(packed: dict, em, de, vpe, p3, skip_pos: int,
     return torch.cat([c["rgb"], c["logit"][:, None]], dim=1), c["g_e"]
 
 
-def ws_layout(w: int, ke: int, kv: int, nt: int) -> tuple[dict, int]:
-    """The f32 backward's workspace rows (one row = one feature over the
-    points; csrc/fused_radiance_f32.cu:ws_layout): {name: (first row,
-    rows)} and the rows per point. [feat; vpe; p3; n3] is one product's x
-    block; a, t, aa, gz, zb and tzb stack their layers."""
+_WS_F32_ONLY = ("p3", "n3", "w8lt")
+
+
+def ws_layout(w: int, ke: int, kv: int, nt: int,
+              form: str = "float32") -> tuple[dict, int]:
+    """The backward's workspace rows (one row = one feature over the
+    points; csrc/fused_radiance_f32.cu:ws_layout, csrc/fused_radiance.cu:
+    ws_rows): {name: (first row, rows)} and the rows per point. [feat; vpe;
+    p3; n3] is one product's x block in the f32 form; the bf16 form takes
+    p3, n3 and w8lt by f32 column sums in the sweep and has no rows for
+    them. a, t, aa, gz, zb and tzb stack their layers."""
     rows = [("feat", w), ("vpe", kv), ("p3", 3), ("n3", 3), ("em", ke),
             ("ce", ke), ("a", (nt + 1) * w), ("t", nt * w), ("aa", 4 * w),
             ("gz", 4 * w), ("gfeat", w), ("w8lt", w), ("g8", 8),
             ("zb", (nt + 1) * w), ("tzb", (nt + 1) * w)]
+    if form == "bfloat16":
+        rows = [(k, n) for k, n in rows if k not in _WS_F32_ONLY]
     out, r = {}, 0
     for name, n in rows:
         out[name] = (r, n)
@@ -355,14 +368,12 @@ def radiance_backward_plain(packed: dict, em, de, vpe, p3, g_e, g_out,
                             skip_pos: int, compute: str = "bfloat16") -> dict:
     """Gradients of sum(out * g_out) wrt every packed operand (f32, the
     packed shapes), by the backward kernels' explicit sweep: the sweep's
-    operands, then the weight gradients, over chunks of CHUNK points for
-    the f32 form (as its kernels chunk; all points at once for the bf16
-    form) summed in order."""
+    operands, then the weight gradients, over chunks of CHUNK points (as
+    the kernels chunk) summed in order."""
     n = em.shape[0]
-    chunk = CHUNK if compute == "float32" else max(n, 1)
     d = None
-    for b in range(0, max(n, 1), chunk):
-        s = slice(b, b + chunk)
+    for b in range(0, max(n, 1), CHUNK):
+        s = slice(b, b + CHUNK)
         ws = radiance_sweep_plain(packed, em[s], de[s], vpe[s], p3[s],
                                   g_e[s], g_out[s], skip_pos, compute)
         dc = weight_grads_plain(ws, skip_pos, compute)
@@ -423,12 +434,13 @@ def _lib():
     """The bf16 form's library (csrc/fused_radiance.cu)."""
     if not _lib_handle:
         lib = load_library("fused_radiance")
-        for fn in (lib.psnerf_radiance_fwd, lib.psnerf_radiance_bwd,
-                   lib.psnerf_radiance_slot_sum):
+        for k in (*BF16_KERNELS, "slot_sum"):
+            fn = getattr(lib, f"psnerf_radiance_{k}")
             fn.argtypes = _LAUNCH_ARGS
             fn.restype = ctypes.c_int
-        lib.psnerf_radiance_scratch_bytes.argtypes = [ctypes.c_int] * 2
-        lib.psnerf_radiance_scratch_bytes.restype = ctypes.c_longlong
+        lib.psnerf_radiance_sizes.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                              ctypes.POINTER(ctypes.c_longlong)]
+        lib.psnerf_radiance_sizes.restype = ctypes.c_int
         lib.psnerf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.psnerf_cuda_error_string.restype = ctypes.c_char_p
         _lib_handle.append(lib)
@@ -452,51 +464,6 @@ def _lib_f32():
     return _lib_f32_handle[0]
 
 
-@torch.no_grad()
-def _kernel_weights(packed: dict) -> dict:
-    """The bf16 kernels' weight layouts: each product's operand as [out, in]
-    (the forward's) and [in, out] (the backward sweeps'), in the packed
-    operand type; the rgb head padded to the MMA's 8 columns."""
-    c = lambda t: t.contiguous()
-    wa4 = packed["wa4"]
-    return dict(
-        w0T=c(packed["w0"].T), w0=c(packed["w0"]),
-        wskipT=c(packed["wskip"].T), wskip=c(packed["wskip"]),
-        trunkT=c(packed["trunk_w"].transpose(1, 2)),
-        trunk=c(packed["trunk_w"]), trunk_b=c(packed["trunk_b"].float()),
-        w8fT=c(packed["w8f"].T), w8f=c(packed["w8f"]),
-        b8f=c(packed["b8f"].float()), w8l=c(packed["w8l"].float()),
-        b8l=c(packed["b8l"].float()), wp=c(packed["wp"].float()),
-        wn=c(packed["wn"].float()), wvT=c(packed["wv"].T),
-        wfT=c(packed["wf"].T), wf=c(packed["wf"]),
-        ba0=c(packed["ba0"].float()),
-        waT=c(packed["wa"].transpose(1, 2)), wa=c(packed["wa"]),
-        bab=c(packed["bab"].float()),
-        wa4T=c(torch.nn.functional.pad(wa4.T, (0, 0, 0, 8 - wa4.shape[1]))),
-        wa4=c(wa4), ba4=c(packed["ba4"].float()),
-        b0=c(packed["b0"].float()))
-
-
-_W_NAMES = ["w0T", "w0", "b0", "wskipT", "wskip", "trunkT", "trunk",
-            "trunk_b", "w8fT", "w8f", "b8f", "w8l", "b8l", "wp", "wn", "wvT",
-            "wfT", "wf", "ba0", "waT", "wa", "bab", "wa4T", "wa4", "ba4"]
-
-
-def _weight_shapes(w, ke, kv, nt, op):
-    """(dtype, shape) of each kernel weight; op: the operand type."""
-    f32 = torch.float32
-    return {
-        "w0T": (op, (w, ke)), "w0": (op, (ke, w)), "b0": (f32, (w,)),
-        "wskipT": (op, (w, ke)), "wskip": (op, (ke, w)),
-        "trunkT": (op, (nt, w, w)), "trunk": (op, (nt, w, w)),
-        "trunk_b": (f32, (nt, w)), "w8fT": (op, (w, w)), "w8f": (op, (w, w)),
-        "b8f": (f32, (w,)), "w8l": (f32, (w,)), "b8l": (f32, (1,)),
-        "wp": (f32, (3, w)), "wn": (f32, (3, w)), "wvT": (op, (w, kv)),
-        "wfT": (op, (w, w)), "wf": (op, (w, w)), "ba0": (f32, (w,)),
-        "waT": (op, (3, w, w)), "wa": (op, (3, w, w)), "bab": (f32, (3, w)),
-        "wa4T": (op, (8, w)), "wa4": (op, (w, 3)), "ba4": (f32, (3,))}
-
-
 _GRAD_SHAPES = lambda w, ke, kv, nt: {
     "w0": (ke, w), "b0": (w,), "wskip": (ke, w), "trunk_w": (nt, w, w),
     "trunk_b": (nt, w), "w8f": (w, w), "b8f": (w,), "w8l": (w,), "b8l": (1,),
@@ -505,13 +472,34 @@ _GRAD_SHAPES = lambda w, ke, kv, nt: {
 
 
 def bf16_slot_layout(w: int, ke: int, kv: int, nt: int) -> tuple:
-    """The bf16 backward's gradient slot: (the leaves' sizes in the packed
-    order, the floats each takes in the slot). Every leaf starts at a
-    multiple of 4 floats (the kernel's float2 reductions; slot_sum's
-    16-byte loads), so the slot is sum(room) floats."""
-    shapes = _GRAD_SHAPES(w, ke, kv, nt)
-    sizes = [math.prod(shapes[k]) for k in PACK_ORDER]
-    return sizes, [round_up(x, 4) for x in sizes]
+    """The bf16 backward's gradients as one flat buffer (csrc/
+    fused_radiance.cu `wplan` and `cs_layout`, which the library's sizes
+    are checked against): ({leaf: its offset}, in the packed order, the
+    floats of one split-K slot, the floats of one column-sum slot). Leaf
+    after leaf, every one contiguous: first the products' region (what a
+    split-K slot holds: trunk_w, w0, wskip, w8f, wa, then one product's
+    rows wf, wv, then wa4), padded to a multiple of 4 floats, then the
+    column sums' region (what a column-sum slot holds: trunk_b, b0, b8f,
+    bab, ba0, wp, wn, w8l, ba4, b8l and 4 zeros). The reduce sums each
+    kind of slot into its region, so every gradient is a view."""
+    ww = w * w
+    prods = [("trunk_w", nt * ww), ("w0", ke * w), ("wskip", ke * w),
+             ("w8f", ww), ("wa", 3 * ww), ("wf", ww), ("wv", kv * w),
+             ("wa4", 3 * w)]
+    sums = [("trunk_b", nt * w), ("b0", w), ("b8f", w), ("bab", 3 * w),
+            ("ba0", w), ("wp", 3 * w), ("wn", 3 * w), ("w8l", w),
+            ("ba4", 3), ("b8l", 1), (None, 4)]
+    out, at = {}, 0
+    for k, n in prods:
+        out[k] = at
+        at += n
+    p_floats = round_up(at, 4)
+    at = p_floats
+    for k, n in sums:
+        if k is not None:
+            out[k] = at
+        at += n
+    return {k: out[k] for k in PACK_ORDER}, p_floats, at - p_floats
 
 
 def f32_slot_layout(w: int, ke: int, kv: int, nt: int) -> tuple:
@@ -537,6 +525,73 @@ def f32_slot_layout(w: int, ke: int, kv: int, nt: int) -> tuple:
     return {k: out[k] for k in PACK_ORDER}, at
 
 
+def bf16_slab_mats(packed: dict) -> list:
+    """Every product weight of the bf16 kernels as the [N, K] (outputs,
+    inputs) its products read, in the order the slabs are packed (csrc/
+    fused_radiance.cu `mats`), in three runs: the narrow-K products' w0,
+    wskip, wv (transposed); the forward products' trunk_w[i], w8f, wf,
+    wa[j] (transposed); the reverse products' trunk_w[i], wskip and w0
+    (their ke rows padded to W), wa[j], wf, w8f (as packed). Each run of
+    W x W matrices is one stacked [m, W, W] tensor."""
+    bf = torch.bfloat16
+    p = {k: v.detach().to(bf) for k, v in packed.items()}
+    w = p["w8f"].shape[0]
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, w - x.shape[0]))
+    fwd = torch.cat([p["trunk_w"], p["w8f"][None], p["wf"][None], p["wa"]]
+                    ).transpose(1, 2)
+    rev = torch.cat([p["trunk_w"], pad(p["wskip"])[None],
+                     pad(p["w0"])[None], p["wa"], p["wf"][None],
+                     p["w8f"][None]])
+    return [p["w0"].T, p["wskip"].T, p["wv"].T, fwd, rev]
+
+
+@torch.no_grad()
+def bf16_slabs(packed: dict) -> torch.Tensor:
+    """The bf16 kernels' weights packed once per call: `bf16_slab_mats` as
+    one run of k-step slabs (build.pack_slabs, each stacked run at once),
+    in the order the forward and the sweep stream them."""
+    runs = []
+    for m in bf16_slab_mats(packed):
+        if m.dim() == 2:
+            runs.append(pack_slabs([m]))
+        else:
+            c, n, k = m.shape
+            runs.append(m.reshape(c, n // 8, 8, k // 16, 2, 8)
+                        .permute(0, 3, 1, 4, 2, 5).reshape(-1))
+    return torch.cat(runs).contiguous()
+
+
+def ws_index(f: torch.Tensor, p: torch.Tensor, ld: int) -> torch.Tensor:
+    """The bf16 workspace's element of feature row f and point p (ld
+    points a row, a multiple of BF16_TILE): core matrices of 8 features x 8
+    points, so an 8-feature group's points are contiguous (csrc/
+    fused_radiance.cu ws_idx)."""
+    return ((f >> 3) * (ld >> 3) + (p >> 3)) * 64 + (f & 7) * 8 + (p & 7)
+
+
+def pack_workspace(ws: dict, dims: tuple, ld: int) -> torch.Tensor:
+    """A point-major sweep result (radiance_sweep_plain's rows) as the bf16
+    workspace the sweep kernel writes: the rows of ws_layout(...,
+    "bfloat16"), zero past the points given."""
+    lay, rows = ws_layout(*dims, "bfloat16")
+    n = next(iter(ws.values())).shape[0]
+    mat = torch.zeros((rows, ld), dtype=torch.float32)
+    for k, (o, r) in lay.items():
+        mat[o:o + r, :n] = ws[k].T.float()
+    return (mat.reshape(rows // 8, 8, ld // 8, 8).permute(0, 2, 1, 3)
+            .reshape(-1).to(torch.bfloat16))
+
+
+def unpack_workspace(flat: torch.Tensor, dims: tuple, ld: int,
+                     n: int) -> dict:
+    """The bf16 workspace's rows, point-major ([n, rows] f32 each) as
+    radiance_sweep_plain returns them."""
+    lay, rows = ws_layout(*dims, "bfloat16")
+    mat = (flat.reshape(rows // 8, ld // 8, 8, 8).permute(0, 2, 1, 3)
+           .reshape(rows, ld))
+    return {k: mat[o:o + r, :n].T.float() for k, (o, r) in lay.items()}
+
+
 def _dims(packed: dict, skip_pos: int) -> tuple:
     """(width, ke, kv, n_trunk) of the packed operands; raises for what the
     kernels do not take."""
@@ -557,47 +612,6 @@ def _need_cuda(dev) -> None:
                          f"{dev}")
 
 
-def _launch(which: str, kw: dict, tensors: dict, names: list, n: int,
-            skip_pos: int, slots: int, slot_floats: int = 0) -> None:
-    """Check every operand and launch the bf16 form's forward or backward
-    kernel on a grid of min(tiles, slots) CTAs (the backward's gradient
-    operands: slot 0 of `slots` back-to-back slots of slot_floats)."""
-    dev = tensors["em"].device
-    _need_cuda(dev)
-    w = kw["w8l"].shape[0]
-    ke, kv = kw["w0"].shape[0], kw["wvT"].shape[1]
-    nt = kw["trunk"].shape[0]
-    if w not in KERNEL_WIDTHS or ke > 64 or kv > 64 or nt > 7 or \
-            kw["wa"].shape[0] != 3 or not 0 <= skip_pos < nt:
-        raise ValueError(f"the fused_radiance kernels do not take width {w}, "
-                         f"embedding widths {ke}/{kv}, {nt} trunk layers, "
-                         f"skip {skip_pos}")
-    op, f32 = torch.bfloat16, torch.float32
-    shapes = dict(_weight_shapes(w, ke, kv, nt, op),
-                  em=(op, (n, ke)), de=(f32, (n, ke)), vpe=(op, (n, kv)),
-                  p3=(f32, (n, 3)), g_e=(f32, (n, ke)), out=(f32, (n, 4)),
-                  g_out=(f32, (n, 4)))
-    for k, shape in _GRAD_SHAPES(w, ke, kv, nt).items():
-        shapes["d_" + k] = (f32, shape)
-    for name in names:
-        dt, shape = shapes[name]
-        check_operand(name, tensors[name], dt, shape, dev)
-    lib = _lib()
-    launch(getattr(lib, f"psnerf_radiance_{which}"),
-           lib.psnerf_cuda_error_string, dev,
-           [tensors[k] for k in names] + [_scratch(which, w, dev)],
-           [n, w, ke, kv, nt, skip_pos, slots, slot_floats],
-           f"fused_radiance {which} (bfloat16)")
-
-
-def _scratch(which: str, w: int, dev) -> torch.Tensor:
-    """Device scratch of the persistent grid: one slot per SM, each holding
-    a CTA's per-layer values of one tile (sizes from the library)."""
-    per_slot = _lib().psnerf_radiance_scratch_bytes(int(which == "bwd"), w)
-    return torch.empty((_slots(dev) * per_slot,), dtype=torch.uint8,
-                       device=dev)
-
-
 def slot_sum_plain(slots: torch.Tensor) -> torch.Tensor:
     """slot_sum's arithmetic: the rows of slots [S, total] added in order,
     from zero."""
@@ -608,25 +622,33 @@ def slot_sum_plain(slots: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def slot_sum(slots: torch.Tensor) -> torch.Tensor:
-    """The bf16 backward's gradients from its CTA slots [S, total] f32:
-    out[i] = sum over s = 0, 1, ... of slots[s, i], added in that order,
-    the same bits on every run. CPU tensors take slot_sum_plain; CUDA
-    tensors launch the slot reduction engine (counted in
-    slot_sum.launches), which loads 16 bytes at a time: total must be a
-    multiple of 4, the rows 16-byte aligned (radiance_backward pads its
-    slots so) and S at least 1."""
+def slot_sum(slots: torch.Tensor, out: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """out[i] = sum over s = 0, 1, ... of slots[s, i] for slots [S, total]
+    f32, added in that order, the same bits on every run (the bf16
+    backward's reduce). CPU tensors take slot_sum_plain; CUDA tensors
+    launch the slot reduction engine (counted in slot_sum.launches), which
+    loads 16 bytes at a time: total must be a multiple of 4, the rows and
+    `out` (a new [total] tensor if None) 16-byte aligned and S at least
+    1."""
     if route(slots) == "cpu":
-        return slot_sum_plain(slots)
+        got = slot_sum_plain(slots)
+        if out is None:
+            return got
+        out.copy_(got)
+        return out
     dev = slots.device
     check_operand("slots", slots, torch.float32, slots.shape, dev)
     n_slots, total = slots.shape
-    if total % 4 or slots.data_ptr() % 16 or n_slots < 1:
+    if out is None:
+        out = torch.empty((total,), dtype=torch.float32, device=dev)
+    check_operand("out", out, torch.float32, (total,), dev)
+    if total % 4 or slots.data_ptr() % 16 or out.data_ptr() % 16 or \
+            n_slots < 1:
         raise ValueError("slot_sum needs a multiple of 4 floats per slot, "
-                         f"16-byte aligned slots and one slot or more; got "
-                         f"{n_slots} x {total} floats at address "
+                         f"16-byte aligned slots and output and one slot or "
+                         f"more; got {n_slots} x {total} floats at address "
                          f"{slots.data_ptr():#x}")
-    out = torch.empty((total,), dtype=torch.float32, device=dev)
     lib = _lib()
     launch(lib.psnerf_radiance_slot_sum, lib.psnerf_cuda_error_string, dev,
            [slots, out], [total, n_slots], "fused_radiance slot sum")
@@ -635,6 +657,216 @@ def slot_sum(slots: torch.Tensor) -> torch.Tensor:
 
 
 slot_sum.launches = 0
+
+
+# ----------------------------------------------- the bf16 form's kernels
+
+bf16_launches = dict.fromkeys(BF16_KERNELS, 0)
+_BF16_VECTORS = ["b0", "trunk_b", "b8f", "w8l", "b8l", "wp", "wn", "ba0",
+                 "bab"]
+
+
+def _launch_bf16(kernel: str, dev, tensors: list, ints: list) -> None:
+    """Launch psnerf_radiance_<kernel> on the current stream of `dev` with
+    the tensors' device pointers, and count it; raises if the launch
+    fails."""
+    lib = _lib()
+    launch(getattr(lib, f"psnerf_radiance_{kernel}"),
+           lib.psnerf_cuda_error_string, dev, tensors, ints,
+           f"fused_radiance bf16 {kernel}")
+    bf16_launches[kernel] += 1
+
+
+def bf16_sizes(w: int, ke: int, kv: int, nt: int) -> dict:
+    """The bf16 kernels' buffer sizes at one shape (from the library,
+    checked against the wrapper's slab, workspace and slot layouts)."""
+    out = (ctypes.c_longlong * 25)()
+    rc = _lib().psnerf_radiance_sizes((ctypes.c_int * 4)(w, ke, kv, nt), out)
+    if rc != 0:
+        raise ValueError(f"the bf16 fused_radiance kernels do not take width "
+                         f"{w}, embedding widths {ke}/{kv}, {nt} layers")
+    sizes = dict(zip(["slab_bytes", "ws_rows", "fwd_scratch",
+                      "sweep_scratch", "p_floats", "c_floats",
+                      "wgrad_tiles"], out))
+    mats = (2 * ke + kv) * w + (2 * nt + 12) * w * w
+    if sizes["slab_bytes"] != 2 * mats:
+        raise RuntimeError("slab layouts of the library and the wrapper "
+                           "differ")
+    if sizes["ws_rows"] != ws_layout(w, ke, kv, nt, "bfloat16")[1]:
+        raise RuntimeError("workspace layouts of the library and the "
+                           "wrapper differ")
+    leaves, p_floats, c_floats = bf16_slot_layout(w, ke, kv, nt)
+    if (sizes["p_floats"], sizes["c_floats"]) != (p_floats, c_floats) or \
+            list(out[7:]) != list(leaves.values()):
+        raise RuntimeError("weight-gradient slot layouts of the library and "
+                           "the wrapper differ")
+    return sizes
+
+
+def _bf16_operands(packed: dict, dims: tuple, dev, slabs) -> list:
+    """The packed slabs and the f32 vectors the bf16 kernels read: b0,
+    trunk_b, b8f, w8l, b8l, wp, wn, ba0, bab, wa4t ([3, W], the rgb head's
+    bf16 values), ba4."""
+    w = dims[0]
+    shapes = dict(_GRAD_SHAPES(*dims), wa4t=(3, w))
+    t = {k: packed[k].detach().float() for k in _BF16_VECTORS + ["ba4"]}
+    t["wa4t"] = packed["wa4"].detach().to(torch.bfloat16).float().T
+    out = []
+    for k in _BF16_VECTORS + ["wa4t", "ba4"]:
+        x = t[k].contiguous()
+        if x.data_ptr() % 16:        # a view (b8f = b_last[1:]): 8-byte loads
+            x = x.clone()
+        check_operand(k, x, torch.float32, shapes[k], dev)
+        out.append(x)
+    return [slabs] + out
+
+
+def _bf16_points(dims, n, dev, **t) -> list:
+    """em and vpe in bf16 (the products' operands), the rest f32."""
+    w, ke, kv, nt = dims
+    shapes = dict(em=(n, ke), vpe=(n, kv), de=(n, ke), p3=(n, 3),
+                  g_e=(n, ke), g_out=(n, 4))
+    out = []
+    for k, x in t.items():
+        dt = torch.bfloat16 if k in ("em", "vpe") else torch.float32
+        x = x.to(dt).contiguous()
+        check_operand(k, x, dt, shapes[k], dev)
+        out.append(x)
+    return out
+
+
+def _check_slabs(slabs, sizes, dev) -> None:
+    check_operand("slabs", slabs, torch.bfloat16, (sizes["slab_bytes"] // 2,),
+                  dev)
+
+
+def radiance_forward_bf16(packed: dict, em, de, vpe, p3, skip_pos: int,
+                          slabs=None):
+    """The bf16 form's forward kernel: (out [N, 4], g_e [N, ke]). slabs:
+    bf16_slabs(packed), packed here if None."""
+    dims = _dims(packed, skip_pos)
+    w, ke, kv, nt = dims
+    n, dev = em.shape[0], em.device
+    _need_cuda(dev)
+    sz = bf16_sizes(*dims)
+    if slabs is None:
+        slabs = bf16_slabs(packed)
+    _check_slabs(slabs, sz, dev)
+    slots = _slots(dev)
+    ins = _bf16_points(dims, n, dev, em=em, vpe=vpe, de=de, p3=p3)
+    out = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    g_e = torch.empty((n, ke), dtype=torch.float32, device=dev)
+    scratch = torch.empty((slots * sz["fwd_scratch"],), dtype=torch.float32,
+                          device=dev)
+    _launch_bf16("fwd", dev,
+                 [*ins, *_bf16_operands(packed, dims, dev, slabs), out, g_e,
+                  scratch], [n, w, ke, kv, nt, skip_pos, slots])
+    return out, g_e
+
+
+def _slots(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def wgrad_splits(tiles: int, slots: int, most: int = 16) -> int:
+    """Split-K factor of a weight-gradient kernel (one CTA per SM): the
+    number of splits, at least enough to fill every SM once, whose CTAs
+    fill their last wave best (the smaller on a tie)."""
+    def fill(s):
+        waves = tiles * s / slots
+        return waves / -(-tiles * s // slots)
+    cands = [s for s in range(1, most + 1) if tiles * s >= slots] or [most]
+    return max(cands, key=lambda s: (fill(s), -s))
+
+
+class Bf16Backward:
+    """The bf16 form's backward, kernel by kernel, on one batch: for each
+    chunk c `sweep(c)` (the workspace, and its column sums: each consumer
+    warpgroup of the grid adds its tiles' into its own slot, the chunks in
+    order onto the first chunk's) and `wgrad(c)` (its split-K slots), then
+    `reduce()` sums the split-K slots and the column-sum slots, each kind
+    by one `slot_sum` into its region of `sum`, and returns `grads`, its
+    views (`bf16_slot_layout`). Allocates the workspace (ws_rows x
+    round_up(min(N, CHUNK), 128) bf16), the slots, the scratch and the sum
+    once; `run()` is all of it in order."""
+
+    def __init__(self, packed, em, de, vpe, p3, g_e, g_out, skip_pos,
+                 slabs=None):
+        self.dims = _dims(packed, skip_pos)
+        self.n, dev = em.shape[0], em.device
+        _need_cuda(dev)
+        self.dev, self.skip_pos = dev, skip_pos
+        sz = bf16_sizes(*self.dims)
+        if slabs is None:
+            slabs = bf16_slabs(packed)
+        _check_slabs(slabs, sz, dev)
+        self.ins = _bf16_points(self.dims, self.n, dev, em=em, vpe=vpe,
+                                de=de, p3=p3)
+        self.weights = _bf16_operands(packed, self.dims, dev, slabs)
+        self.grad_ins = _bf16_points(self.dims, self.n, dev, g_e=g_e,
+                                     g_out=g_out)
+        leaves, self.p_floats, self.c_floats = bf16_slot_layout(*self.dims)
+        self.slots = _slots(dev)
+        self.n_chunks = max(1, -(-self.n // CHUNK))
+        self.ld = round_up(max(1, min(self.n, CHUNK)), BF16_TILE)
+        self.splits = wgrad_splits(sz["wgrad_tiles"], self.slots)
+        # the first (largest) chunk's grid: two column-sum slots a CTA
+        self.grid = min(-(-self._chunk(0)[1] // BF16_TILE), self.slots)
+        f32 = torch.float32
+        self.ws = torch.empty((sz["ws_rows"] * self.ld,),
+                              dtype=torch.bfloat16, device=dev)
+        self.partial = torch.empty((self.n_chunks * self.splits,
+                                    self.p_floats), dtype=f32, device=dev)
+        self.colsums = torch.empty((2 * max(1, self.grid), self.c_floats),
+                                   dtype=f32, device=dev)
+        self.scratch = torch.empty((self.slots * sz["sweep_scratch"],),
+                                   dtype=f32, device=dev)
+        self.sum = torch.empty((self.p_floats + self.c_floats,), dtype=f32,
+                               device=dev)
+        shapes = _GRAD_SHAPES(*self.dims)
+        self.grads = {k: self.sum[o:o + math.prod(shapes[k])].view(shapes[k])
+                      for k, o in leaves.items()}
+
+    def workspace_bytes(self) -> int:
+        return (self.ws.numel() * 2 + self.partial.numel() * 4
+                + self.colsums.numel() * 4)
+
+    def _chunk(self, c):
+        b = c * CHUNK
+        return b, min(CHUNK, self.n - b)
+
+    def sweep(self, c):
+        w, ke, kv, nt = self.dims
+        b, nc = self._chunk(c)
+        _launch_bf16("sweep", self.dev,
+                     [*self.ins, *self.weights, *self.grad_ins, self.ws,
+                      self.colsums, self.scratch],
+                     [nc, b, self.ld, w, ke, kv, nt, self.skip_pos,
+                      self.slots, int(c > 0)])
+
+    def wgrad(self, c):
+        w, ke, kv, nt = self.dims
+        _, nc = self._chunk(c)
+        _launch_bf16("wgrad", self.dev, [self.ws, self.partial],
+                     [round_up(nc, BF16_TILE), self.ld, w, ke, kv, nt,
+                      self.skip_pos, self.splits, c * self.splits])
+
+    def reduce(self) -> dict:
+        slot_sum(self.partial, out=self.sum[:self.p_floats])
+        slot_sum(self.colsums, out=self.sum[self.p_floats:])
+        return self.grads
+
+    def workspace(self, c: int = 0) -> dict:
+        """Chunk c's workspace after its sweep, point-major as
+        radiance_sweep_plain returns it (a check; copies)."""
+        return unpack_workspace(self.ws, self.dims, self.ld,
+                                self._chunk(c)[1])
+
+    def run(self) -> dict:
+        for c in range(self.n_chunks):
+            self.sweep(c)
+            self.wgrad(c)
+        return self.reduce()
 
 
 # ------------------------------------------------ the f32 form's kernels
@@ -709,10 +941,6 @@ def _point_operands(dims, n, dev, **t) -> list:
     return out
 
 
-def _slots(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def radiance_forward_f32(packed: dict, em, de, vpe, p3, skip_pos: int):
     """The f32 form's forward (prologue, then the forward kernel):
     (out [N, 4], g_e [N, ke])."""
@@ -731,17 +959,6 @@ def radiance_forward_f32(packed: dict, em, de, vpe, p3, skip_pos: int):
     _launch_f32("fwd", dev, [*ins, frags, *vec, out, g_e, scratch],
                 [n, w, ke, kv, nt, skip_pos, slots])
     return out, g_e
-
-
-def wgrad_splits(tiles: int, slots: int, most: int = 16) -> int:
-    """Split-K factor of the weight-gradient kernel (one CTA per SM): the
-    number of splits, at least enough to fill every SM once, whose CTAs
-    fill their last wave best (the smaller on a tie)."""
-    def fill(s):
-        waves = tiles * s / slots
-        return waves / -(-tiles * s // slots)
-    cands = [s for s in range(1, most + 1) if tiles * s >= slots] or [most]
-    return max(cands, key=lambda s: (fill(s), -s))
 
 
 class F32Backward:
@@ -830,89 +1047,58 @@ class F32Backward:
         return self.reduce()
 
 
-_FWD_NAMES = ["em", "de", "vpe", "p3"] + _W_NAMES + ["out", "g_e"]
-_BWD_NAMES = (["em", "de", "vpe", "p3", "g_e", "g_out"] + _W_NAMES
-              + ["d_" + k for k in PACK_ORDER])
-
-
 def _check_form(compute: str) -> None:
     if compute not in FORMS:
         raise ValueError(f"compute must be one of {FORMS}, got {compute!r}")
 
 
 def radiance_forward(packed: dict, em, de, vpe, p3, skip_pos: int,
-                     compute: str = "bfloat16"):
+                     compute: str = "bfloat16", slabs=None):
     """Kernel forward on CUDA tensors, operand form `compute`:
-    (out [N, 4], g_e [N, ke])."""
+    (out [N, 4], g_e [N, ke]). slabs: the bf16 form's packed weights
+    (bf16_slabs), packed here if None."""
     _check_form(compute)
     if compute == "float32":
         out, g_e = radiance_forward_f32(packed, em, de, vpe, p3, skip_pos)
-        radiance_forward.launches[compute] += 1
-        return out, g_e
-    n = em.shape[0]
-    dev = em.device
-    _need_cuda(dev)
-    op = _OP_DTYPE[compute]
-    kw = _kernel_weights(packed)
-    t = dict(kw, em=em.to(op).contiguous(), de=de.contiguous(),
-             vpe=vpe.to(op).contiguous(), p3=p3.contiguous(),
-             out=torch.empty((n, 4), dtype=torch.float32, device=dev),
-             g_e=torch.empty((n, em.shape[1]), dtype=torch.float32,
-                             device=dev))
-    _launch("fwd", kw, t, _FWD_NAMES, n, skip_pos, _slots(dev))
+    else:
+        out, g_e = radiance_forward_bf16(packed, em, de, vpe, p3, skip_pos,
+                                         slabs)
     radiance_forward.launches[compute] += 1
-    return t["out"], t["g_e"]
+    return out, g_e
 
 
 radiance_forward.launches = dict.fromkeys(FORMS, 0)
 
 
 def radiance_backward(packed: dict, em, de, vpe, p3, g_e, g_out,
-                      skip_pos: int, compute: str = "bfloat16") -> dict:
+                      skip_pos: int, compute: str = "bfloat16",
+                      slabs=None) -> dict:
     """Kernel backward on CUDA tensors, operand form `compute`: f32
     gradients of sum(out * g_out) in the packed shapes, the same bits from
-    run to run. bf16: each CTA of the persistent grid adds its tiles' sums
-    into its own zeroed slot of the gradients, and `slot_sum` adds the
-    slots in a fixed order (the gradients are views of its output). f32:
-    the sweep, split-K weight-gradient and fixed-order reduce kernels
-    (`F32Backward`)."""
+    run to run: the sweep, split-K weight-gradient and fixed-order reduce
+    kernels (`Bf16Backward`, `F32Backward`; the gradients are views of the
+    reduce's output)."""
     _check_form(compute)
     if compute == "float32":
         grads = F32Backward(packed, em, de, vpe, p3, g_e, g_out,
                             skip_pos).run()
-        radiance_backward.launches[compute] += 1
-        return grads
-    n = em.shape[0]
-    dev = em.device
-    _need_cuda(dev)
-    op = _OP_DTYPE[compute]
-    kw = _kernel_weights(packed)
-    w, ke = kw["w8l"].shape[0], em.shape[1]
-    kv, nt = kw["wvT"].shape[1], kw["trunk"].shape[0]
-    shapes = _GRAD_SHAPES(w, ke, kv, nt)
-    sizes, room = bf16_slot_layout(w, ke, kv, nt)
-    grid = max(1, min(-(-n // BF16_TILE), _slots(dev)))
-    slots = torch.zeros((grid, sum(room)), dtype=torch.float32, device=dev)
-    leaf = lambda flat: {k: x[:s].view(shapes[k]) for k, x, s in
-                         zip(PACK_ORDER, flat.split(room), sizes)}
-    t = dict(kw, em=em.to(op).contiguous(), de=de.contiguous(),
-             vpe=vpe.to(op).contiguous(), p3=p3.contiguous(),
-             g_e=g_e.contiguous(), g_out=g_out.float().contiguous(),
-             **{"d_" + k: x for k, x in leaf(slots[0]).items()})
-    _launch("bwd", kw, t, _BWD_NAMES, n, skip_pos, grid, sum(room))
+    else:
+        grads = Bf16Backward(packed, em, de, vpe, p3, g_e, g_out, skip_pos,
+                             slabs).run()
     radiance_backward.launches[compute] += 1
-    return leaf(slot_sum(slots))
+    return grads
 
 
 radiance_backward.launches = dict.fromkeys(FORMS, 0)
 
 
 def reset_launches() -> None:
-    """Set both kernels' counts of both forms, the f32 form's per-kernel
-    counts and the slot sum's count to 0."""
+    """Set both kernels' counts of both forms, the per-kernel counts of
+    both forms and the slot sum's count to 0."""
     for fn in (radiance_forward, radiance_backward):
         fn.launches = dict.fromkeys(FORMS, 0)
     f32_launches.update(dict.fromkeys(F32_KERNELS, 0))
+    bf16_launches.update(dict.fromkeys(BF16_KERNELS, 0))
     slot_sum.launches = 0
 
 
@@ -920,12 +1106,15 @@ class _RadianceOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, skip_pos, compute, em, de, vpe, p3, *weights):
         packed = dict(zip(PACK_ORDER, weights))
+        ctx.slabs = None
         if route(em) == "cpu":
             out, g_e = radiance_forward_plain(packed, em, de, vpe, p3,
                                               skip_pos, compute)
         else:
+            if compute == "bfloat16":
+                ctx.slabs = bf16_slabs(packed)   # packed once for both
             out, g_e = radiance_forward(packed, em, de, vpe, p3, skip_pos,
-                                        compute)
+                                        compute, ctx.slabs)
         ctx.skip_pos, ctx.compute = skip_pos, compute
         ctx.save_for_backward(em, de, vpe, p3, g_e, *weights)
         return out
@@ -939,7 +1128,7 @@ class _RadianceOp(torch.autograd.Function):
                                         ctx.skip_pos, ctx.compute)
         else:
             d = radiance_backward(packed, em, de, vpe, p3, g_e, g_out,
-                                  ctx.skip_pos, ctx.compute)
+                                  ctx.skip_pos, ctx.compute, ctx.slabs)
         grads = [d[k].to(packed[k].dtype) for k in PACK_ORDER]
         return (None, None, None, None, None, None, *grads)
 

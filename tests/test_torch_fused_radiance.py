@@ -189,15 +189,30 @@ def test_supports_and_f32_refused_on_cuda(setup, monkeypatch):
 
 @pytest.mark.parametrize("width,nt", [(256, 7), (128, 3)])
 def test_bf16_slot_layout_aligns_every_leaf(width, nt):
-    """The bf16 backward's slot: every gradient leaf at a multiple of 4
-    floats (the kernel's float2 reductions, slot_sum's 16-byte loads), in
-    the packed order, with room for all of it; the CPU route of slot_sum
-    adds the slots in order."""
-    sizes, room = fr.bf16_slot_layout(width, 48, 32, nt)
+    """The bf16 backward's gradients, one flat buffer laid out leaf after
+    leaf in two regions: the products' (the split-K slots' floats, a
+    multiple of 4: slot_sum's 16-byte loads) and the column sums' (the
+    column-sum slots'), every leaf contiguous and inside its region, all
+    18 in the packed order's sizes; the CPU route of slot_sum adds the
+    slots in order, into a given output too."""
+    leaves, p_floats, c_floats = fr.bf16_slot_layout(width, 48, 32, nt)
     shapes = fr._GRAD_SHAPES(width, 48, 32, nt)
-    assert sizes == [int(np.prod(shapes[k])) for k in fr.PACK_ORDER]
-    assert all(r % 4 == 0 and s <= r < s + 4 for s, r in zip(sizes, room))
+    assert list(leaves) == fr.PACK_ORDER
+    assert p_floats % 4 == 0 and c_floats % 4 == 0
+    runs = sorted((o, int(np.prod(shapes[k])), k) for k, o in leaves.items())
+    prods = {"trunk_w", "w0", "wskip", "w8f", "wa", "wf", "wv", "wa4"}
+    assert runs[0][0] == 0 and runs[len(prods)][0] == p_floats
+    for (o, n, k), (o2, _, _) in zip(runs, runs[1:] + [(None, 0, None)]):
+        end = p_floats if k in prods else p_floats + c_floats
+        assert (o < p_floats) == (k in prods), k
+        assert o + n <= end, k
+        if o2 is not None and o2 != p_floats:
+            assert o + n == o2, k
+    assert leaves["wv"] == leaves["wf"] + width * width    # one product
     slots = torch.as_tensor(np.random.default_rng(3).normal(
-        size=(5, sum(room))).astype(np.float32))
+        size=(5, p_floats)).astype(np.float32))
     want = slots[0] + slots[1] + slots[2] + slots[3] + slots[4]
     assert torch.equal(fr.slot_sum(slots), want)
+    out = torch.empty(p_floats + c_floats)
+    fr.slot_sum(slots, out=out[:p_floats])
+    assert torch.equal(out[:p_floats], want)

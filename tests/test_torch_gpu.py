@@ -374,8 +374,9 @@ def test_fused_radiance_f32_split_and_sweep(width, layers):
 @pytest.mark.parametrize("width,layers", [(256, 8), (128, 4)])
 @pytest.mark.parametrize("n", [1, 63, 70001, 196608])
 def test_fused_radiance_bf16_backward_is_deterministic(width, layers, n):
-    """The bf16 backward adds each CTA's tiles into its own slot and the
-    slots in a fixed order: five launches agree bit for bit."""
+    """The bf16 backward writes its split-K and column-sum slots without
+    atomics and sums each kind in a fixed order: five launches agree bit
+    for bit."""
     _need_gpu()
     from psnerf_torch.ops import fused_radiance as fr
 
@@ -391,10 +392,120 @@ def test_fused_radiance_bf16_backward_is_deterministic(width, layers, n):
     runs = [fr.radiance_backward(packed, em, de, vpe, p3, g_e, g_out, skip)
             for _ in range(5)]
     torch.cuda.synchronize()
-    assert fr.slot_sum.launches == before + 5
+    assert fr.slot_sum.launches == before + 2 * 5
     for k in fr.PACK_ORDER:
         assert torch.isfinite(runs[0][k]).all(), k
         assert all(torch.equal(runs[0][k], r[k]) for r in runs[1:]), k
+
+
+# ragged N: below one 128-point CTA tile, not a multiple of it, above one
+# backward chunk (65,536 points)
+_BF16_STAGES = [(256, 8, 1000), (256, 8, 70001), (128, 4, 200),
+                (128, 4, 9000)]
+
+
+def _bf16_backward(width, layers, n):
+    from psnerf_torch.ops import fused_radiance as fr
+
+    cfg, field = _occ_field(width, layers)
+    em, de, vpe, p3 = _radiance_inputs(cfg, n)
+    skip = cfg.skips[0] - 1
+    with torch.no_grad():
+        packed = fr.pack_radiance(field, cfg, torch.bfloat16)
+    _, g_e = fr.radiance_forward_plain(packed, em, de, vpe, p3, skip)
+    g_out = torch.as_tensor(np.random.default_rng(8).uniform(
+        0.5, 1.5, size=(n, 4)).astype(np.float32), device="cuda")
+    b = fr.Bf16Backward(packed, em, de, vpe, p3, g_e, g_out, skip)
+    return fr, b, packed, (em, de, vpe, p3, g_e, g_out), skip
+
+
+@pytest.mark.parametrize("width,layers,n", _BF16_STAGES)
+def test_fused_radiance_bf16_sweep_matches_plain(width, layers, n):
+    """The bf16 sweep kernel's workspace against radiance_sweep_plain at
+    bf16, chunk by chunk: each array's mean error under 1e-2 of its mean
+    and correlation above 0.999 (a relu mask that a bf16 rounding flips
+    moves single elements by their size), zero past the chunk's points;
+    its column-sum slots, summed, against the plain version's f32 column
+    sums (the bias-like leaves, wp, wn, w8l): each leaf's mean error under
+    1e-2 of its mean and correlation above 0.999 (the flipped masks again:
+    at 1,000 points one flip moves wp by ~2% of its max)."""
+    _need_gpu()
+    fr, b, packed, (em, de, vpe, p3, g_e, g_out), skip = _bf16_backward(
+        width, layers, n)
+    leaves, p_floats, _ = fr.bf16_slot_layout(*b.dims)
+    sums = [k for k in fr.PACK_ORDER if leaves[k] >= p_floats]
+    shapes = fr._GRAD_SHAPES(*b.dims)
+    before = fr.bf16_launches["sweep"]
+    want_sums = None
+    for c in range(b.n_chunks):
+        b.sweep(c)
+        torch.cuda.synchronize()
+        r0, nc = b._chunk(c)
+        r = slice(r0, r0 + nc)
+        want = fr.radiance_sweep_plain(packed, em[r], de[r], vpe[r], p3[r],
+                                       g_e[r], g_out[r], skip)
+        got = b.workspace(c)
+        for k, x in got.items():
+            y = want[k].to(torch.bfloat16).float()
+            assert torch.isfinite(x).all(), k
+            assert (x - y).abs().mean() <= 1e-2 * y.abs().mean(), k
+            if y.numel() > 1 and y.std() > 0:
+                assert _corr(x, y) > 0.999, k
+        lay, rows = fr.ws_layout(*b.dims, "bfloat16")
+        flat = b.ws.float()
+        # the last CTA tile's points past the chunk (what wgrad reads)
+        pad = torch.arange(nc, fr.round_up(nc, fr.BF16_TILE), device="cuda")
+        tail = fr.ws_index(torch.arange(rows, device="cuda")[:, None],
+                           pad[None], b.ld)
+        assert (flat[tail] == 0).all()
+        d = fr.weight_grads_plain(want, skip)
+        want_sums = d if want_sums is None else {
+            k: want_sums[k] + d[k] for k in d}
+    assert fr.bf16_launches["sweep"] == before + b.n_chunks
+    cs = fr.slot_sum_plain(b.colsums)
+    for k in sums:
+        o = leaves[k] - p_floats
+        got = cs[o:o + want_sums[k].numel()].view(shapes[k])
+        want_k = want_sums[k]
+        assert (got - want_k).abs().mean() <= 1e-2 * want_k.abs().mean(), k
+        if want_k.numel() > 8:
+            assert _corr(got, want_k) > 0.999, k
+
+
+@pytest.mark.parametrize("width,layers,n", _BF16_STAGES)
+def test_fused_radiance_bf16_wgrad_matches_plain(width, layers, n):
+    """The bf16 split-K weight-gradient kernel against weight_grads_plain
+    on the kernel's own workspace, summed over the chunks: the products'
+    leaves within 1e-4 of their max (the same bf16 operands, f32 sums in
+    another order); its slots summed bit for bit as slot_sum_plain sums
+    them."""
+    _need_gpu()
+    fr, b, packed, (em, de, vpe, p3, g_e, g_out), skip = _bf16_backward(
+        width, layers, n)
+    leaves, p_floats, _ = fr.bf16_slot_layout(*b.dims)
+    prods = [k for k in fr.PACK_ORDER if leaves[k] < p_floats]
+    want = None
+    before = fr.bf16_launches["wgrad"]
+    for c in range(b.n_chunks):
+        b.sweep(c)
+        b.wgrad(c)
+        torch.cuda.synchronize()
+        r0, nc = b._chunk(c)
+        r = slice(r0, r0 + nc)
+        ws = b.workspace(c)
+        plain = fr.radiance_sweep_plain(packed, em[r], de[r], vpe[r], p3[r],
+                                        g_e[r], g_out[r], skip)
+        ws.update({k: plain[k] for k in ("p3", "n3", "w8lt")})
+        d = fr.weight_grads_plain(ws, skip)
+        want = d if want is None else {k: want[k] + d[k] for k in d}
+    assert fr.bf16_launches["wgrad"] == before + b.n_chunks
+    grads = b.reduce()
+    torch.cuda.synchronize()
+    assert torch.equal(b.sum[:p_floats], fr.slot_sum_plain(b.partial))
+    for k in prods:
+        scale = want[k].abs().max().item() + 1e-12
+        assert torch.isfinite(grads[k]).all(), k
+        assert (grads[k] - want[k]).abs().max().item() / scale < 1e-4, k
 
 
 # slot counts of one, a few, the f32 reduce's 27 (3 chunks x 9 splits at

@@ -4,8 +4,11 @@ three ways in turns with torch.sum over the same slots, on one card:
 
     python3 tools/time_slot_reduce.py [--root DIR] [--tag NAME]
 
-  * the bf16 backward's slot sum (`fr.slot_sum`) over 132 random slots of
-    the bf16 bear field's slot length (825,092 floats at width 256);
+  * the bf16 backward's reduce (`fr.Bf16Backward.reduce`: `fr.slot_sum`
+    over its split-K slots and over its column-sum slots) at the bf16 bear
+    field at 2048 x 96 = 196,608 points, on random slots (in a checkout
+    before the bf16 form's split-K backward, `fr.slot_sum` over 132
+    random slots of that field's per-CTA slot length);
   * the f32 backward's reduce (`fr.F32Backward.reduce`) over the split-K
     slots of the default field at 2048 x 96 = 196,608 points (3 chunks).
 
@@ -65,32 +68,56 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"tag": args.tag, "root": os.path.abspath(args.root)}
 
-    # the bf16 slot sum
+    # the bf16 reduce
     gen = torch.Generator().manual_seed(0)
     cfg = OccFieldConfig(compute_dtype="bfloat16")
-    field = init_occupancy_field(cfg, generator=gen, device=dev)
-    with torch.no_grad():
-        packed = fr.pack_radiance(field, cfg, torch.bfloat16)
-    total = sum(fr.bf16_slot_layout(*fr._dims(packed, cfg.skips[0] - 1))[1])
-    slots = torch.randn((132, total), generator=torch.Generator(dev)
-                        .manual_seed(0), device=dev)
-    want = fr.slot_sum_plain(slots)
-    got = fr.slot_sum(slots)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "slot sum bitwise")
-    fns = {"kernel": lambda: fr.slot_sum(slots),
-           "torch_sum": lambda: torch.sum(slots, 0)}
-    out["slot_sum"] = dict(three_ways(fns), slots=132, slot_floats=total,
-                           zeros_ms=cuda_ms(lambda: torch.zeros(
-                               (132, total), device=dev), 20))
-    del slots, want
-
-    # the f32 reduce
-    cfg = OccFieldConfig()
     field = init_occupancy_field(cfg, generator=gen, device=dev)
     n, skip = 2048 * 96, cfg.skips[0] - 1
     rng = np.random.default_rng(0)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    noise = lambda *shape: torch.randn(shape, generator=torch.Generator(
+        dev).manual_seed(0), device=dev)
+    with torch.no_grad():
+        packed = fr.pack_radiance(field, cfg, torch.bfloat16)
+        if hasattr(fr, "Bf16Backward"):
+            p = f(rng.normal(size=(n, 3)) * 0.5)
+            v = rng.normal(size=(n, 3))
+            rd = f(v / np.linalg.norm(v, axis=-1, keepdims=True))
+            em, de, vpe, p3 = fr.radiance_inputs(p, rd, cfg)
+            b = fr.Bf16Backward(packed, em, de, vpe, p3,
+                                torch.zeros_like(em), f(np.ones((n, 4))),
+                                skip)
+            b.partial.copy_(noise(*b.partial.shape))
+            b.colsums.copy_(noise(*b.colsums.shape))
+            want = torch.cat([fr.slot_sum_plain(b.partial),
+                              fr.slot_sum_plain(b.colsums)])
+            b.reduce()
+            torch.cuda.synchronize()
+            check(torch.equal(b.sum, want), "bf16 reduce bitwise")
+            fns = {"kernel": b.reduce, "torch_sum": lambda: torch.cat(
+                [torch.sum(b.partial, 0), torch.sum(b.colsums, 0)])}
+            out["bf16_reduce"] = dict(
+                three_ways(fns), n=n,
+                slots=[b.partial.shape[0], b.colsums.shape[0]],
+                slot_floats=[b.p_floats, b.c_floats])
+            del b, em, de, vpe, p3, want
+        else:
+            total = sum(fr.bf16_slot_layout(*fr._dims(packed, skip))[1])
+            slots = noise(132, total)
+            want = fr.slot_sum_plain(slots)
+            got = fr.slot_sum(slots)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), "slot sum bitwise")
+            fns = {"kernel": lambda: fr.slot_sum(slots),
+                   "torch_sum": lambda: torch.sum(slots, 0)}
+            out["slot_sum"] = dict(three_ways(fns), slots=132,
+                                   slot_floats=total)
+            del slots, want
+
+    # the f32 reduce
+    cfg = OccFieldConfig()
+    field = init_occupancy_field(cfg, generator=gen, device=dev)
+    rng = np.random.default_rng(0)
     p = f(rng.normal(size=(n, 3)) * 0.5)
     v = rng.normal(size=(n, 3))
     rd = f(v / np.linalg.norm(v, axis=-1, keepdims=True))
