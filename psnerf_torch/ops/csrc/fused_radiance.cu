@@ -21,8 +21,8 @@
 //     it writes each product's operand pair, bf16, to a device workspace
 //     (WsRows below, ~41 W + 2 ke + kv + 8 rows, 21.8 KB a point at W =
 //     256), and each 64-point tile's f32 column sums (the bias-like
-//     gradients, wp, wn and w8l) into its consumer's own slot, the chunks
-//     one after another onto the same slots;
+//     gradients, wp, wn and w8l) onto its consumer's own slot, the chunks
+//     one after another onto the same zeroed slots;
 //   * wgrad_kernel (K3, part 2, per chunk): every weight gradient x^T y as
 //     bf16 wgmma m64n128k16 of depth K = points, split-K over CTAs, each
 //     split's partial in its own slot (wplan: leaf after leaf), no atomics;
@@ -46,7 +46,8 @@
 // fragments, so the layer chain never leaves registers and every weight
 // byte read from L2 serves 128 points. The g_e products run as wide as
 // the others (w0^T and wskip^T padded to W columns: a narrower product
-// into a slice of the accumulators made ptxas spill them). The narrow point
+// into a slice of the accumulators made ptxas spill them). The softplus
+// and sigmoid are K1's (ex2/lg2.approx, one reciprocal). The narrow point
 // operands (embedding, view PE, tangent c_e) are K-major tiles in shared
 // memory. What the sweeps need again later (s' of every layer, tz, h_bar,
 // the appearance relu masks, the tz_bar A fragments) does not fit in
@@ -59,9 +60,11 @@
 //
 // The workspace is K-major for the weight-gradient products: feature rows
 // over the points, in core matrices of 8 features x 8 points (128 bytes),
-// so one feature group's run of points is contiguous (ws_idx). The wgrad
-// kernel's producer copies each 8-feature group of a 64-point stage with
-// one 1 KB cp.async.bulk straight into wgmma's no-swizzle layout.
+// so one feature group's run of points is contiguous (ws_idx). The sweep
+// stages each layer's tile in shared memory in that layout and writes it
+// with 1 KB cp.async.bulk stores; the wgrad kernel's producer copies each
+// 8-feature group of a 128-point stage with one 2 KB cp.async.bulk
+// straight into wgmma's no-swizzle layout.
 //
 // ptxas reports registers, spills and shared memory per instantiation
 // into ops/_build/fused_radiance.ptxas.txt.
@@ -117,20 +120,15 @@ __host__ Mats mats(int w, int ke, int kv, int nt) {
   return m;
 }
 
-// A run of `count` slabs of `bytes` each from byte `off` of the slabs.
-struct Seg { long long off; int count, bytes; };
+// A matrix's run of `count` k-step slabs (W * 32 bytes each) from byte
+// `off` of the packed slabs.
+struct Seg { long long off; int count; };
 struct Sched { Seg seg[MAX_SEGS]; int n; };
 
 struct SchedBuilder {
   Sched s = {};
-  int w;
-  __host__ void add(long long off, int count, int n_cols) {
-    s.seg[s.n].off = off;
-    s.seg[s.n].count = count;
-    s.seg[s.n].bytes = n_cols * 32;
-    ++s.n;
-  }
-  __host__ void mat(long long off, int k) { add(off, k / 16, w); }
+  // the slabs of the matrix at `off`, of depth k
+  __host__ void mat(long long off, int k) { s.seg[s.n++] = {off, k / 16}; }
 };
 
 // the slabs the forward's consumers read, per tile, in order
@@ -138,7 +136,6 @@ __host__ Sched sched_fwd(int w, int ke, int kv, int nt, int skip) {
   const Mats m = mats(w, ke, kv, nt);
   const long long ww = (long long)w * w * 2;
   SchedBuilder b;
-  b.w = w;
   b.mat(m.w0, ke);
   for (int li = 0; li < nt; ++li) {
     b.mat(m.trunk + li * ww, w);
@@ -161,7 +158,6 @@ __host__ Sched sched_sweep(int w, int ke, int kv, int nt, int skip) {
   const Mats m = mats(w, ke, kv, nt);
   const long long ww = (long long)w * w * 2;
   SchedBuilder b;
-  b.w = w;
   for (int pass = 0; pass < 2; ++pass) {      // recompute, then tangents
     b.mat(m.w0, ke);
     for (int li = 0; li < nt; ++li) {
@@ -231,7 +227,6 @@ struct RParams {
   float* scratch;
   long long ld;
   int n, row_begin, ke, kv, n_trunk, skip_pos, ring, scr_words;
-  int accumulate;                    // sweep: add onto the slots' sums
   Sched sched;
 };
 
@@ -451,9 +446,9 @@ __device__ __forceinline__ void produce(const RingSpec& rs,
       const Seg sg = sc.seg[g];
       for (int k = 0; k < sg.count; ++k) {
         if (it >= (uint32_t)rs.ring) mbar_wait(rs.empty + slot, phase ^ 1);
-        mbar_expect_tx(rs.full + slot, sg.bytes);
+        mbar_expect_tx(rs.full + slot, rs.slab);
         bulk_load(rs.slots + (size_t)slot * rs.slab,
-                  src + sg.off + (long long)k * sg.bytes, sg.bytes,
+                  src + sg.off + (long long)k * rs.slab, rs.slab,
                   rs.full + slot);
         ++it;
         if (++slot == rs.ring) {
@@ -713,14 +708,13 @@ __device__ __forceinline__ void put_ws(const WsOut& o, int f0,
 }
 
 // Column sums over the tile's valid rows of w_row * y (rf < 0: weight 1)
-// into slot[0 .. W) (add: onto what is there): the thread's two rows, a
-// shuffle over the warp's 16, the 4 warps in order through red (two
-// buffers, alternated: one barrier a call).
+// added onto slot[0 .. W) (zeroed before the first chunk): the thread's
+// two rows, a shuffle over the warp's 16, the 4 warps in order through red
+// (two buffers, alternated: one barrier a call).
 template <int W>
 __device__ __forceinline__ void colsum(const float (&y)[W / 2],
                                        const float* rowf, int rf, int nv,
-                                       float* red, int& buf, float* slot,
-                                       bool add) {
+                                       float* red, int& buf, float* slot) {
   const int tw = threadIdx.x & 127, warp = tw >> 5, t = tw & 3;
   const int rl = row_lo(), g = (tw & 31) >> 2;
   const bool v0 = rl < nv, v1 = rl + 8 < nv;
@@ -741,7 +735,7 @@ __device__ __forceinline__ void colsum(const float (&y)[W / 2],
   bar_sync(BAR_WG + (threadIdx.x >> 7), 128);
   for (int col = tw; col < W; col += 128) {
     const float v = ((rb[col] + rb[W + col]) + rb[2 * W + col]) + rb[3 * W + col];
-    slot[col] = add ? slot[col] + v : v;
+    slot[col] += v;
   }
 }
 
@@ -819,9 +813,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   float acc[W / 2];
   uint32_t a[KS][4];
 
-  // the consumer's first tile of the first chunk sets its slot
-  bool add = p.accumulate != 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, add = true) {
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int r0 = tile * TROWS + wg * ROWS;       // within the chunk
     const int row0 = p.row_begin + r0;             // within the batch
     const int nv = min(ROWS, p.n - r0);            // may be <= 0
@@ -863,7 +855,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       float s = 0.f;
       for (int r = 0; r < ROWS; ++r) s += rowf[r * ROWF + rf];
       float* dst = slot + (tw < 3 ? C.ba4 + tw : C.b8l);
-      *dst = add ? *dst + s : s;
+      *dst += s;
     }
 
     // ---- forward recompute (g_e is an input)
@@ -883,7 +875,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       to_afrag<W>(acc, a);
     }
     // w8l's first half: the column sums of g_logit a_last (f32)
-    colsum<W>(acc, rowf, RF_GL, nv, red, buf, slot + C.w8l, add);
+    colsum<W>(acc, rowf, RF_GL, nv, red, buf, slot + C.w8l);
     c.product<W>(acc, a, false);
     c.drain(acc);
     add_bias<W>(acc, p.b8f);
@@ -952,7 +944,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
     }
     put_ws<W>(wo, L.gz + 3 * W, acc);
-    colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.bab + 2 * W, add);
+    colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.bab + 2 * W);
 #pragma unroll 1
     for (int jl = 2; jl >= 0; --jl) {
       to_afrag<W>(acc, a);
@@ -960,14 +952,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       c.drain(acc);
       apply_mask<W>(acc, sc + (size_t)(MASK + jl * (W / 64)) * 128);
       put_ws<W>(wo, L.gz + jl * W, acc);
-      if (jl > 0) colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.bab + (jl - 1) * W, add);
+      if (jl > 0) colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.bab + (jl - 1) * W);
     }
     // gz is appearance layer 0's z_bar: ba0, wp, wn, g_n, then g_feat
-    colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.ba0, add);
+    colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.ba0);
 #pragma unroll 1
     for (int k = 0; k < 3; ++k) {
-      colsum<W>(acc, rowf, RF_P + k, nv, red, buf, slot + C.wp + k * W, add);
-      colsum<W>(acc, rowf, RF_N + k, nv, red, buf, slot + C.wn + k * W, add);
+      colsum<W>(acc, rowf, RF_P + k, nv, red, buf, slot + C.wp + k * W);
+      colsum<W>(acc, rowf, RF_N + k, nv, red, buf, slot + C.wn + k * W);
     }
     {
       float gn[3][2];
@@ -982,7 +974,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     c.product<W>(acc, a, false);             // g_feat = gz @ wf^T
     c.drain(acc);
     put_ws<W>(wo, L.gfeat, acc);
-    colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.b8f, add);
+    colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.b8f);
     to_afrag<W>(acc, a);
     c.product<W>(acc, a, false);             // g_feat @ w8f^T
     c.drain(acc);
@@ -1034,7 +1026,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         to_afrag<W>(acc, a);
       } else {
         // w8l's second half: the column sums of t_last
-        colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.w8l, true);
+        colsum<W>(acc, rowf, -1, nv, red, buf, slot + C.w8l);
       }
     }
 
@@ -1068,7 +1060,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       wo.flush(o_tzb, W);
       put_ws<W>(wo, L.zb + li * W, acc);
       colsum<W>(acc, rowf, -1, nv, red, buf,
-                slot + (li == 0 ? C.b0 : C.trunk_b + (li - 1) * W), add);
+                slot + (li == 0 ? C.b0 : C.trunk_b + (li - 1) * W));
       if (li == 0) break;
       // h_bar = bf16(z_bar) @ W^T, then t_bar = bf16(tz_bar) @ W^T, each
       // over its own pass of the layer's slabs
@@ -1090,8 +1082,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
 // ------------------------------------- backward: the weight gradients
 
-constexpr int GB = 128, GK = 64;           // tile rows and columns, stage points
-constexpr int GSTAGES = 4;                 // stages in the ring
+constexpr int GB = 128, GK = 128;          // tile rows and columns, stage points
+constexpr int GSTAGES = 3;                 // stages in the ring
 constexpr int TILE_BYTES = GB * GK * 2;    // one operand's stage tile
 constexpr size_t WGRAD_SMEM = (size_t)GSTAGES * 2 * TILE_BYTES + 2 * GSTAGES * 8;
 
@@ -1156,19 +1148,21 @@ __host__ WPlan wplan(int w, int ke, int kv, int nt, int skip) {
 }
 
 // wgmma descriptor of a stage tile: K-major core matrices, 128 bytes apart
-// along K (8 points), 1024 bytes apart along the rows (8 features)
+// along K (8 points), GK * 16 bytes apart along the rows (8 features)
 __device__ __forceinline__ uint64_t stage_desc(const void* p) {
   const uint32_t a = smem_u32(p);
   return (uint64_t)((a >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32);
+         ((uint64_t)((GK * 16) >> 4) << 32);
 }
 
 // Each CTA: one GB x GB output tile of one job over its split's points,
 // GK points a stage. One producer thread copies each stage's 8-feature
-// groups (1 KB each) by cp.async.bulk into a ring of GSTAGES stages; each
-// consumer warpgroup owns 64 rows of the tile: a stage's four wgmma
-// m64n128k16 chain in the tensor core from zero, FADD adds the stage into
-// the accumulator, and the stage's slot is freed.
+// groups (2 KB each) by cp.async.bulk into a ring of GSTAGES stages; each
+// consumer warpgroup owns 64 rows of the tile: a stage's eight wgmma
+// m64n128k16 chain in the tensor core from zero, and while the next
+// stage's run, FADD adds the stage into the accumulator and its slot is
+// freed (two product buffers; setmaxnreg gives the consumers 240
+// registers, the producer 24).
 __global__ void __launch_bounds__(NTHREADS, 1)
     wgrad_kernel(const __grid_constant__ WPlan plan, const bf16* __restrict__ ws,
                  long long ld, int kpts, float* partial, int slot0) {
@@ -1197,6 +1191,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   __syncthreads();
 
   if (wg == NCONS) {                       // producer
+    set_max_regs_dec<24>();
     if (tw == 0) {
       // 8-feature groups of the tile that lie inside the job's rows
       const int xg = min(GB, J.r - rt * GB) / 8, yg = min(GB, J.c - ct * GB) / 8;
@@ -1222,11 +1217,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   // a warpgroup whose 64 rows lie past the job's rows (a ragged last row
   // tile) skips its products
+  set_max_regs_inc<240>();
   const bool active = rt * GB + wg * 64 < J.r;
-  float acc[64], d[64];
+  float acc[64], d0[64], d1[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  for (int it = 0; it < nit; ++it) {
+  // stage it's products, started from zero, into d (one commit group)
+  auto issue = [&](int it, float (&d)[64]) {
     const int st = it % GSTAGES;
     mbar_wait(full + st, (it / GSTAGES) & 1);
     if (active) {
@@ -1238,12 +1235,36 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         Mma<128>::ss(d, stage_desc(xs + ks * 256), stage_desc(ys + ks * 256),
                      ks > 0 ? 1 : 0);
       wgmma_commit();
-      wgmma_wait<0>();
+    }
+  };
+  // once stage it's group has completed: FADD it into acc, free its slot
+  auto finish = [&](int it, float (&d)[64]) {
+    if (active) {
       reg_fence(d);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] += d[i];
     }
-    if (tw == 0) mbar_arrive(empty + st);
+    if (tw == 0) mbar_arrive(empty + it % GSTAGES);
+  };
+  // the next stage's products run while this one's are added
+  if (nit > 0) issue(0, d0);
+  for (int it = 0; it < nit; it += 2) {
+    if (it + 1 < nit) {
+      issue(it + 1, d1);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    finish(it, d0);
+    if (it + 1 < nit) {
+      if (it + 2 < nit) {
+        issue(it + 2, d0);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      finish(it + 1, d1);
+    }
   }
   float* out = partial + (size_t)(slot0 + s) * plan.p_floats + J.out;
   const int rl = row_lo(), t = tw & 3;
@@ -1353,15 +1374,15 @@ extern "C" int psnerf_radiance_fwd(void* const* ptrs, const int* ints,
 
 // ptrs: em, vpe, de, p3, the packed slabs, b0 .. ba4 (as the forward's),
 // g_e, g_out, the workspace (bf16), the column-sum slots (NCONS per CTA
-// of the grid), scratch. ints: n (the chunk's points), row_begin, ld (the
-// workspace's points, a multiple of 128), width, ke, kv, n_trunk,
-// skip_pos, slots, accumulate (0: the chunk's sums set the slots, else
-// they add onto them: every chunk after the first).
+// of the grid, zeroed by the caller before the first chunk: every chunk
+// adds its sums onto them), scratch. ints: n (the chunk's points),
+// row_begin, ld (the workspace's points, a multiple of 128), width, ke,
+// kv, n_trunk, skip_pos, slots.
 extern "C" int psnerf_radiance_sweep(void* const* ptrs, const int* ints,
                                      void* stream) {
   const int w = ints[3], ke = ints[4], kv = ints[5], nt = ints[6];
   if (!dims_ok(w, ke, kv, nt) || ints[7] < 0 || ints[7] >= nt ||
-      ints[8] < 1 || ints[2] % TROWS || ints[2] < ints[0] || ints[9] < 0)
+      ints[8] < 1 || ints[2] % TROWS || ints[2] < ints[0])
     return (int)cudaErrorInvalidValue;
   int k = 0;
   RParams p = point_params(ptrs, k);
@@ -1373,7 +1394,6 @@ extern "C" int psnerf_radiance_sweep(void* const* ptrs, const int* ints,
   p.scratch = static_cast<float*>(ptrs[k++]);
   p.n = ints[0]; p.row_begin = ints[1]; p.ld = ints[2];
   p.ke = ke; p.kv = kv; p.n_trunk = nt; p.skip_pos = ints[7];
-  p.accumulate = ints[9];
   p.scr_words = scr_words(w, nt, true);
   p.sched = sched_sweep(w, ke, kv, nt, p.skip_pos);
   if (p.n <= 0) return 0;

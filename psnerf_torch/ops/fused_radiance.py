@@ -782,8 +782,9 @@ def wgrad_splits(tiles: int, slots: int, most: int = 16) -> int:
 class Bf16Backward:
     """The bf16 form's backward, kernel by kernel, on one batch: for each
     chunk c `sweep(c)` (the workspace, and its column sums: each consumer
-    warpgroup of the grid adds its tiles' into its own slot, the chunks in
-    order onto the first chunk's) and `wgrad(c)` (its split-K slots), then
+    warpgroup of the grid adds its tiles' onto its own slot, the chunks in
+    order onto the same slots, zeroed by `sweep(0)`) and `wgrad(c)` (its
+    split-K slots), then
     `reduce()` sums the split-K slots and the column-sum slots, each kind
     by one `slot_sum` into its region of `sum`, and returns `grads`, its
     views (`bf16_slot_layout`). Allocates the workspace (ws_rows x
@@ -838,11 +839,13 @@ class Bf16Backward:
     def sweep(self, c):
         w, ke, kv, nt = self.dims
         b, nc = self._chunk(c)
+        if c == 0:
+            self.colsums.zero_()
         _launch_bf16("sweep", self.dev,
                      [*self.ins, *self.weights, *self.grad_ins, self.ws,
                       self.colsums, self.scratch],
                      [nc, b, self.ld, w, ke, kv, nt, self.skip_pos,
-                      self.slots, int(c > 0)])
+                      self.slots])
 
     def wgrad(self, c):
         w, ke, kv, nt = self.dims

@@ -230,8 +230,8 @@ def test_bf16_launch_sequence_over_chunks(setup, monkeypatch):
     """A batch of 256 points in chunks of 96 through the autograd op: the
     forward kernel; sweep and wgrad of rows 0, 96 and 192 (64 points,
     ragged), each chunk's split-K slots after the last, every chunk's
-    column sums onto the same two slots (one 128-point CTA; the first
-    chunk sets them, the others add); one fixed-order sum over the split-K
+    column sums onto the same two slots (one 128-point CTA, zeroed before
+    the first chunk); one fixed-order sum over the split-K
     slots and one over the column-sum slots. The slabs are packed once,
     in the forward."""
     launched = _fake_bf16(monkeypatch, setup["packed"])
@@ -253,8 +253,8 @@ def test_bf16_launch_sequence_over_chunks(setup, monkeypatch):
     splits = 3                       # ceil(2 x 6 SMs / 4 tiles)
     ints = [i for _, i in launched]
     sweeps, wgrads = ints[1:7:2], ints[2:7:2]
-    assert [(i[0], i[1], i[2], i[9]) for i in sweeps] == \
-        [(96, 0, 128, 0), (96, 96, 128, 1), (64, 192, 128, 1)]
+    assert [(i[0], i[1], i[2]) for i in sweeps] == \
+        [(96, 0, 128), (96, 96, 128), (64, 192, 128)]
     assert [(i[0], i[1], i[7], i[8]) for i in wgrads] == \
         [(128, 128, splits, 0), (128, 128, splits, 3), (128, 128, splits, 6)]
     leaves, p_floats, c_floats = fr.bf16_slot_layout(*_dims(setup))
