@@ -28,7 +28,7 @@ Phases (any failure exits non-zero; nothing is caught):
      the bf16 forward at most K2_BF16_MAX_MS, the bf16 backward bit for
      bit over three launches, at most K3_BF16_MAX_MS and faster than
      autograd, and each of its kernels (sweep, split-K weight-gradient
-     products, the two fixed-order sums) held against its plain version
+     products, the fixed-order sum) held against its plain version
      and timed alone;
   5. the f32-operand form of fused_radiance (the default field's) at 2048
      x 64 and 2048 x 96 points, held against its plain f32 version at the
@@ -1228,17 +1228,17 @@ def bf16_stage_flops(n, w, ke, kv, nt):
 
 def time_bf16_stages(packed, inputs, g_e, g_out, skip):
     """The bf16 backward kernel by kernel (Bf16Backward: sweeps, split-K
-    weight-gradient passes, the two fixed-order sums), each held against
+    weight-gradient passes, the fixed-order sum), each held against
     its plain version on the same inputs and timed in turns with it
     (plain, kernel, kernel, plain): radiance_sweep_plain at bf16 per chunk
     (each workspace array by SWEEP_MEAN_REL and SWEEP_CORR; the column
     sums, the bias-like leaves, wp, wn and w8l, against weight_grads_plain
     of the plain sweep by GRAD_REL); weight_grads_plain on the kernel's
     own workspace, summed over the chunks, for the products' leaves
-    (WGRAD_REL); the reduce bit for bit against slot_sum_plain of each
-    kind of slot. Its library_ms is torch.sum over each kind of slot; no
-    single PyTorch call computes the sweep or the weight-gradient pass,
-    so theirs is null."""
+    (WGRAD_REL); the reduce bit for bit against slot_sum_plain of the
+    split-K slots (the last chunk's splits carry the column sums). Its
+    library_ms is torch.sum over those slots; no single PyTorch call
+    computes the sweep or the weight-gradient pass, so theirs is null."""
     from psnerf_torch.ops import fused_radiance as fr
 
     em, de, vpe, p3 = inputs
@@ -1277,8 +1277,7 @@ def time_bf16_stages(packed, inputs, g_e, g_out, skip):
             del want
         grads = b.reduce()
         torch.cuda.synchronize()
-        reduce_plain = lambda: torch.cat([fr.slot_sum_plain(b.partial),
-                                          fr.slot_sum_plain(b.colsums)])
+        reduce_plain = lambda: fr.slot_sum_plain(b.partial)
         sum_want = reduce_plain()
         check(torch.equal(b.sum, sum_want),
               "the bf16 reduce against its plain version: "
@@ -1305,10 +1304,9 @@ def time_bf16_stages(packed, inputs, g_e, g_out, skip):
              "wgrad_plain", "wgrad", "wgrad", "wgrad_plain"])
         # (the wgrad turns above recomputed every chunk's slots from the
         # last chunk's workspace: the check below takes them as they are)
-        t_reduce = time_slot_reduce(
-            lambda: (b.reduce(), b.sum)[1], reduce_plain,
-            lambda: torch.cat([torch.sum(b.partial, 0),
-                               torch.sum(b.colsums, 0)]))
+        t_reduce = time_slot_reduce(lambda: (b.reduce(), b.sum)[1],
+                                    reduce_plain,
+                                    lambda: torch.sum(b.partial, 0))
         one_backward = lambda: fr.Bf16Backward(packed, em, de, vpe, p3, g_e,
                                                g_out, skip).run()
         one_backward()
@@ -1332,25 +1330,23 @@ def time_bf16_stages(packed, inputs, g_e, g_out, skip):
                          bound_ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
                          bound_bytes_ms=nbytes_ / PEAK_BYTES * 1e3)
     out["sweep"].update(corr_min=sweep_corr, colsum_rel_err=colsum_err)
-    bnd, by = bound_ms(0, p_bytes + c_bytes + b.sum.numel() * 4)
-    out["reduce"] = reduction_row(
-        t_reduce, bnd, by, flops=0, n=n,
-        slots=b.partial.shape[0] + b.colsums.shape[0],
-        slot_floats=[p_floats, c_floats])
+    bnd, by = bound_ms(0, p_bytes + b.sum.numel() * 4)
+    out["reduce"] = reduction_row(t_reduce, bnd, by, flops=0, n=n,
+                                  slots=b.partial.shape[0],
+                                  slot_floats=p_floats + c_floats)
     for k in ("sweep", "wgrad"):
         out[k]["library_note"] = ("null: no single PyTorch call computes "
                                   "this stage")
-    out["reduce"]["library_note"] = ("torch.sum over the split-K slots and "
-                                     "over the column-sum slots; the "
-                                     "gradients are views of the sums")
+    out["reduce"]["library_note"] = ("torch.sum over the split-K slots; "
+                                     "the gradients are views of the sum")
     out["sweep"]["err_is"] = ("max over workspace arrays of mean |diff| / "
                               "mean |plain| (relu flips move single "
                               "elements); corr_min the least correlation")
     out["wgrad"]["err_is"] = ("max over the products' leaves of max |diff| "
                               "/ max |plain|, on the kernel's workspace, "
                               "wgrad and reduce together")
-    out["reduce"]["err_is"] = ("max |diff| against each kind of slot summed "
-                               "one by one (bitwise)")
+    out["reduce"]["err_is"] = ("max |diff| against the split-K slots "
+                               "summed one by one (bitwise)")
     out["workspace"] = {"bytes": b.workspace_bytes(), "ws_bytes": ws_bytes,
                         "split_k_slot_bytes": p_bytes,
                         "column_sum_slot_bytes": c_bytes,
@@ -1786,13 +1782,13 @@ def phase_stage1_main(scene, compute, steps, steps96, vis_every=0):
     else:
         check(not any(f32k.values()), f"f32 kernels at the bf16 field {f32k}")
         # every kernel of the bf16 form: the forward per forward; a sweep
-        # and a weight-gradient pass per chunk of a backward; two fixed-
-        # order sums per backward
+        # and a weight-gradient pass per chunk of a backward; one fixed-
+        # order sum per backward
         bf16k = launches["fused_radiance_bf16"]
         n_bwd = launches["fused_radiance_bwd"]["bfloat16"]
         check(bf16k["fwd"] == launches["fused_radiance_fwd"]["bfloat16"]
               and bf16k["sweep"] == bf16k["wgrad"] >= n_bwd
-              and launches["fused_radiance_slot_sum"] == 2 * n_bwd,
+              and launches["fused_radiance_slot_sum"] == n_bwd,
               f"bf16 kernels per forward and backward {launches}")
     recs = read_losses(wd)
     check(runner.it == steps
@@ -2131,12 +2127,12 @@ def main():
                 "psnerf_tpu/ops/fused_radiance.py:410", bstages[kern],
                 launches_bf["fused_radiance_slot_sum"] if kern == "reduce"
                 else launches_bf["fused_radiance_bf16"][kern])
-          for kern, name in (
+            for kern, name in (
               ("sweep", "backward sweep (writes the workspace and the "
                "column sums)"),
-              ("wgrad", "weight-gradient products (split-K)"),
-              ("reduce", "reduce (the split-K and column-sum slots in "
-               "fixed order)"))],
+              ("wgrad", "weight-gradient products (split-K; folds the "
+               "column sums)"),
+              ("reduce", "reduce (the split-K slots in fixed order)"))],
         entry("fused_radiance_and_alpha (forward, f32 operands: prologue "
               "and forward kernel)", "fused_radiance_f32.cu",
               "psnerf_tpu/ops/fused_radiance.py:390", k2f,

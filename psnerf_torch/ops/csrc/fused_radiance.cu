@@ -26,10 +26,12 @@
 //   * wgrad_kernel (K3, part 2, per chunk): every weight gradient x^T y as
 //     bf16 wgmma m64n128k16 of depth K = points, split-K over CTAs, each
 //     split's partial in its own slot (wplan: leaf after leaf), no atomics;
+//     after the last chunk's sweep, each split also adds its share of the
+//     column-sum slots, in order, into its slot's column-sum region;
 //   * the reduce (K3, part 3): the slot reduction engine (slot_reduce.cuh,
-//     psnerf_radiance_slot_sum) adds the split-K slots and the column-sum
-//     slots in fixed order into one flat buffer of which the 18 gradients
-//     are views. The backward is the same bits from run to run.
+//     psnerf_radiance_slot_sum) adds the split-K slots in fixed order into
+//     one flat buffer of which the 18 gradients are views. The backward is
+//     the same bits from run to run.
 //
 // What bounds it: operations for the products (per point the forward runs
 // ~19 and the backward ~57 W x W products, 2 W^2 FLOPs each), bytes for
@@ -1094,12 +1096,12 @@ constexpr size_t WGRAD_SMEM = (size_t)GSTAGES * 2 * TILE_BYTES + 2 * GSTAGES * 8
 // columns).
 struct WJob { int x, x2, y, y2, r, c, oc, rt, ct, tile0; long long out; };
 struct WPlan { WJob job[16]; int n_jobs, n_tiles; long long p_floats, c_floats;
-               long long leaf[18]; };
+               long long slot_floats; long long leaf[18]; };
 
-// The jobs, and the gradients' flat buffer leaf after leaf: the products'
-// region (what the split-K slots hold, p_floats) trunk_w, w0, wskip, w8f,
-// wa, [wf; wv] (one product's rows), wa4 (3 of the rgb head's 8 columns),
-// then the column sums' region (cs_layout, c_floats). leaf[] holds each
+// The jobs, and a split-K slot (and the gradients' flat buffer, the
+// slots' sum) leaf after leaf: the products' region (p_floats) trunk_w,
+// w0, wskip, w8f, wa, [wf; wv] (one product's rows), wa4 (3 of the rgb
+// head's 8 columns), then the column sums' region (cs_layout, c_floats). leaf[] holds each
 // gradient's offset in the packed order (w0, b0, wskip, trunk_w, trunk_b,
 // w8f, b8f, w8l, b8l, wp, wv, wn, wf, ba0, wa, bab, wa4, ba4); ops/
 // fused_radiance.py `bf16_slot_layout` mirrors it.
@@ -1117,6 +1119,7 @@ __host__ WPlan wplan(int w, int ke, int kv, int nt, int skip) {
   at = (at + 3) / 4 * 4;
   P.p_floats = at;
   P.c_floats = C.floats;
+  P.slot_floats = P.p_floats + P.c_floats;
   const long long c0 = at;
   const long long leaf[18] = {
       w0, c0 + C.b0, wsk, tw, c0 + C.trunk_b, w8f, c0 + C.b8f, c0 + C.w8l,
@@ -1165,7 +1168,8 @@ __device__ __forceinline__ uint64_t stage_desc(const void* p) {
 // registers, the producer 24).
 __global__ void __launch_bounds__(NTHREADS, 1)
     wgrad_kernel(const __grid_constant__ WPlan plan, const bf16* __restrict__ ws,
-                 long long ld, int kpts, float* partial, int slot0) {
+                 long long ld, int kpts, float* partial, int slot0,
+                 const float* __restrict__ colsums, int cs_slots, int fold) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + GSTAGES * 2 * TILE_BYTES);
   uint64_t* empty = full + GSTAGES;
@@ -1266,7 +1270,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       finish(it + 1, d1);
     }
   }
-  float* out = partial + (size_t)(slot0 + s) * plan.p_floats + J.out;
+  float* const slot = partial + (size_t)(slot0 + s) * plan.slot_floats;
+  float* out = slot + J.out;
   const int rl = row_lo(), t = tw & 3;
 #pragma unroll
   for (int j = 0; j < 16; ++j)
@@ -1276,6 +1281,21 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const int col = ct * GB + 8 * j + 2 * t + (r & 1);
       if (row < J.r && col < J.oc) out[(size_t)row * J.oc + col] = acc[4 * j + r];
     }
+  // the split's column-sum region: its share of the column-sum slots
+  // added in order (fold, after the last chunk's sweep), else zeros
+  if (blockIdx.x == 0) {
+    const long long n4 = plan.c_floats / 4;
+    const int b0 = (int)((long long)cs_slots * s / S);
+    const int b1 = (int)((long long)cs_slots * (s + 1) / S);
+    const float4* src = reinterpret_cast<const float4*>(colsums);
+    float4* dst = reinterpret_cast<float4*>(slot + plan.p_floats);
+    for (long long i = threadIdx.x; i < n4; i += NCONS * 128) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (fold)
+        for (int k = b0; k < b1; ++k) slot_reduce::add4(v, __ldg(src + (size_t)k * n4 + i));
+      dst[i] = v;
+    }
+  }
 }
 
 // ------------------------------------------------------------- launches
@@ -1402,13 +1422,16 @@ extern "C" int psnerf_radiance_sweep(void* const* ptrs, const int* ints,
                         : launch_engine<256, true>(p, ints[8], s));
 }
 
-// ptrs: the workspace, the split-K slots. ints: kpts (the chunk's points
-// rounded up to 128), ld, width, ke, kv, n_trunk, skip_pos, splits, slot0.
+// ptrs: the workspace, the split-K slots, the column-sum slots. ints: kpts
+// (the chunk's points rounded up to 128), ld, width, ke, kv, n_trunk,
+// skip_pos, splits, slot0, the column-sum slots, fold (1 after the last
+// chunk's sweep: the splits add the column-sum slots into their slots).
 extern "C" int psnerf_radiance_wgrad(void* const* ptrs, const int* ints,
                                      void* stream) {
   const int w = ints[2], ke = ints[3], kv = ints[4], nt = ints[5];
   if (!dims_ok(w, ke, kv, nt) || ints[0] % TROWS || ints[0] > ints[1] ||
-      ints[1] % TROWS || ints[7] < 1 || ints[6] < 0 || ints[6] >= nt)
+      ints[1] % TROWS || ints[7] < 1 || ints[6] < 0 || ints[6] >= nt ||
+      ints[9] < 0)
     return (int)cudaErrorInvalidValue;
   const WPlan P = wplan(w, ke, kv, nt, ints[6]);
   cudaError_t err = cudaFuncSetAttribute(
@@ -1418,7 +1441,8 @@ extern "C" int psnerf_radiance_wgrad(void* const* ptrs, const int* ints,
   wgrad_kernel<<<dim3(P.n_tiles, ints[7]), NTHREADS, WGRAD_SMEM,
                  static_cast<cudaStream_t>(stream)>>>(
       P, static_cast<const bf16*>(ptrs[0]), ints[1], ints[0],
-      static_cast<float*>(ptrs[1]), ints[8]);
+      static_cast<float*>(ptrs[1]), ints[8],
+      static_cast<const float*>(ptrs[2]), ints[9], ints[10]);
   return (int)cudaGetLastError();
 }
 

@@ -25,10 +25,11 @@ products (the reduce): deterministic from run to run.
     forward (`fwd`) and the sweep run on the bf16 trunk engine
     (csrc/trunk_wgmma.cuh, weights packed once per call into k-step slabs,
     `bf16_slabs`); the workspace is bf16 in core-matrix tiles
-    (`ws_index`), and the sweep also writes each tile's f32 column sums
-    (the bias-like gradients, wp, wn, w8l) to its consumer's slot; both
-    kinds of slot are summed by `slot_sum`. `bf16_launches` counts the
-    fwd, sweep and wgrad launches, `slot_sum.launches` the reduces;
+    (`ws_index`), and the sweep also adds each tile's f32 column sums
+    (the bias-like gradients, wp, wn, w8l) onto its consumer's slot,
+    which the last weight-gradient pass folds into its split-K slots; the
+    reduce is `slot_sum`. `bf16_launches` counts the fwd, sweep and wgrad
+    launches, `slot_sum.launches` the reduces;
   * f32 operands (`compute="float32"`, the default field's form,
     csrc/fused_radiance_f32.cu; 3xTF32 wgmma, close to f32 products):
     a prologue splits the weights into tf32 hi/lo fragments (`split`),
@@ -56,7 +57,7 @@ chunk; `split_weights_plain` is the f32 prologue's). On CUDA tensors they
 launch the kernels or raise. Launches are counted per form in
 `radiance_forward.launches` and `radiance_backward.launches`
 ({"bfloat16": n, "float32": n}), per kernel in `f32_launches` and
-`bf16_launches`, and the fixed-order sums of the bf16 form in
+`bf16_launches`, and the bf16 form's fixed-order sum in
 `slot_sum.launches`.
 """
 
@@ -472,16 +473,16 @@ _GRAD_SHAPES = lambda w, ke, kv, nt: {
 
 
 def bf16_slot_layout(w: int, ke: int, kv: int, nt: int) -> tuple:
-    """The bf16 backward's gradients as one flat buffer (csrc/
-    fused_radiance.cu `wplan` and `cs_layout`, which the library's sizes
-    are checked against): ({leaf: its offset}, in the packed order, the
-    floats of one split-K slot, the floats of one column-sum slot). Leaf
-    after leaf, every one contiguous: first the products' region (what a
-    split-K slot holds: trunk_w, w0, wskip, w8f, wa, then one product's
-    rows wf, wv, then wa4), padded to a multiple of 4 floats, then the
-    column sums' region (what a column-sum slot holds: trunk_b, b0, b8f,
-    bab, ba0, wp, wn, w8l, ba4, b8l and 4 zeros). The reduce sums each
-    kind of slot into its region, so every gradient is a view."""
+    """The bf16 backward's split-K slot, and its gradients as one flat
+    buffer (csrc/fused_radiance.cu `wplan` and `cs_layout`, which the
+    library's sizes are checked against): ({leaf: its offset}, in the
+    packed order, the floats of the products' region, the floats of the
+    column sums' region, which is also one column-sum slot). Leaf after
+    leaf, every one contiguous: the products' region (trunk_w, w0, wskip,
+    w8f, wa, then one product's rows wf, wv, then wa4), padded to a
+    multiple of 4 floats, then the column sums' region (trunk_b, b0, b8f,
+    bab, ba0, wp, wn, w8l, ba4, b8l and 4 zeros). The reduce sums the
+    split-K slots, so every gradient is a view."""
     ww = w * w
     prods = [("trunk_w", nt * ww), ("w0", ke * w), ("wskip", ke * w),
              ("w8f", ww), ("wa", 3 * ww), ("wf", ww), ("wv", kv * w),
@@ -782,14 +783,15 @@ def wgrad_splits(tiles: int, slots: int, most: int = 16) -> int:
 class Bf16Backward:
     """The bf16 form's backward, kernel by kernel, on one batch: for each
     chunk c `sweep(c)` (the workspace, and its column sums: each consumer
-    warpgroup of the grid adds its tiles' onto its own slot, the chunks in
-    order onto the same slots, zeroed by `sweep(0)`) and `wgrad(c)` (its
-    split-K slots), then
-    `reduce()` sums the split-K slots and the column-sum slots, each kind
-    by one `slot_sum` into its region of `sum`, and returns `grads`, its
-    views (`bf16_slot_layout`). Allocates the workspace (ws_rows x
-    round_up(min(N, CHUNK), 128) bf16), the slots, the scratch and the sum
-    once; `run()` is all of it in order."""
+    warpgroup of the grid adds its tiles' onto its own column-sum slot,
+    the chunks in order onto the same slots, zeroed by `sweep(0)`) and
+    `wgrad(c)` (its split-K slots; the last chunk's splits also add the
+    column-sum slots, a share each in order, into their slots' column-sum
+    region), then `reduce()` sums the split-K slots by one `slot_sum` into
+    `sum` and returns `grads`, its views (`bf16_slot_layout`). Allocates
+    the workspace (ws_rows x round_up(min(N, CHUNK), 128) bf16), the
+    slots, the scratch and the sum once; `run()` is all of it in
+    order."""
 
     def __init__(self, packed, em, de, vpe, p3, g_e, g_out, skip_pos,
                  slabs=None):
@@ -817,7 +819,8 @@ class Bf16Backward:
         self.ws = torch.empty((sz["ws_rows"] * self.ld,),
                               dtype=torch.bfloat16, device=dev)
         self.partial = torch.empty((self.n_chunks * self.splits,
-                                    self.p_floats), dtype=f32, device=dev)
+                                    self.p_floats + self.c_floats),
+                                   dtype=f32, device=dev)
         self.colsums = torch.empty((2 * max(1, self.grid), self.c_floats),
                                    dtype=f32, device=dev)
         self.scratch = torch.empty((self.slots * sz["sweep_scratch"],),
@@ -850,13 +853,13 @@ class Bf16Backward:
     def wgrad(self, c):
         w, ke, kv, nt = self.dims
         _, nc = self._chunk(c)
-        _launch_bf16("wgrad", self.dev, [self.ws, self.partial],
+        _launch_bf16("wgrad", self.dev, [self.ws, self.partial, self.colsums],
                      [round_up(nc, BF16_TILE), self.ld, w, ke, kv, nt,
-                      self.skip_pos, self.splits, c * self.splits])
+                      self.skip_pos, self.splits, c * self.splits,
+                      self.colsums.shape[0], int(c == self.n_chunks - 1)])
 
     def reduce(self) -> dict:
-        slot_sum(self.partial, out=self.sum[:self.p_floats])
-        slot_sum(self.colsums, out=self.sum[self.p_floats:])
+        slot_sum(self.partial, out=self.sum)
         return self.grads
 
     def workspace(self, c: int = 0) -> dict:

@@ -375,8 +375,8 @@ def test_fused_radiance_f32_split_and_sweep(width, layers):
 @pytest.mark.parametrize("n", [1, 63, 70001, 196608])
 def test_fused_radiance_bf16_backward_is_deterministic(width, layers, n):
     """The bf16 backward writes its split-K and column-sum slots without
-    atomics and sums each kind in a fixed order: five launches agree bit
-    for bit."""
+    atomics and sums them in a fixed order: five launches agree bit for
+    bit."""
     _need_gpu()
     from psnerf_torch.ops import fused_radiance as fr
 
@@ -392,7 +392,7 @@ def test_fused_radiance_bf16_backward_is_deterministic(width, layers, n):
     runs = [fr.radiance_backward(packed, em, de, vpe, p3, g_e, g_out, skip)
             for _ in range(5)]
     torch.cuda.synchronize()
-    assert fr.slot_sum.launches == before + 2 * 5
+    assert fr.slot_sum.launches == before + 5
     for k in fr.PACK_ORDER:
         assert torch.isfinite(runs[0][k]).all(), k
         assert all(torch.equal(runs[0][k], r[k]) for r in runs[1:]), k
@@ -477,8 +477,9 @@ def test_fused_radiance_bf16_wgrad_matches_plain(width, layers, n):
     """The bf16 split-K weight-gradient kernel against weight_grads_plain
     on the kernel's own workspace, summed over the chunks: the products'
     leaves within 1e-4 of their max (the same bf16 operands, f32 sums in
-    another order); its slots summed bit for bit as slot_sum_plain sums
-    them."""
+    another order); the last chunk's splits fold the column-sum slots,
+    each its share in order, into their column-sum regions; the slots
+    summed bit for bit as slot_sum_plain sums them."""
     _need_gpu()
     fr, b, packed, (em, de, vpe, p3, g_e, g_out), skip = _bf16_backward(
         width, layers, n)
@@ -499,9 +500,17 @@ def test_fused_radiance_bf16_wgrad_matches_plain(width, layers, n):
         d = fr.weight_grads_plain(ws, skip)
         want = d if want is None else {k: want[k] + d[k] for k in d}
     assert fr.bf16_launches["wgrad"] == before + b.n_chunks
+    cs = b.colsums
+    S = b.splits
+    fold = torch.stack([fr.slot_sum_plain(cs[len(cs) * s // S:
+                                             len(cs) * (s + 1) // S])
+                        for s in range(S)])
+    last = b.partial[(b.n_chunks - 1) * S:, p_floats:]
+    assert torch.equal(last, fold)
+    assert (b.partial[:(b.n_chunks - 1) * S, p_floats:] == 0).all()
     grads = b.reduce()
     torch.cuda.synchronize()
-    assert torch.equal(b.sum[:p_floats], fr.slot_sum_plain(b.partial))
+    assert torch.equal(b.sum, fr.slot_sum_plain(b.partial))
     for k in prods:
         scale = want[k].abs().max().item() + 1e-12
         assert torch.isfinite(grads[k]).all(), k

@@ -231,9 +231,9 @@ def test_bf16_launch_sequence_over_chunks(setup, monkeypatch):
     forward kernel; sweep and wgrad of rows 0, 96 and 192 (64 points,
     ragged), each chunk's split-K slots after the last, every chunk's
     column sums onto the same two slots (one 128-point CTA, zeroed before
-    the first chunk); one fixed-order sum over the split-K
-    slots and one over the column-sum slots. The slabs are packed once,
-    in the forward."""
+    the first chunk), which the last chunk's weight-gradient pass folds
+    into its split-K slots; one fixed-order sum over the split-K slots.
+    The slabs are packed once, in the forward."""
     launched = _fake_bf16(monkeypatch, setup["packed"])
     monkeypatch.setattr(fr, "CHUNK", 96)
     packs = []
@@ -248,20 +248,20 @@ def test_bf16_launch_sequence_over_chunks(setup, monkeypatch):
     (rgb.sum() + a.sum()).backward()
     names = [w.split()[-1] if "bf16" in w else "slot_sum"
              for w, _ in launched]
-    assert names == ["fwd"] + ["sweep", "wgrad"] * 3 + ["slot_sum"] * 2
+    assert names == ["fwd"] + ["sweep", "wgrad"] * 3 + ["slot_sum"]
     assert len(packs) == 1
     splits = 3                       # ceil(2 x 6 SMs / 4 tiles)
     ints = [i for _, i in launched]
     sweeps, wgrads = ints[1:7:2], ints[2:7:2]
     assert [(i[0], i[1], i[2]) for i in sweeps] == \
         [(96, 0, 128), (96, 96, 128), (64, 192, 128)]
-    assert [(i[0], i[1], i[7], i[8]) for i in wgrads] == \
-        [(128, 128, splits, 0), (128, 128, splits, 3), (128, 128, splits, 6)]
+    assert [(i[0], i[1], i[7], i[8], i[9], i[10]) for i in wgrads] == \
+        [(128, 128, splits, 0, 2, 0), (128, 128, splits, 3, 2, 0),
+         (128, 128, splits, 6, 2, 1)]
     leaves, p_floats, c_floats = fr.bf16_slot_layout(*_dims(setup))
-    assert ints[-2] == [p_floats, 3 * splits]
-    assert ints[-1] == [c_floats, 2]
+    assert ints[-1] == [p_floats + c_floats, 3 * splits]
     assert fr.bf16_launches == {"fwd": 1, "sweep": 3, "wgrad": 3}
-    assert fr.slot_sum.launches == 2
+    assert fr.slot_sum.launches == 1
     assert fr.radiance_forward.launches == {"bfloat16": 1, "float32": 0}
     assert fr.radiance_backward.launches == {"bfloat16": 1, "float32": 0}
     fr.reset_launches()

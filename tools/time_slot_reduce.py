@@ -5,8 +5,8 @@ three ways in turns with torch.sum over the same slots, on one card:
     python3 tools/time_slot_reduce.py [--root DIR] [--tag NAME]
 
   * the bf16 backward's reduce (`fr.Bf16Backward.reduce`: `fr.slot_sum`
-    over its split-K slots and over its column-sum slots) at the bf16 bear
-    field at 2048 x 96 = 196,608 points, on random slots (in a checkout
+    over its split-K slots) at the bf16 bear field at 2048 x 96 = 196,608
+    points, on random slots (in a checkout
     before the bf16 form's split-K backward, `fr.slot_sum` over 132
     random slots of that field's per-CTA slot length);
   * the f32 backward's reduce (`fr.F32Backward.reduce`) over the split-K
@@ -88,18 +88,15 @@ def main():
                                 torch.zeros_like(em), f(np.ones((n, 4))),
                                 skip)
             b.partial.copy_(noise(*b.partial.shape))
-            b.colsums.copy_(noise(*b.colsums.shape))
-            want = torch.cat([fr.slot_sum_plain(b.partial),
-                              fr.slot_sum_plain(b.colsums)])
+            want = fr.slot_sum_plain(b.partial)
             b.reduce()
             torch.cuda.synchronize()
             check(torch.equal(b.sum, want), "bf16 reduce bitwise")
-            fns = {"kernel": b.reduce, "torch_sum": lambda: torch.cat(
-                [torch.sum(b.partial, 0), torch.sum(b.colsums, 0)])}
-            out["bf16_reduce"] = dict(
-                three_ways(fns), n=n,
-                slots=[b.partial.shape[0], b.colsums.shape[0]],
-                slot_floats=[b.p_floats, b.c_floats])
+            fns = {"kernel": b.reduce,
+                   "torch_sum": lambda: torch.sum(b.partial, 0)}
+            out["bf16_reduce"] = dict(three_ways(fns), n=n,
+                                      slots=b.partial.shape[0],
+                                      slot_floats=b.partial.shape[1])
             del b, em, de, vpe, p3, want
         else:
             total = sum(fr.bf16_slot_layout(*fr._dims(packed, skip))[1])
