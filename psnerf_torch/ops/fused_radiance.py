@@ -704,10 +704,12 @@ def bf16_sizes(w: int, ke: int, kv: int, nt: int) -> dict:
     return sizes
 
 
-def _bf16_operands(packed: dict, dims: tuple, dev, slabs) -> list:
-    """The packed slabs and the f32 vectors the bf16 kernels read: b0,
-    trunk_b, b8f, w8l, b8l, wp, wn, ba0, bab, wa4t ([3, W], the rgb head's
-    bf16 values), ba4."""
+def _bf16_operands(packed: dict, dims: tuple, dev, slabs, sizes) -> list:
+    """The packed slabs (checked against the library's `sizes`) and the f32
+    vectors the bf16 kernels read: b0, trunk_b, b8f, w8l, b8l, wp, wn, ba0,
+    bab, wa4t ([3, W], the rgb head's bf16 values), ba4."""
+    check_operand("slabs", slabs, torch.bfloat16,
+                  (sizes["slab_bytes"] // 2,), dev)
     w = dims[0]
     shapes = dict(_GRAD_SHAPES(*dims), wa4t=(3, w))
     t = {k: packed[k].detach().float() for k in _BF16_VECTORS + ["ba4"]}
@@ -736,11 +738,6 @@ def _bf16_points(dims, n, dev, **t) -> list:
     return out
 
 
-def _check_slabs(slabs, sizes, dev) -> None:
-    check_operand("slabs", slabs, torch.bfloat16, (sizes["slab_bytes"] // 2,),
-                  dev)
-
-
 def radiance_forward_bf16(packed: dict, em, de, vpe, p3, skip_pos: int,
                           slabs=None):
     """The bf16 form's forward kernel: (out [N, 4], g_e [N, ke]). slabs:
@@ -752,7 +749,6 @@ def radiance_forward_bf16(packed: dict, em, de, vpe, p3, skip_pos: int,
     sz = bf16_sizes(*dims)
     if slabs is None:
         slabs = bf16_slabs(packed)
-    _check_slabs(slabs, sz, dev)
     slots = _slots(dev)
     ins = _bf16_points(dims, n, dev, em=em, vpe=vpe, de=de, p3=p3)
     out = torch.empty((n, 4), dtype=torch.float32, device=dev)
@@ -760,8 +756,8 @@ def radiance_forward_bf16(packed: dict, em, de, vpe, p3, skip_pos: int,
     scratch = torch.empty((slots * sz["fwd_scratch"],), dtype=torch.float32,
                           device=dev)
     _launch_bf16("fwd", dev,
-                 [*ins, *_bf16_operands(packed, dims, dev, slabs), out, g_e,
-                  scratch], [n, w, ke, kv, nt, skip_pos, slots])
+                 [*ins, *_bf16_operands(packed, dims, dev, slabs, sz), out,
+                  g_e, scratch], [n, w, ke, kv, nt, skip_pos, slots])
     return out, g_e
 
 
@@ -802,10 +798,9 @@ class Bf16Backward:
         sz = bf16_sizes(*self.dims)
         if slabs is None:
             slabs = bf16_slabs(packed)
-        _check_slabs(slabs, sz, dev)
         self.ins = _bf16_points(self.dims, self.n, dev, em=em, vpe=vpe,
                                 de=de, p3=p3)
-        self.weights = _bf16_operands(packed, self.dims, dev, slabs)
+        self.weights = _bf16_operands(packed, self.dims, dev, slabs, sz)
         self.grad_ins = _bf16_points(self.dims, self.n, dev, g_e=g_e,
                                      g_out=g_out)
         leaves, self.p_floats, self.c_floats = bf16_slot_layout(*self.dims)

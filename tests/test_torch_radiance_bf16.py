@@ -13,7 +13,7 @@ layouts on the CPU (hidden 128, 4 layers, skip (2,), 256 points):
     operands and their transposes;
   * the wrapper's bf16 launch sequence over chunks (fwd; sweep and wgrad
     per chunk with their row offsets, split-K slots and column-sum slots;
-    the two fixed-order sums), with the launches replaced by a recorder."""
+    the fixed-order sum), with the launches replaced by a recorder."""
 
 import types
 

@@ -72,9 +72,9 @@ PATCHES = {
     # of every CTA, summed over its tiles) into the first floats of its
     # column-sum slot
     "phases": [(m, MARK.format(k) + m) for k, m in enumerate(PHASES)] + [
-        ("  bool add = p.accumulate != 0;\n",
-         "  unsigned ph[6] = {0, 0, 0, 0, 0, 0}, tc = (unsigned)clock();\n"
-         "  bool add = p.accumulate != 0;\n"),
+        ("  float* slot = p.colsum + ((size_t)blockIdx.x * NCONS + wg) * C.floats;\n",
+         "  float* slot = p.colsum + ((size_t)blockIdx.x * NCONS + wg) * C.floats;\n"
+         "  unsigned ph[6] = {0, 0, 0, 0, 0, 0}, tc = (unsigned)clock();\n"),
         ("  if (tw == 0) bulk_wait();              // the staging reads, the stores\n",
          MARK.format(5) + "  if (tw == 0) bulk_wait();\n"
          "  if (tw == 0 && wg == 0)\n"
