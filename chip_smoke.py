@@ -45,7 +45,17 @@ Phases (any failure exits non-zero; nothing is caught):
      which runs evaluate(split="test") and render_view for the rgb and
      rgb_sum routes, with the kernels' launch counts set to 0 just before
      and read just after; the kernel route is held against the plain route;
-  7. stage-2 training on the same scene: Stage2Runner.train at the full
+  7. relighting and material edits on that runner, each path with the
+     counts set to 0 just before and read just after: render_envmap of the
+     test view under a sky written as .hdr by a small RGBE writer here
+     (2 x 16^2 texel lights with per-channel intensities, the light sum in
+     4 launches of 128 lights), one chunk's light sum held against the
+     plain route at the light-sum bars and timed at its operands against
+     its bound (per-channel and scalar intensities bit for bit from run to
+     run); edit_material with an albedo and an SG-basis edit (the
+     visibility kernel's precompute, plain shading) held against the plain
+     route at the rgb bars, and the visibility kernel at its operands;
+  8. stage-2 training on the same scene: Stage2Runner.train at the full
      bear PSNet (8,192 pixels x 10 lights, a vis_plus pool of 8) for 20
      warm-up and 20 more steps, with one plot_to_disk (fused_vis_shade's
      launches set to 0 just before and read just after); albedo, rough and
@@ -54,7 +64,7 @@ Phases (any failure exits non-zero; nothing is caught):
      step and it/s, one profiled step; the card's step against the CPU's
      from identical params, batch and draws, in f32 and in f64 (loss,
      gradients, params);
-  8. stage-1 main path on the same scene, twice: at the bf16 field (10 + 5
+  9. stage-1 main path on the same scene, twice: at the bf16 field (10 + 5
      steps) and at the default f32 field (20 + 10 steps, with the
      visualisation strip): Stage1Runner.train (2048 rays, 256 march steps,
      64 samples), counts of each kernel and form set to 0 just before and
@@ -62,13 +72,20 @@ Phases (any failure exits non-zero; nothing is caught):
      that trains at 96 samples; ms per step at 64 and 96 samples; one
      profiled step; the kernel route's step held against the plain
      route's from identical params, batch and noise;
-  9. stage-1 eval and export on the trained default field: render_view of
+ 10. stage-1 eval and export on the trained default field: render_view of
      the test view, eval_views("test"), and the faithful shape_extract of
      all three views toward the 96 training lights and 32 vis_plus
      directions, with fused_occ's launches counted; a self-shadow check,
      and the kernel route's export of one view toward 4 lights held
      against the plain route's;
- 10. one JSON line of kernels, then the last line
+ 11. mesh extraction of that field, fused_occ's counts set to 0 just
+     before and read just after: extract_mesh_both at the config's 64 and
+     3 upsampling steps (a 513^3 grid, K1 at batches of 2^20 points) with
+     silhouette carving, the seconds of each leg, both PLYs reloaded; one
+     MISE round's K1 batch held against the plain version and timed
+     against its bound; the K1 route's mesh against the plain route's at
+     32 / 2 within one voxel by Chamfer; one refine_mesh of 20 steps;
+ 12. one JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It needs no network and writes only inside the checkout (a work directory
@@ -133,6 +150,14 @@ S2_F32_BARS = {"loss_rel": 1e-4, "grad_rel": 1e-3, "param_abs": 1e-5,
                "big_grad": 1e-6}
 S2_F64_BARS = {"loss_rel": 1e-12, "grad_rel": 1e-9, "param_abs": 1e-10,
                "big_grad": 1e-6}
+# envmap relighting: a light_h x 2 light_h lat-long map (its light sum in
+# launches of the runner's ENV_CHUNK = 128 lights,
+# psnerf_tpu/runners/stage2.py:571-579)
+LIGHT_H = 16
+ALBEDO_NEW, BASIS_NEW = (0.8, 0.35, 0.2), 5     # the material edit
+N_MISE = 1 << 20          # mesh extraction's MISE batch on the K1 route
+MESH_ROUTE_RES = (32, 2)  # resolution0, upsampling of the route comparison
+REFINE_STEPS = 20
 
 
 def log(msg):
@@ -678,7 +703,216 @@ def phase_main_path(scene):
     return launches, {
         "evaluate_s_per_view": eval_s / n_views, "frame_ms": frame_ms,
         "rgb_pixel_lights_per_s": HW[0] * HW[1] * N_LIGHTS / (rgb_ms / 1e3),
-        **breakdown}
+        **breakdown}, runner
+
+
+def write_hdr(path, img):
+    """A float RGB image [H, W, 3] as a Radiance .hdr of flat RGBE
+    scanlines (Ward's float2rgbe: the shared exponent of the largest
+    channel, mantissas truncated to 8 bits)."""
+    h, w = img.shape[:2]
+    m = img.max(axis=-1)
+    mant, ex = np.frexp(m)
+    scale = np.where(m > 1e-32, mant * 256.0 / np.maximum(m, 1e-32), 0.0)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = (img * scale[..., None]).astype(np.uint8)
+    rgbe[..., 3] = np.where(m > 1e-32, ex + 128, 0)
+    with open(path, "wb") as fh:
+        fh.write(f"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y {h} +X {w}\n"
+                 .encode())
+        fh.write(rgbe.tobytes())
+
+
+def sky_envmap(h=64, w=128):
+    """An outdoor-like lat-long map [h, w, 3]: a blue sky over a darker
+    ground, and a small warm sun."""
+    lat = np.linspace(np.pi / 2, -np.pi / 2, h)[:, None, None]
+    lng = np.linspace(np.pi, -np.pi, w)[None, :, None]
+    sky = np.where(lat > 0, np.asarray([0.35, 0.55, 1.0]) * (0.4 + 0.6 *
+                                                              np.sin(lat)),
+                   np.asarray([0.25, 0.2, 0.15]) * 0.5)
+    sun = np.exp(-((lat - 0.7) ** 2 + (lng - 0.8) ** 2) / 0.01) \
+        * np.asarray([40.0, 36.0, 30.0])
+    return (0.004 * (sky + sun)).astype(np.float32)
+
+
+def envmap_chunk_operands(runner, data, dirs, ints, tile=TILE):
+    """The operands render_view gives fused_vis_shade for one light chunk of
+    view 0: the surface-mask pixels padded to the tile with pixel 0 (the
+    mask compaction), their heads and camera rays, the chunk's lights and
+    intensities."""
+    from psnerf_torch.core.encoding import nerf_embed
+    from psnerf_torch.core.rays import get_camera_params
+    from psnerf_torch.render.shading import psnet_point_heads
+
+    cfg = runner.cfg.net
+    h, w = data["img_res"]
+    sel = torch.nonzero(data["surface_mask"][0].reshape(-1) > 0).flatten()
+    sel = torch.cat([sel, sel.new_zeros((-sel.numel()) % tile)])
+    ys, xs = torch.meshgrid(torch.arange(h, device=DEV),
+                            torch.arange(w, device=DEV), indexing="ij")
+    uv = torch.stack([xs, ys], -1).reshape(-1, 2).float()[sel]
+    rays, _ = get_camera_params(uv, data["poses"][0], data["K"])
+    heads = psnet_point_heads(runner.params["model"], cfg,
+                              data["points"][0][sel], data["normals"][0][sel])
+    ld = torch.as_tensor(dirs, dtype=torch.float32, device=DEV)
+    li = torch.as_tensor(ints, dtype=torch.float32, device=DEV)
+    return (runner.params["model"]["visibility"], heads["point_emb"],
+            nerf_embed(ld, cfg.n_freqs_xyz), heads["normal"], -rays,
+            heads["albedo"], heads["weights"],
+            torch.ones(sel.numel(), dtype=torch.bool, device=DEV), ld, li)
+
+
+def time_envmap_chunk(args):
+    """fused_vis_shade's light sum at one envmap chunk's operands, with the
+    texels' per-channel intensities [L, 3] and with scalar intensities:
+    held against its plain version at the light-sum bars (the rgb bars x
+    L) and bit for bit from run to run, then timed in turns with its plain
+    version and the bf16 matmul chain over the same trunk."""
+    from psnerf_torch.ops import fused_vis as fv
+
+    n_l = args[-2].shape[0]
+    m = {}
+    for name, li in (("per_channel", args[-1]),
+                     ("scalar", args[-1].mean())):
+        a = args[:-1] + (li,)
+        got = fv.fused_vis_shade(*a, sum_lights=True)
+        again = fv.fused_vis_shade(*a, sum_lights=True)
+        torch.cuda.synchronize()
+        err = (got - fv.fused_vis_shade_plain(*a, sum_lights=True)).abs()
+        m[name] = {"max_abs_err": err.max().item(),
+                   "mean_abs_err": err.mean().item(),
+                   "rerun_bitwise": bool(torch.equal(got, again))}
+        check(torch.isfinite(got).all(), f"envmap chunk sum finite ({name})")
+        check(m[name]["rerun_bitwise"], f"envmap chunk sum bitwise ({name})")
+        check(m[name]["max_abs_err"] < RGB_MAX * n_l
+              and m[name]["mean_abs_err"] < RGB_MEAN * n_l,
+              f"envmap chunk sum against plain ({name}) {m[name]}")
+    ops = fv.pack_vis_operands(args[0], args[1], args[2])
+    t = in_turns(
+        {"plain": lambda: fv.fused_vis_shade_plain(*args, sum_lights=True),
+         "kernel": lambda: fv.fused_vis_shade(*args, sum_lights=True),
+         "library": lambda: library_trunk(ops)},
+        {"plain": 2, "kernel": 10, "library": 3},
+        ["plain", "kernel", "library", "library", "kernel", "plain"])
+    n = ops["n"]
+    flops = trunk_flops(n, n_l, ops["ke"])
+    op_bytes = nbytes(*(ops[k] for k in ("em", "w0xT", "w5xT", "r0", "r5",
+                                         "trunk_wT", "trunk_b", "w8")),
+                      *args[3:])
+    b, by = bound_ms(flops, op_bytes + n * 3 * 4)
+    row = dict(n=n, n_lights=n_l, max_abs_err=m["per_channel"]["max_abs_err"],
+               ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+               bound_ms=b, bound_by=by, flops=flops, intensities=m)
+    log(json.dumps({"fused_vis_shade_envmap_chunk": row}))
+    return row
+
+
+def phase_relight_edit(runner, data):
+    """Envmap relighting and material edits on phase 6's runner, each path
+    with the kernels' counts set to 0 just before and read just after:
+    render_envmap of the test view under a sky written as .hdr (2 x 16^2
+    lights, 4 light-sum launches a view), one chunk's rgb_sum held against
+    the plain route and the light sum timed at its operands; edit_material
+    with an albedo and an SG-basis edit (the visibility kernel's
+    precompute, plain shading), held against the plain route at the rgb
+    bars, and the visibility kernel at its operands."""
+    from psnerf_torch.data.scene import imread
+    from psnerf_torch.ops import fused_vis as fv
+    from psnerf_torch.runners.stage2 import ENV_CHUNK, load_envmap
+
+    hdr = os.path.join(WORK, "sky.hdr")
+    write_hdr(hdr, sky_envmap())
+    env = load_envmap(hdr, LIGHT_H)
+    check(env.shape == (LIGHT_H, 2 * LIGHT_H, 3) and np.isfinite(env).all()
+          and env.max() > 0, f"envmap {env.shape}")
+    n_views = len(data["views"])
+    name = f"view_{int(data['views'][0]) + 1:02d}"
+    mask = data["surface_mask"][0].cpu().numpy().reshape(HW)
+
+    # ---- relighting: counts set to 0 just before, read just after
+    out = os.path.join(WORK, "relight")
+    fv.fused_visibility.launches = 0
+    fv.fused_vis_shade.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.render_envmap(out, env, split="test", light_h=LIGHT_H, tile=TILE)
+    torch.cuda.synchronize()
+    relight_s = time.perf_counter() - t0
+    relight = {"fused_visibility": fv.fused_visibility.launches,
+               "fused_vis_shade": fv.fused_vis_shade.launches}
+    n_lights = 2 * LIGHT_H * LIGHT_H
+    chunks = -(-n_lights // ENV_CHUNK)
+    check(relight == {"fused_visibility": 0,
+                      "fused_vis_shade": chunks * n_views},
+          f"relight launches {relight}")
+    img = imread(os.path.join(out, "rgb", "img", name + ".png"))
+    probe = imread(os.path.join(out, "light_probe.png"))
+    check(img.shape == (*HW, 3) and probe.shape[:2] == (LIGHT_H * 8,
+                                                         2 * LIGHT_H * 8),
+          f"relight pngs {img.shape} {probe.shape}")
+    check((img[~mask] == 255).all() and (img[mask] < 255).any(),
+          "relit view: white off the mask, rendered on it")
+
+    # one chunk's light sum: the kernel route against the plain route
+    from psnerf_torch.core.spherical import gen_light_xyz
+
+    lxyz, _ = gen_light_xyz(LIGHT_H, 2 * LIGHT_H, envmap_radius=1.0)
+    dirs = lxyz.reshape(-1, 3)
+    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    texels = env.reshape(-1, 3)[:ENV_CHUNK]
+    kern = runner.render_view(data, 0, dirs[:ENV_CHUNK], texels,
+                              outputs=("rgb_sum",))["rgb_sum"]
+    plain = runner.render_view(data, 0, dirs[:ENV_CHUNK], texels,
+                               outputs=("rgb_sum",),
+                               use_fused_vis=False)["rgb_sum"]
+    err = np.abs(kern - plain)
+    route_sum = {"max_abs_err": float(err.max()),
+                 "mean_abs_err": float(err.mean()),
+                 "sum_range": [float(kern[mask].min()),
+                               float(kern[mask].max())]}
+    check(err.max() < RGB_MAX * ENV_CHUNK and err.mean() < RGB_MEAN *
+          ENV_CHUNK, f"envmap chunk route {route_sum}")
+    k5_env = time_envmap_chunk(envmap_chunk_operands(
+        runner, data, dirs[:ENV_CHUNK], texels))
+
+    # ---- material edit: counts set to 0 just before, read just after
+    out = os.path.join(WORK, "edit")
+    fv.fused_visibility.launches = 0
+    fv.fused_vis_shade.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.edit_material(out, split="test", albedo_new=ALBEDO_NEW,
+                         basis_new=BASIS_NEW, tile=TILE)
+    torch.cuda.synchronize()
+    edit_s = time.perf_counter() - t0
+    edit = {"fused_visibility": fv.fused_visibility.launches,
+            "fused_vis_shade": fv.fused_vis_shade.launches}
+    check(edit == {"fused_visibility": n_views, "fused_vis_shade": 0},
+          f"edit launches {edit}")
+    pngs = os.listdir(os.path.join(out, "rgb", "img", name))
+    check(len(pngs) == N_LIGHTS, f"{len(pngs)} edited pngs")
+    tdirs, tints = runner.trained_lights_for_view(data, 0)
+    kw = dict(outputs=("rgb", "albedo"), albedo_new=ALBEDO_NEW,
+              basis_new=BASIS_NEW)
+    kern = runner.render_view(data, 0, tdirs, tints, **kw)
+    plain = runner.render_view(data, 0, tdirs, tints, use_fused_vis=False,
+                               **kw)
+    err = np.abs(kern["rgb"] - plain["rgb"])
+    route_edit = {"rgb_max_abs_err": float(err.max()),
+                  "rgb_mean_abs_err": float(err.mean())}
+    check(err.max() < RGB_MAX and err.mean() < RGB_MEAN,
+          f"edit route {route_edit}")
+    check(np.allclose(kern["albedo"][mask], ALBEDO_NEW), "edited albedo")
+    # the visibility kernel at the edit's operands
+    check_k4_at_view(runner, data, tdirs)
+    e2e = {"relight_s_per_view": relight_s / n_views,
+           "relight_launches": relight, "relight_lights": n_lights,
+           "relight_chunk_route": route_sum, "edit_s_per_view":
+           edit_s / n_views, "edit_launches": edit,
+           "edit_route": route_edit}
+    log(json.dumps({"relight_edit": e2e}))
+    return {"relight": relight, "edit": edit}, e2e, k5_env
 
 
 def stage2_train_config(scene):
@@ -2047,6 +2281,130 @@ def phase_stage1_export(runner):
     return {"eval": ev, "export": export}
 
 
+def phase_mesh(runner, card, sass):
+    """Mesh extraction of the trained default field (phase 9's runner),
+    with fused_occ's launches set to 0 just before and read just after:
+    extract_mesh_both at the config's resolution (64, 3 upsampling steps:
+    a 513^3 grid) with silhouette carving, both PLYs reloaded; one MISE
+    round's K1 batch (2^20 points, padded as the extraction pads it) held
+    against the plain version and timed against its bound; the K1 route's
+    mesh against the plain route's at 32 / 2 by Chamfer; one refine_mesh
+    of REFINE_STEPS steps."""
+    from psnerf_torch.fields.occupancy import occ_alpha
+    from psnerf_torch.mesh.chamfer import chamfer_distance
+    from psnerf_torch.mesh.meshio import load_ply
+    from psnerf_torch.mesh.native import MISE
+    from psnerf_torch.mesh.refine import refine_mesh
+    from psnerf_torch.ops import fused_occ as fo
+
+    cfg = runner.cfg
+    check(runner.use_fused_occ, "the runner takes fused_occ on the card")
+    out = os.path.join(WORK, "mesh")
+    os.makedirs(out)
+    paths = [os.path.join(out, f) for f in ("raw.ply", "exterior.ply")]
+    box = 2.4                       # the extraction's box (padding 0.4)
+
+    # ---- the main path: counts set to 0 just before, read just after
+    timings = {}
+    fo.fused_occ_logit.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meshes = runner.extract_mesh_both(*paths, mask_carve=True,
+                                      timings=timings)
+    wall = time.perf_counter() - t0
+    k1 = fo.fused_occ_logit.launches
+    res = cfg.extraction_resolution * 2 ** cfg.extraction_upsampling
+    for (v, f), path in zip(meshes, paths):
+        check(len(f) > 1000 and np.isfinite(v).all()
+              and np.abs(v).max() <= box / 2, f"mesh {path}: {v.shape}")
+        lv, lf = load_ply(path)
+        check(np.array_equal(lf, f) and np.array_equal(lv, v.astype(
+            np.float64)), f"{path} reloads as written")
+    mesh = {"wall_s": wall, "k1_launches": k1, "grid": res + 1,
+            "timings": timings,
+            "faces": [len(f) for _, f in meshes],
+            "vertices": [len(v) for v, _ in meshes]}
+    log(json.dumps({"mesh_extract": mesh}))
+    check(k1 >= -(-timings["points"] // N_MISE) and k1 > 0,
+          f"K1 launches of the extraction {k1}, points {timings['points']}")
+
+    # ---- one MISE round's batch: K1 against its plain version, timed
+    mise = MISE(cfg.extraction_resolution, cfg.extraction_upsampling, 0.0)
+    q = mise.query()
+    pts = np.zeros((N_MISE, 3), np.float32)
+    pts[:len(q)] = box * (q.astype(np.float32) / res - 0.5)
+    with torch.no_grad():
+        ops = fo.pack_occ_operands(runner.field, cfg.field)
+        ops["slabs"] = fo.occ_slabs(ops)
+        p = torch.from_numpy(pts).to(DEV)
+        em = fo.occ_embed(p, ops)
+        got = fo.fused_occ_logit(runner.field, p, cfg.field)
+        torch.cuda.synchronize()
+        ref = fo._logit_plain(ops, em)
+        err = (got - ref).abs()
+        m1 = {"n": N_MISE, "queries": len(q), "max_abs_err": err.max().item(),
+              "mean_abs_err": err.mean().item(),
+              "corr": float(np.corrcoef(got[:len(q)].cpu().numpy(),
+                                        ref[:len(q)].cpu().numpy())[0, 1])}
+        check(torch.isfinite(got).all()
+              and m1["max_abs_err"] < OCC_MAX and m1["corr"] > OCC_CORR,
+              f"K1 at a MISE batch {m1}")
+        buf = torch.empty((N_MISE,), dtype=torch.float32, device=DEV)
+        t = in_turns({"plain": lambda: fo._logit_plain(ops, em),
+                      "kernel": lambda: fo._launch(ops, em, buf),
+                      "library": lambda: library_occ(ops, em)},
+                     {"plain": 2, "kernel": 10, "library": 3},
+                     ["plain", "kernel", "library", "library", "kernel",
+                      "plain"])
+        flops = occ_flops(N_MISE, ops)
+        b_tc, by = bound_ms(flops, nbytes(em, ops["slabs"], *(ops[k] for k in (
+            "b0", "trunk_b", "w8", "b8"))) + N_MISE * 4)
+        epi = occ_epilogue_ms(N_MISE, ops, sass, card)
+        b = max(b_tc, epi["fp32_ms"], epi["mufu_ms"])
+        k1_row = dict(m1, ms=t["kernel"], plain_ms=t["plain"],
+                      library_ms=t["library"], bound_ms=b,
+                      bound_by=by if b == b_tc else "operations",
+                      flops=flops, bound_parts={"tensor_or_bytes_ms": b_tc,
+                                                "tensor_or_bytes_by": by,
+                                                **epi})
+        del p, em, got, ref, buf
+    log(json.dumps({"fused_occ_logit_mise_batch": k1_row}))
+
+    # ---- the K1 route's mesh against the plain route's, by Chamfer
+    r0, up = MESH_ROUTE_RES
+    route = {}
+    for name in ("kernel", "plain"):
+        runner.use_fused_occ = name == "kernel"
+        try:
+            route[name] = runner.extract_mesh_to(
+                os.path.join(out, f"route_{name}.ply"), resolution0=r0,
+                upsampling=up)
+        finally:
+            runner.use_fused_occ = True
+    voxel = box / (r0 * 2 ** up)
+    cd = chamfer_distance(*route["kernel"], *route["plain"])
+    mesh["route"] = {"chamfer": cd, "voxel": voxel,
+                     "faces": [len(f) for _, f in route.values()]}
+    check(cd <= voxel, f"K1 route's mesh against the plain route's "
+          f"{mesh['route']}")
+
+    # ---- vertex refinement against the field
+    v, f = meshes[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vr = refine_mesh(lambda q_: occ_alpha(runner.field, q_, cfg.field), v, f,
+                     steps=REFINE_STEPS, device=DEV)
+    torch.cuda.synchronize()
+    moved = float(np.abs(vr - v).max())
+    mesh["refine"] = {"steps": REFINE_STEPS, "s": time.perf_counter() - t0,
+                      "max_move": moved}
+    # RMSprop moves a vertex by at most 10 lr a step
+    check(np.isfinite(vr).all() and 0 < moved <= REFINE_STEPS * 1e-4 * 1.001,
+          f"refine {mesh['refine']}")
+    log(json.dumps({"mesh": mesh}))
+    return k1, mesh, k1_row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2068,12 +2426,16 @@ def main():
         k2f, k3f, stages = phase_radiance_f32()
         scene = make_scene()
         with torch.no_grad():
-            launches, e2e = phase_main_path(scene)
+            launches, e2e, runner2 = phase_main_path(scene)
+            launches_re, e2e_re, k5_env = phase_relight_edit(
+                runner2, runner2._eval_data("test"))
+        del runner2
         launches_s2, e2e_s2 = phase_stage2_train(scene)
         launches_bf, e2e_bf, _ = phase_stage1_main(scene, "bfloat16", 10, 5)
         launches1, e2e1, trained = phase_stage1_main(scene, "float32", 20, 10,
                                                      vis_every=10)
         e2e_export = phase_stage1_export(trained)
+        k1_mesh, e2e_mesh, k1_mise = phase_mesh(trained, card, k1["sass"])
         del trained
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
@@ -2099,7 +2461,10 @@ def main():
                                      "host_us", "library_device_ms",
                                      "library_host_us", "meets_target",
                                      "corr_min", "colsum_rel_err",
-                                     "bound_ops_ms", "bound_bytes_ms")
+                                     "bound_ops_ms", "bound_bytes_ms",
+                                     "launches_mesh", "at_mise_batch",
+                                     "launches_relight", "at_envmap_chunk",
+                                     "launches_edit")
                    if x in k}}
 
     log(json.dumps({"card": card["nvidia_smi"], "main_path": e2e,
@@ -2107,13 +2472,15 @@ def main():
                     "stage1_main_path_bfloat16": e2e_bf,
                     "stage1_main_path_float32": e2e1,
                     "stage1_eval_export": e2e_export,
+                    "relight_edit": e2e_re, "mesh": e2e_mesh,
                     "f32_workspace": stages["workspace"],
                     "bf16_workspace": bstages["workspace"], "ptxas": regs}))
     log(card["nvidia_smi"])
     # K1 counts the default-field train path, K2/K3 each form's own path
     log(json.dumps({"kernels": [
         entry("fused_occ_logit", "fused_occ.cu",
-              "psnerf_tpu/ops/fused_occ.py:113", k1,
+              "psnerf_tpu/ops/fused_occ.py:113",
+              dict(k1, launches_mesh=k1_mesh, at_mise_batch=k1_mise),
               launches1["fused_occ_logit"]),
         entry("fused_radiance_and_alpha (forward)", "fused_radiance.cu",
               "psnerf_tpu/ops/fused_radiance.py:390", k2,
@@ -2153,11 +2520,14 @@ def main():
               ("wgrad", "weight-gradient products (split-K)"),
               ("reduce", "weight-gradient reduce (fixed order)"))],
         entry("fused_visibility", "fused_vis.cu",
-              "psnerf_tpu/ops/fused_vis.py:219", k4,
+              "psnerf_tpu/ops/fused_vis.py:219",
+              dict(k4, launches_edit=launches_re["edit"]["fused_visibility"]),
               launches["fused_visibility"]),
         entry("fused_vis_shade", "fused_vis.cu",
               "psnerf_tpu/ops/fused_vis.py:387",
-              dict(k5, launches_stage2_train=launches_s2["fused_vis_shade"]),
+              dict(k5, launches_stage2_train=launches_s2["fused_vis_shade"],
+                   launches_relight=launches_re["relight"]["fused_vis_shade"],
+                   at_envmap_chunk=k5_env),
               launches["fused_vis_shade"])], "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))

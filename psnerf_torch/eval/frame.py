@@ -8,7 +8,9 @@ shading kernel can serve (rgb, rgb_cnl, rgb_sum and per-point heads), the
 whole frame is one fused_vis_shade launch. Otherwise, with use_fused_vis,
 fused_visibility computes the raw [L, N] visibility in one launch and the
 shading runs in plain PyTorch over pixel tiles; without it the visibility
-MLP runs in plain PyTorch too.
+MLP runs in plain PyTorch too. Material edits (albedo_new, basis_new)
+never take the shading kernel: with use_fused_vis they keep
+fused_visibility's precompute and shade in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -87,17 +89,21 @@ def render_frame_stage2(
     tile: int = 4096,
     outputs: tuple = ("rgb",),
     use_fused_vis: bool = False,
+    albedo_new=None,
+    basis_new: int | None = None,
 ) -> dict:
     """Render every pixel under every light. N must be divisible by `tile`
     (callers pad the frame). Returns {name: [L, N, ...] or [N, ...]};
-    rgb_cnl is rgb as [3, N, L] and rgb_sum its light sum [N, 3]."""
+    rgb_cnl is rgb as [3, N, L] and rgb_sum its light sum [N, 3].
+    albedo_new / basis_new: material edits (stage2/eval.py:233-312)."""
     n = uv.shape[0]
     if n % tile:
         raise ValueError(f"pixel count {n} not divisible by tile {tile}")
     ray_dirs, _ = get_camera_params(uv, pose, intrinsics)
 
     if (use_fused_vis and cfg.visibility and cfg.render_model == "sgbasis"
-            and set(outputs) <= _FUSED_SHADE_OUTPUTS):
+            and set(outputs) <= _FUSED_SHADE_OUTPUTS
+            and albedo_new is None and basis_new is None):
         return _render_frame_fused_shade(
             model, cfg, ray_dirs, points, normals, surface_mask,
             light_dirs, light_ints, outputs)
@@ -120,7 +126,8 @@ def render_frame_stage2(
         out = render_psnet(
             model, cfg, points[sl], normals[sl], surface_mask[sl],
             ray_dirs[sl], light_dirs, light_ints,
-            vis_precomputed=None if vis_pre is None else vis_pre[:, sl])
+            vis_precomputed=None if vis_pre is None else vis_pre[:, sl],
+            albedo_new=albedo_new, basis_new=basis_new)
         for k in keys:
             parts[k].append(out[k])
     merged = {k: torch.cat(v, dim=1 if k in per_light else 0)

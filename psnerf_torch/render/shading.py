@@ -8,6 +8,8 @@ take the reference's fill values (ones, zeros for sg_weight).
 Training adds the jittered heads of the smoothness losses, from standard
 normal draws given as `noise` (`draw_psnet_noise`; None on the eval path),
 and the visibility of extra supervision lights (`light_vis_train`).
+Material edits (renderer.py:167-181) override the albedo (`albedo_new`)
+or swap the SG weights for one basis lobe (`basis_new`).
 """
 
 from __future__ import annotations
@@ -37,16 +39,33 @@ def draw_psnet_noise(n: int, generator: torch.Generator,
 
 
 def psnet_point_heads(model: PSNet, cfg: PSNetConfig, points: torch.Tensor,
-                      normals_pregen: torch.Tensor) -> dict:
+                      normals_pregen: torch.Tensor,
+                      albedo_new=None, basis_new: int | None = None) -> dict:
     """The light-independent heads, once per point. Returns {point_emb,
     albedo, weights, normal, normal_pred?}; `normal` is the shading normal
-    (the MLP's when cfg.normal_mlp, else the stage-1 one)."""
+    (the MLP's when cfg.normal_mlp, else the stage-1 one).
+
+    Edits: albedo_new [3] replaces every point's albedo; basis_new (SG
+    model) replaces the SG weights by 2**basis_new / 100 on that lobe and
+    0 elsewhere, on every channel when cfg.specular_rgb."""
     cdt = _cdt(cfg)
+    n = points.shape[0]
     point_emb = nerf_embed(points, cfg.n_freqs_xyz)
     albedo = model["albedo"](point_emb, cdt)
+    if albedo_new is not None:
+        albedo = torch.as_tensor(albedo_new, dtype=albedo.dtype,
+                                 device=albedo.device).expand(albedo.shape)
     weights = model["rough"](point_emb, cdt)
     if cfg.render_model == "sgbasis":
         weights = torch.relu(weights)
+        if basis_new is not None:
+            w_new = torch.zeros_like(weights)
+            val = 2.0 ** basis_new / 100.0
+            if cfg.specular_rgb:
+                w_new.view(n, 3, cfg.nbasis)[:, :, basis_new] = val
+            else:
+                w_new[:, basis_new] = val
+            weights = w_new
     out = {"point_emb": point_emb, "albedo": albedo, "weights": weights}
     if cfg.normal_mlp:
         emb_n = nerf_embed(points, cfg.normal_n_freqs_xyz)
@@ -69,17 +88,21 @@ def render_psnet(
     vis_precomputed: torch.Tensor | None = None,  # [L, N, 1] raw vis
     noise: dict | None = None,      # jitter draws (None: eval, no jitter)
     light_vis_train: torch.Tensor | None = None,  # [Lv, 3] extra vis lights
+    albedo_new=None,                # [3] albedo edit
+    basis_new: int | None = None,   # SG basis index edit
 ) -> dict:
     """All N pixels under all L lights: rgb [L, N, 3], albedo [N, 3],
     sg_weight [N, n_weights], rough [L, N, 3] (SG specular) or [N, 3]
     (microfacet), normal_pred [N, 3], visibility [L, N, 1]; with noise
     (and cfg.xyz_jitter_std > 0) albedo_jitter, rough_jitter and, for a
     normal MLP with normal_jitter_std > 0, normal_jitter; with
-    light_vis_train, vis_train [Lv, N]."""
+    light_vis_train, vis_train [Lv, N]. albedo_new / basis_new: the
+    material edits of psnet_point_heads."""
     n = points.shape[0]
     n_l = light_dirs.shape[0]
     mask1 = surface_mask[:, None]
-    heads = psnet_point_heads(model, cfg, points, normals_pregen)
+    heads = psnet_point_heads(model, cfg, points, normals_pregen,
+                              albedo_new, basis_new)
     point_emb, albedo, weights = (
         heads["point_emb"], heads["albedo"], heads["weights"])
     normal = heads["normal"]

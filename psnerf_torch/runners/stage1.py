@@ -13,7 +13,13 @@ export also every surface point toward every light); their integration
 pass stays plain PyTorch, as in the JAX package. Images are processed
 row-major (pixel n -> x = n % w, y = n // w). Each full image queues all of
 its tiles on the device and reads the results back once. The export runs
-the faithful protocol only; mesh extraction comes with a later slice.
+the faithful protocol only.
+
+Mesh extraction evaluates the MISE octree's query points through fused_occ
+in batches of 2^20 points on the card (100,000 on the plain route), carves
+the value grid by the training views' dilated silhouettes on the device,
+marches it on the host, optionally refines the vertices against the field
+and writes OBJ or PLY.
 """
 
 from __future__ import annotations
@@ -32,6 +38,12 @@ from psnerf_torch.data.scene import imwrite, load_scene_params
 from psnerf_torch.data.stage1 import load_stage1_data, sample_stage1_batch
 from psnerf_torch.device import resolve_device
 from psnerf_torch.fields.occupancy import init_occupancy_field, occ_alpha
+from psnerf_torch.mesh.extractor import (build_value_grid,
+                                         make_field_value_fn,
+                                         march_value_grid)
+from psnerf_torch.mesh.meshio import save_obj, save_ply
+from psnerf_torch.mesh.refine import (make_mask_carver, pixel_to_ndc_camera,
+                                      refine_mesh)
 from psnerf_torch.ops.fps import farthest_point_sampling_np
 from psnerf_torch.ops.fused_occ import make_fused_occ_fn
 from psnerf_torch.ops.fused_radiance import supports
@@ -451,3 +463,90 @@ class Stage1Runner:
                 json.dump(vis_plus_json, f, indent=4)
         print(f"[shape_extract] leg breakdown (s): {timings}")
         return timings
+
+    # ---------------------------------------------------------- mesh export
+    def extract_mesh_to(self, path: str, resolution0: int | None = None,
+                        upsampling: int | None = None,
+                        mask_carve: bool = False,
+                        clip_bottom: float | None = None,
+                        dilate_radius: int = 12,
+                        exterior_only: bool = False,
+                        timings: dict | None = None):
+        """Extract the field's mesh to `path` (.obj, else PLY) and return
+        (verts, tris). mask_carve: carve the value grid by the training
+        views' dilated silhouettes before marching (extracting.py:120-126);
+        clip_bottom: drop everything below this world z
+        (extracting.py:130-132); exterior_only: fill enclosed pockets first.
+        timings: a dict that gets the seconds of each leg."""
+        timings = {} if timings is None else timings
+        value_grid, iso, box_size = self._build_value_grid(
+            resolution0, upsampling, mask_carve, dilate_radius, clip_bottom,
+            timings)
+        verts, tris = march_value_grid(value_grid, iso, box_size,
+                                       exterior_only=exterior_only,
+                                       timings=timings)
+        return self._finish_mesh(path, verts, tris, timings)
+
+    def extract_mesh_both(self, path_raw: str, path_exterior: str,
+                          resolution0: int | None = None,
+                          upsampling: int | None = None,
+                          mask_carve: bool = False,
+                          dilate_radius: int = 12,
+                          timings: dict | None = None):
+        """Both protocols (raw, the reference's, and exterior-only) from ONE
+        evaluated and carved grid: only the pocket fill and the marching
+        are per protocol. Returns ((verts, tris), (verts_ext, tris_ext));
+        timings gets the shared legs and each protocol's under "raw" and
+        "exterior"."""
+        timings = {} if timings is None else timings
+        value_grid, iso, box_size = self._build_value_grid(
+            resolution0, upsampling, mask_carve, dilate_radius, None, timings)
+        t_raw, t_ext = timings.setdefault("raw", {}), \
+            timings.setdefault("exterior", {})
+        verts, tris = march_value_grid(value_grid, iso, box_size,
+                                       timings=t_raw)
+        v_ext, f_ext = march_value_grid(value_grid, iso, box_size,
+                                        exterior_only=True, timings=t_ext)
+        return (self._finish_mesh(path_raw, verts, tris, t_raw),
+                self._finish_mesh(path_exterior, v_ext, f_ext, t_ext))
+
+    def _build_value_grid(self, resolution0, upsampling, mask_carve,
+                          dilate_radius, clip_bottom, timings):
+        value_fn = make_field_value_fn(self.field, self.cfg.field,
+                                       fused=self.use_fused_occ)
+        points_batch = (1 << 20) if self.use_fused_occ else 100_000
+        carver = None
+        if mask_carve:
+            # the carver projects with camera_mat @ w2c in the reference's
+            # [-1, 1] screen convention (extracting.py:350-368); K is
+            # pixel-space, so the pixel -> NDC map folds into it
+            masks = self.data["masks"].cpu().numpy()
+            w2c = np.linalg.inv(self.data["poses"].cpu().numpy())
+            h, w = masks.shape[1:]
+            carver = make_mask_carver(
+                masks, np.broadcast_to(pixel_to_ndc_camera(
+                    self.data["K"].cpu().numpy(), h, w),
+                    (self.n_views, 4, 4)),
+                w2c, dilate_radius=dilate_radius, device=self.device)
+        return build_value_grid(
+            value_fn,
+            resolution0=resolution0 or self.cfg.extraction_resolution,
+            upsampling_steps=(upsampling if upsampling is not None
+                              else self.cfg.extraction_upsampling),
+            points_batch=points_batch, mask_carve=carver,
+            clip_bottom=clip_bottom, timings=timings)
+
+    def _finish_mesh(self, path: str, verts, tris, timings: dict):
+        t0 = time.perf_counter()
+        if self.cfg.extraction_refinement > 0 and len(verts):
+            # RMSprop vertex refinement against the occupancy iso level
+            # (extracting.py:237-323)
+            verts = refine_mesh(
+                lambda p: occ_alpha(self.field, p, self.cfg.field), verts,
+                tris, steps=self.cfg.extraction_refinement,
+                device=self.device)
+        t1 = time.perf_counter()
+        (save_obj if path.endswith(".obj") else save_ply)(path, verts, tris)
+        timings["refine_s"] = t1 - t0
+        timings["write_s"] = time.perf_counter() - t1
+        return verts, tris

@@ -6,7 +6,12 @@ newest checkpoint (params and optimizer state), trains step by step on its
 device, and renders every test view under every light with the frame
 renderer (on a CUDA device through the fused_vis kernels). Losses stay on
 the device between logs: the only reads back to the host are at log time.
-Envmap relighting and material edits come with a later slice.
+
+Relighting under an environment map (render_envmap) sums the light
+kernel's per-pixel light sums over chunks of 128 envmap texels, each a
+directional light with per-channel intensities; material edits
+(edit_material) render the trained lights with an albedo or SG-basis
+override, through the visibility kernel's precompute and plain shading.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import numpy as np
 import torch
 
 from psnerf_torch.config import Stage2Config
+from psnerf_torch.core.spherical import gen_light_xyz, vis_light_probe
+from psnerf_torch.data.envmap import load_envmap  # noqa: F401  (API)
 from psnerf_torch.data.scene import imwrite, load_scene_params
 from psnerf_torch.data.stage2 import (decode_imgs, load_stage2_data,
                                       sample_stage2_batch)
@@ -36,6 +43,7 @@ from psnerf_torch.train.stage2 import (init_stage2_params,
                                        make_stage2_train_step)
 
 _to8 = lambda x: (np.clip(x, 0, 1) * 255).astype(np.uint8)
+ENV_CHUNK = 128      # envmap lights a render (the JAX package's chunking)
 
 
 class Stage2Runner:
@@ -270,9 +278,12 @@ class Stage2Runner:
                     tile: int = 4096, outputs=("rgb", "albedo", "rough",
                                                "visibility", "normal_pred"),
                     use_fused_vis: bool | None = None,
-                    compact: bool | None = None):
+                    compact: bool | None = None,
+                    albedo_new=None, basis_new: int | None = None):
         """All lights x all pixels of one view, as host arrays
         {name: [L, H, W, C] or [H, W, C]} plus mask and normal_values.
+        light_ints: [L] or per-channel [L, 3]. albedo_new / basis_new:
+        material edits (render_frame_stage2).
 
         use_fused_vis: route the visibility MLP through the CUDA kernels
         (auto: on when the device is CUDA and the net has visibility).
@@ -328,7 +339,8 @@ class Stage2Runner:
             gather(data["normals"][view]), mask_in,
             torch.as_tensor(np.asarray(light_dirs), dtype=f32, device=dev),
             torch.as_tensor(np.asarray(light_ints), dtype=f32, device=dev),
-            tile=tile, outputs=outs, use_fused_vis=use_fused_vis)
+            tile=tile, outputs=outs, use_fused_vis=use_fused_vis,
+            albedo_new=albedo_new, basis_new=basis_new)
         res = {}
         # reference fill values outside the surface mask: ones everywhere
         # except sg_weight; rgb_sum's per-light ones sum to L
@@ -423,3 +435,58 @@ class Stage2Runner:
                     np.save(npy("visibility"),
                             r["visibility"][..., 0].clip(0, 1)
                             .astype(np.float32))
+
+    def render_envmap(self, out_dir: str, envmap: np.ndarray,
+                      split: str = "test", light_h: int = 16,
+                      gamma: float = 1.0, envmap_scale: float = 1.0,
+                      tile: int = 4096):
+        """Relight every view of a split under a lat-long envmap [light_h,
+        2 * light_h, 3] (stage2/eval.py:173-231): one directional light per
+        texel with the texel's rgb (times envmap_scale) as per-channel
+        intensity, the rgb summed over the lights in chunks of ENV_CHUNK
+        (each chunk's sum on the device, one light-sum launch on the card;
+        the chunks added on the host in order), clipped, gamma-mapped,
+        white off the mask; writes rgb/img/view_XX.png and
+        light_probe.png."""
+        data = self._eval_data(split)
+        lxyz, _ = gen_light_xyz(light_h, 2 * light_h, envmap_radius=1.0)
+        dirs = lxyz.reshape(-1, 3)
+        dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+        texels = envmap.reshape(-1, 3).astype(np.float32) * envmap_scale
+        os.makedirs(os.path.join(out_dir, "rgb", "img"), exist_ok=True)
+        imwrite(os.path.join(out_dir, "light_probe.png"),
+                vis_light_probe(envmap * envmap_scale, light_h * 8))
+        for v, vi in enumerate(data["views"]):
+            acc = 0.0
+            for s in range(0, len(dirs), ENV_CHUNK):
+                r = self.render_view(data, v, dirs[s:s + ENV_CHUNK],
+                                     texels[s:s + ENV_CHUNK], tile,
+                                     outputs=("rgb_sum",))
+                acc = acc + r["rgb_sum"]
+            img = np.power(np.clip(acc, 0, 1), 1.0 / gamma)
+            mask = r["mask"][..., None]
+            img = img * mask + (1 - mask)
+            imwrite(os.path.join(out_dir, "rgb", "img",
+                                 f"view_{vi + 1:02d}.png"), _to8(img))
+        return out_dir
+
+    def edit_material(self, out_dir: str, split: str = "test",
+                      albedo_new=None, basis_new: int | None = None,
+                      tile: int = 4096):
+        """Material editing (stage2/eval.py:233-312): an albedo override
+        and/or a single-SG-basis swap, rendered under each view's trained
+        lights through the tiled frame renderer; writes
+        rgb/img/view_XX/LLL.png, one per light."""
+        data = self._eval_data(split)
+        os.makedirs(os.path.join(out_dir, "rgb", "img"), exist_ok=True)
+        for v, vi in enumerate(data["views"]):
+            dirs, ints = self.trained_lights_for_view(data, v)
+            rgb = self.render_view(data, v, dirs, ints, tile=tile,
+                                   outputs=("rgb",), albedo_new=albedo_new,
+                                   basis_new=basis_new)["rgb"]
+            vdir = os.path.join(out_dir, "rgb", "img", f"view_{vi + 1:02d}")
+            os.makedirs(vdir, exist_ok=True)
+            for li in range(rgb.shape[0]):
+                imwrite(os.path.join(vdir, f"{li + 1:03d}.png"),
+                        _to8(rgb[li]))
+        return out_dir

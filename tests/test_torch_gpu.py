@@ -108,6 +108,36 @@ def test_fused_vis_shade_light_sum_is_bitwise_reproducible(width, n, l):
     assert all(torch.equal(runs[0], r) for r in runs[1:])
 
 
+@pytest.mark.parametrize("width,n", [(256, 65536), (64, 333)])
+def test_fused_vis_shade_envmap_chunk(width, n):
+    """The light sum of one envmap relighting chunk: 128 texel lights with
+    per-channel intensities [L, 3], against the plain version (which adds
+    the lights in the kernel's order), and the same bits on every run."""
+    _need_gpu()
+    l = 128
+    layers, pe, le, sh = _setup(n, l, width=width)
+    with torch.no_grad():      # clipped at raw init, the visibility is 0
+        layers[-1].b += 0.5    # almost everywhere: lift its output
+    rng = np.random.default_rng(5)
+    texels = torch.as_tensor(rng.uniform(0.0, 0.05, size=(l, 3))
+                             .astype(np.float32), device="cuda")
+    args = (layers, pe, le, sh["normal"], sh["view"], sh["albedo"],
+            sh["weights"], sh["mask"], sh["light_dirs"], texels)
+    before = fv.fused_vis_shade.launches
+    runs = [fv.fused_vis_shade(*args, sum_lights=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fv.fused_vis_shade.launches == before + 3
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    ref = fv.fused_vis_shade_plain(*args, sum_lights=True)
+    assert runs[0].shape == ref.shape == (n, 3)
+    assert torch.isfinite(runs[0]).all()
+    # the channels see different intensities
+    inside = sh["mask"]
+    assert not torch.equal(runs[0][inside, 0], runs[0][inside, 1])
+    err = (runs[0] - ref).abs()
+    assert err.max().item() < 1e-3, err.max().item()
+
+
 def test_kernel_refuses_unsupported_width():
     _need_gpu()
     layers, pe, le, _ = _setup(64, 2, width=32, depth=4, skip=2)
@@ -135,7 +165,7 @@ def _corr(a, b):
 
 @pytest.mark.parametrize("width,layers,n", [
     (256, 8, 3000), (128, 6, 640),
-    *[(256, 8, n) for n in (1, 63, 2048, 70001)],
+    *[(256, 8, n) for n in (1, 63, 2048, 70001, 1 << 20)],
     *[(128, 6, n) for n in (1, 63, 2048, 70001)]])
 def test_fused_occ_kernel_matches_plain(width, layers, n):
     _need_gpu()

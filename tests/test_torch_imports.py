@@ -1,6 +1,7 @@
 """psnerf_torch stands alone: no module of it (nor chip_smoke.py) imports
-jax or psnerf_tpu, it imports on a machine without triton or a GPU, and an
-entry point asked for CUDA where there is none raises."""
+jax, psnerf_tpu or cv2 (the card's machine has no OpenCV), it imports on a
+machine without triton or a GPU, and an entry point asked for CUDA where
+there is none raises."""
 
 import ast
 import os
@@ -18,7 +19,7 @@ from psnerf_torch.device import resolve_device
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "psnerf_torch"
-FORBIDDEN = ("jax", "jaxlib", "psnerf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "psnerf_tpu", "cv2")
 
 
 def _sources():
@@ -100,3 +101,17 @@ def test_stage1_entry_points_default_to_the_card(monkeypatch, tmp_path):
         Stage1Runner(None, str(tmp_path))
     with pytest.raises(RuntimeError, match="is_available"):
         load_stage1_data(None)
+
+
+def test_mesh_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import numpy as np
+
+    from psnerf_torch.mesh.refine import make_mask_carver, refine_mesh
+
+    v = np.eye(3, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="is_available"):
+        refine_mesh(lambda p: p[:, 0], v, np.asarray([[0, 1, 2]]), steps=1)
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_mask_carver(np.ones((1, 4, 4)), np.eye(4)[None],
+                         np.eye(4)[None])
