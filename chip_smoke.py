@@ -155,6 +155,9 @@ S2_F64_BARS = {"loss_rel": 1e-12, "grad_rel": 1e-9, "param_abs": 1e-10,
 # psnerf_tpu/runners/stage2.py:571-579)
 LIGHT_H = 16
 ALBEDO_NEW, BASIS_NEW = (0.8, 0.35, 0.2), 5     # the material edit
+# a light sum (or an edited image) must span this many of its max bars on
+# the surface mask, so that a kernel writing zeros or a constant fails
+SUM_SPAN = 4.0
 N_MISE = 1 << 20          # mesh extraction's MISE batch on the K1 route
 MESH_ROUTE_RES = (32, 2)  # resolution0, upsampling of the route comparison
 REFINE_STEPS = 20
@@ -766,9 +769,10 @@ def envmap_chunk_operands(runner, data, dirs, ints, tile=TILE):
 def time_envmap_chunk(args):
     """fused_vis_shade's light sum at one envmap chunk's operands, with the
     texels' per-channel intensities [L, 3] and with scalar intensities:
-    held against its plain version at the light-sum bars (the rgb bars x
-    L) and bit for bit from run to run, then timed in turns with its plain
-    version and the bf16 matmul chain over the same trunk."""
+    held against its plain version at the light-sum bars (the rgb bars
+    times each channel's intensity sum) and bit for bit from run to run,
+    its plain version spanning many bars, then timed in turns with its
+    plain version and the bf16 matmul chain over the same trunk."""
     from psnerf_torch.ops import fused_vis as fv
 
     n_l = args[-2].shape[0]
@@ -779,15 +783,26 @@ def time_envmap_chunk(args):
         got = fv.fused_vis_shade(*a, sum_lights=True)
         again = fv.fused_vis_shade(*a, sum_lights=True)
         torch.cuda.synchronize()
-        err = (got - fv.fused_vis_shade_plain(*a, sum_lights=True)).abs()
+        ref = fv.fused_vis_shade_plain(*a, sum_lights=True)
+        err = (got - ref).abs()
+        scale = (li.sum(0) if li.dim() else n_l * li.expand(3)).cpu().numpy()
         m[name] = {"max_abs_err": err.max().item(),
                    "mean_abs_err": err.mean().item(),
+                   "max_abs_err_rgb": err.amax(0).tolist(),
+                   "mean_abs_err_rgb": err.mean(0).tolist(),
+                   "bar_max_rgb": (RGB_MAX * scale).tolist(),
+                   "bar_mean_rgb": (RGB_MEAN * scale).tolist(),
+                   "sum_range": [ref.amin(0).tolist(), ref.amax(0).tolist()],
                    "rerun_bitwise": bool(torch.equal(got, again))}
         check(torch.isfinite(got).all(), f"envmap chunk sum finite ({name})")
         check(m[name]["rerun_bitwise"], f"envmap chunk sum bitwise ({name})")
-        check(m[name]["max_abs_err"] < RGB_MAX * n_l
-              and m[name]["mean_abs_err"] < RGB_MEAN * n_l,
+        check((err.amax(0).cpu().numpy() < RGB_MAX * scale).all()
+              and (err.mean(0).cpu().numpy() < RGB_MEAN * scale).all(),
               f"envmap chunk sum against plain ({name}) {m[name]}")
+        span = (ref.amax(0) - ref.amin(0)).cpu().numpy()
+        check((span > SUM_SPAN * RGB_MAX * scale).all(),
+              f"envmap chunk sum spans {SUM_SPAN} max bars ({name}) "
+              f"{m[name]}")
     ops = fv.pack_vis_operands(args[0], args[1], args[2])
     t = in_turns(
         {"plain": lambda: fv.fused_vis_shade_plain(*args, sum_lights=True),
@@ -802,21 +817,50 @@ def time_envmap_chunk(args):
                       *args[3:])
     b, by = bound_ms(flops, op_bytes + n * 3 * 4)
     row = dict(n=n, n_lights=n_l, max_abs_err=m["per_channel"]["max_abs_err"],
-               ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
-               bound_ms=b, bound_by=by, flops=flops, intensities=m)
+               sum_range=m["per_channel"]["sum_range"], ms=t["kernel"],
+               plain_ms=t["plain"], library_ms=t["library"], bound_ms=b,
+               bound_by=by, flops=flops, intensities=m)
     log(json.dumps({"fused_vis_shade_envmap_chunk": row}))
     return row
 
 
+def lift_visibility(runner, data, dirs, n_pix=4096):
+    """Shift the visibility MLP's output bias so that its raw output at
+    view 0's surface points under `dirs` has median 0.5: at random init it
+    sits at or below 0, so the clipped visibility, and with it every light
+    sum and edited image, is near black and tests nothing. Returns the shift
+    and the share of (pixel, light) pairs whose clip is strictly inside
+    (0, 1) after it."""
+    from psnerf_torch.core.encoding import nerf_embed
+    from psnerf_torch.ops import fused_vis as fv
+
+    n_freqs = runner.cfg.net.n_freqs_xyz
+    sel = torch.nonzero(data["surface_mask"][0].reshape(-1) > 0).flatten()
+    sel = sel[::max(1, sel.numel() // n_pix)]
+    layers = runner.params["model"]["visibility"]
+    raw = fv.fused_visibility_plain(
+        layers, nerf_embed(data["points"][0][sel], n_freqs),
+        nerf_embed(torch.as_tensor(dirs, dtype=torch.float32, device=DEV),
+                   n_freqs))
+    shift = 0.5 - raw.median().item()
+    layers[-1].b.add_(shift)
+    raw = raw + shift
+    return {"bias_shift": shift,
+            "open_share": ((raw > 0) & (raw < 1)).float().mean().item()}
+
+
 def phase_relight_edit(runner, data):
-    """Envmap relighting and material edits on phase 6's runner, each path
-    with the kernels' counts set to 0 just before and read just after:
+    """Envmap relighting and material edits on phase 6's runner, its
+    visibility output lifted (lift_visibility), each path with the
+    kernels' counts set to 0 just before and read just after:
     render_envmap of the test view under a sky written as .hdr (2 x 16^2
     lights, 4 light-sum launches a view), one chunk's rgb_sum held against
-    the plain route and the light sum timed at its operands; edit_material
-    with an albedo and an SG-basis edit (the visibility kernel's
-    precompute, plain shading), held against the plain route at the rgb
-    bars, and the visibility kernel at its operands."""
+    the plain route at the light-sum bars (the rgb bars times each
+    channel's intensity sum) and the light sum timed at its operands;
+    edit_material with an albedo and an SG-basis edit (the visibility
+    kernel's precompute, plain shading), held against the plain route at
+    the rgb bars, and the visibility kernel at its operands."""
+    from psnerf_torch.core.spherical import gen_light_xyz
     from psnerf_torch.data.scene import imread
     from psnerf_torch.ops import fused_vis as fv
     from psnerf_torch.runners.stage2 import ENV_CHUNK, load_envmap
@@ -829,6 +873,11 @@ def phase_relight_edit(runner, data):
     n_views = len(data["views"])
     name = f"view_{int(data['views'][0]) + 1:02d}"
     mask = data["surface_mask"][0].cpu().numpy().reshape(HW)
+    lxyz, _ = gen_light_xyz(LIGHT_H, 2 * LIGHT_H, envmap_radius=1.0)
+    dirs = lxyz.reshape(-1, 3)
+    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    lift = lift_visibility(runner, data, dirs)
+    log(json.dumps({"visibility_lift": lift}))
 
     # ---- relighting: counts set to 0 just before, read just after
     out = os.path.join(WORK, "relight")
@@ -855,24 +904,26 @@ def phase_relight_edit(runner, data):
           "relit view: white off the mask, rendered on it")
 
     # one chunk's light sum: the kernel route against the plain route
-    from psnerf_torch.core.spherical import gen_light_xyz
-
-    lxyz, _ = gen_light_xyz(LIGHT_H, 2 * LIGHT_H, envmap_radius=1.0)
-    dirs = lxyz.reshape(-1, 3)
-    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
     texels = env.reshape(-1, 3)[:ENV_CHUNK]
     kern = runner.render_view(data, 0, dirs[:ENV_CHUNK], texels,
                               outputs=("rgb_sum",))["rgb_sum"]
     plain = runner.render_view(data, 0, dirs[:ENV_CHUNK], texels,
                                outputs=("rgb_sum",),
                                use_fused_vis=False)["rgb_sum"]
-    err = np.abs(kern - plain)
-    route_sum = {"max_abs_err": float(err.max()),
-                 "mean_abs_err": float(err.mean()),
-                 "sum_range": [float(kern[mask].min()),
-                               float(kern[mask].max())]}
-    check(err.max() < RGB_MAX * ENV_CHUNK and err.mean() < RGB_MEAN *
-          ENV_CHUNK, f"envmap chunk route {route_sum}")
+    err = np.abs(kern - plain)[mask]              # [P, 3]
+    scale = texels.sum(0)                         # each channel's sum
+    span = plain[mask].max(0) - plain[mask].min(0)
+    route_sum = {"max_abs_err": err.max(0).tolist(),
+                 "mean_abs_err": err.mean(0).tolist(),
+                 "bar_max": (RGB_MAX * scale).tolist(),
+                 "bar_mean": (RGB_MEAN * scale).tolist(),
+                 "sum_range": [plain[mask].min(0).tolist(),
+                               plain[mask].max(0).tolist()]}
+    check((err.max(0) < RGB_MAX * scale).all()
+          and (err.mean(0) < RGB_MEAN * scale).all(),
+          f"envmap chunk route {route_sum}")
+    check((span > SUM_SPAN * RGB_MAX * scale).all(),
+          f"envmap chunk sum spans {SUM_SPAN} max bars {route_sum}")
     k5_env = time_envmap_chunk(envmap_chunk_operands(
         runner, data, dirs[:ENV_CHUNK], texels))
 
@@ -898,15 +949,19 @@ def phase_relight_edit(runner, data):
     kern = runner.render_view(data, 0, tdirs, tints, **kw)
     plain = runner.render_view(data, 0, tdirs, tints, use_fused_vis=False,
                                **kw)
-    err = np.abs(kern["rgb"] - plain["rgb"])
+    err = np.abs(kern["rgb"] - plain["rgb"])[:, mask]
+    on = plain["rgb"][:, mask]
     route_edit = {"rgb_max_abs_err": float(err.max()),
-                  "rgb_mean_abs_err": float(err.mean())}
+                  "rgb_mean_abs_err": float(err.mean()),
+                  "rgb_range": [float(on.min()), float(on.max())]}
     check(err.max() < RGB_MAX and err.mean() < RGB_MEAN,
           f"edit route {route_edit}")
+    check(on.max() - on.min() > SUM_SPAN * RGB_MAX,
+          f"edited rgb spans {SUM_SPAN} max bars {route_edit}")
     check(np.allclose(kern["albedo"][mask], ALBEDO_NEW), "edited albedo")
     # the visibility kernel at the edit's operands
     check_k4_at_view(runner, data, tdirs)
-    e2e = {"relight_s_per_view": relight_s / n_views,
+    e2e = {"visibility_lift": lift, "relight_s_per_view": relight_s / n_views,
            "relight_launches": relight, "relight_lights": n_lights,
            "relight_chunk_route": route_sum, "edit_s_per_view":
            edit_s / n_views, "edit_launches": edit,

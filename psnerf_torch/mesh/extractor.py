@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from psnerf_torch.mesh.native import MISE, marching_cubes
+from psnerf_torch.mesh.refine import MaskCarver
 
 
 def extract_mesh(
@@ -32,15 +33,15 @@ def extract_mesh(
     upsampling_steps: int = 3,
     padding: float = 0.4,
     points_batch: int = 100_000,
-    mask_carve: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+    mask_carve: Optional[MaskCarver] = None,
     clip_bottom: Optional[float] = None,
     exterior_only: bool = False,
 ):
     """Returns (vertices [V, 3] float32 world coordinates, triangles [T, 3]
     int64).
 
-    mask_carve: optional keep-mask function points [N, 3] -> bool [N]
-    (multi-view silhouette carving, extracting.py:120-126). clip_bottom:
+    mask_carve: optional silhouette carver from make_mask_carver
+    (multi-view carving, extracting.py:120-126). clip_bottom:
     clip z below this world coordinate (extracting.py:130-132).
     exterior_only: fill every enclosed empty pocket of the value grid to
     "inside" before marching, so only the exterior surface is extracted
@@ -71,7 +72,7 @@ def build_value_grid(
     upsampling_steps: int = 3,
     padding: float = 0.4,
     points_batch: int = 100_000,
-    mask_carve: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+    mask_carve: Optional[MaskCarver] = None,
     clip_bottom: Optional[float] = None,
     timings: Optional[dict] = None,
 ):
@@ -131,14 +132,8 @@ def build_value_grid(
     n = value_grid.shape[0]
     if mask_carve is not None:
         t0 = time.perf_counter()
-        if hasattr(mask_carve, "carve_dense_grid"):
-            # grid coordinates made on the device: no [n^3, 3] host array
-            keep = mask_carve.carve_dense_grid(n, box_size)
-        else:
-            lin = np.linspace(-0.5, 0.5, n)
-            grid = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1)
-            pts = (box_size * grid).reshape(-1, 3).astype(np.float32)
-            keep = mask_carve(pts).reshape(value_grid.shape)
+        # grid coordinates made on the device: no [n^3, 3] host array
+        keep = mask_carve.carve_dense_grid(n, box_size)
         np.logical_not(keep, out=keep)
         value_grid[keep] = -30.0            # in place: no second grid
         legs["carve_s"] = time.perf_counter() - t0
@@ -160,21 +155,19 @@ POCKET_WARN_FRACTION = 0.005
 
 def march_value_grid(value_grid: np.ndarray, iso: float, box_size: float,
                      exterior_only: bool = False,
-                     warn_on_pockets: bool = True,
                      timings: Optional[dict] = None):
     """Surface a dense value grid -> (verts [V, 3] float32 world, tris
     [T, 3]).
 
     Under the raw protocol (the reference's) it warns when enclosed
     interior pockets large enough to corrupt a sampled Chamfer are present;
-    exterior_only=True fills them, warn_on_pockets=False silences the
-    warning. timings: a dict that gets pocket_s (finding or filling the
+    exterior_only=True fills them. timings: a dict that gets pocket_s (finding or filling the
     pockets) and march_s."""
     n = value_grid.shape[0]
     t0 = time.perf_counter()
     if exterior_only:
         value_grid = fill_enclosed_pockets(value_grid, iso)
-    elif warn_on_pockets:
+    else:
         enclosed = find_enclosed_pockets(value_grid, iso)
         n_enc = int(enclosed.sum())
         n_inside = int((value_grid >= iso).sum())

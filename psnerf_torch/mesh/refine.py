@@ -127,6 +127,50 @@ def _grid_chunk_points(start: int, count: int, n: int, box_size: float,
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
+class MaskCarver:
+    """carve(points [N, 3]) -> keep [N] bool: a point survives iff it
+    projects inside every view's dilated mask and inside at least one
+    image (extracting.py:326-377). Projection: K @ w2c @ p, normalised by
+    row 2 to the reference's [-1, 1] screen convention.
+
+    The projection and the mask gather run on the device over chunks of
+    `chunk` points; carve_dense_grid(n, box_size) makes the grid's
+    coordinates on the device and brings back only the keep-bits, 8 a
+    byte, in one copy."""
+
+    def __init__(self, dil: torch.Tensor, proj: torch.Tensor, chunk: int):
+        self.dil, self.proj, self.chunk = dil, proj, chunk
+        self.weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8,
+                                    device=dil.device)
+
+    def __call__(self, points: np.ndarray) -> np.ndarray:
+        pts = torch.as_tensor(np.asarray(points, np.float32),
+                              device=self.dil.device)
+        keep = torch.cat([_carve_chunk(pts[s:s + self.chunk], self.dil,
+                                       self.proj)
+                          for s in range(0, pts.shape[0], self.chunk)])
+        return keep.cpu().numpy()
+
+    def carve_dense_grid(self, n: int, box_size: float) -> np.ndarray:
+        """Keep-mask [n, n, n] of the ij-indexed linspace(-0.5, 0.5, n)
+        grid scaled by box_size (build_value_grid's carve grid)."""
+        total = n * n * n
+        packed = []
+        for s in range(0, total, self.chunk):
+            # a multiple of 8 ids a chunk for the bit pack; the last
+            # chunk's ids past the grid are sliced off below
+            count = min(self.chunk, -(-(total - s) // 8) * 8)
+            keep = _carve_chunk(
+                _grid_chunk_points(s, count, n, float(box_size),
+                                   self.dil.device), self.dil, self.proj)
+            bits = keep.reshape(-1, 8).to(torch.uint8)
+            packed.append(torch.sum(bits * self.weights, dim=1,
+                                    dtype=torch.uint8))
+        keep = np.unpackbits(torch.cat(packed).cpu().numpy(),
+                             bitorder="little")[:total]
+        return keep.astype(bool).reshape(n, n, n)
+
+
 def make_mask_carver(
     masks: np.ndarray,          # [V, H, W] float 0/1
     camera_mats: np.ndarray,    # [V, 4, 4] intrinsics
@@ -134,53 +178,18 @@ def make_mask_carver(
     dilate_radius: int = 12,
     chunk: int = 1 << 23,
     device: str | torch.device = "cuda",
-):
-    """Returns carve(points [N, 3]) -> keep [N] bool: a point survives iff
-    it projects inside every view's dilated mask and inside at least one
-    image (extracting.py:326-377). Projection: K @ w2c @ p, normalised by
-    row 2 to the reference's [-1, 1] screen convention.
-
-    The projection and the mask gather run on the device over chunks of
-    `chunk` points; carve.carve_dense_grid(n, box_size) makes the grid's
-    coordinates on the device and brings back only the keep-bits, 8 a
-    byte, in one copy."""
+) -> MaskCarver:
+    """The silhouette carver of these views: each mask dilated by a disk of
+    dilate_radius, and K @ w2c once per view, on the device."""
     dev = resolve_device(device)
     struct = _disk(dilate_radius)
     dil = torch.as_tensor(np.stack([
         ndimage.binary_dilation(m > 0.5, structure=struct) for m in masks
     ]).astype(np.float32), device=dev)
-    # K @ w2c, once per view
     proj = torch.as_tensor(np.stack([
         (camera_mats[vi] @ world_mats[vi]).astype(np.float32)
         for vi in range(len(masks))]), device=dev)
-    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=dev)
-
-    def carve(points: np.ndarray) -> np.ndarray:
-        pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)
-        keep = torch.cat([_carve_chunk(pts[s:s + chunk], dil, proj)
-                          for s in range(0, pts.shape[0], chunk)])
-        return keep.cpu().numpy()
-
-    def carve_dense_grid(n: int, box_size: float) -> np.ndarray:
-        """Keep-mask [n, n, n] of the ij-indexed linspace(-0.5, 0.5, n)
-        grid scaled by box_size (build_value_grid's carve grid)."""
-        total = n * n * n
-        packed = []
-        for s in range(0, total, chunk):
-            # a multiple of 8 ids a chunk for the bit pack; the last
-            # chunk's ids past the grid are sliced off below
-            count = min(chunk, -(-(total - s) // 8) * 8)
-            keep = _carve_chunk(
-                _grid_chunk_points(s, count, n, float(box_size), dev),
-                dil, proj)
-            bits = keep.reshape(-1, 8).to(torch.uint8)
-            packed.append(torch.sum(bits * weights, dim=1, dtype=torch.uint8))
-        keep = np.unpackbits(torch.cat(packed).cpu().numpy(),
-                             bitorder="little")[:total]
-        return keep.astype(bool).reshape(n, n, n)
-
-    carve.carve_dense_grid = carve_dense_grid
-    return carve
+    return MaskCarver(dil, proj, chunk)
 
 
 def pixel_to_ndc_camera(K: np.ndarray, h: int, w: int) -> np.ndarray:
