@@ -85,7 +85,24 @@ Phases (any failure exits non-zero; nothing is caught):
      MISE round's K1 batch held against the plain version and timed
      against its bound; the K1 route's mesh against the plain route's at
      32 / 2 within one voxel by Chamfer; one refine_mesh of 20 steps;
- 12. one JSON line of kernels, then the last line
+ 12. the export protocols on that field, each against phase 10's faithful
+     export with fused_occ's launches counted: rescaled at 64 steps, mixed
+     (faithful train lights, rescaled vis_plus at 32), guided vis_plus (16
+     steps over a 64^3 guide grid's interval), light chunks of 4 and 8;
+     the mixed and guided train-light visibility bit for bit the faithful
+     one's, the chunks equal to chunk 1, every protocol's binary vis_plus
+     agreement with the faithful export recorded, the guided one > 93% of
+     the surface pairs; on the same field with its occupancy logit 8x
+     steeper, the guided and rescaled ones > 93%; K1 at the
+     guide grid's 262,144 points against its plain version and its bound;
+ 13. the command line (psnerf_torch.cli.main) at full width, in process:
+     stage1-train, stage1-eval, shape-extract, extract-mesh, stage2-train,
+     stage2-eval (evaluate, envmap, material edit) and evaluation from a
+     YAML over configs/stage1/default.yaml and a conf of bear.conf's
+     blocks, each command's kernel launches counted (every command must
+     launch its path's kernels) and its seconds logged; one stage2-eval
+     as `python -m psnerf_torch.cli.main` in a fresh process;
+ 14. one JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It needs no network and writes only inside the checkout (a work directory
@@ -161,6 +178,17 @@ SUM_SPAN = 4.0
 N_MISE = 1 << 20          # mesh extraction's MISE batch on the K1 route
 MESH_ROUTE_RES = (32, 2)  # resolution0, upsampling of the route comparison
 REFINE_STEPS = 20
+GUIDE_RES, GUIDE_BOX = 64, 1.1   # the guided export's grid (its defaults)
+# the export protocols on phase 9's trained default field, each against the
+# faithful export of phase 10 (96 train lights, 32 vis_plus directions)
+PROTOCOLS = {"rescaled": dict(vis_rescale=True, vis_steps=64),
+             "mixed": dict(vis_plus_steps=32, vis_plus_rescale=True),
+             "guided": dict(vis_plus_guided=True),
+             "chunk4": dict(light_chunk=4), "chunk8": dict(light_chunk=8)}
+VIS_AGREE = 0.93        # binary vis_plus agreement (tests/test_pipeline.py)
+SHARPEN = 8.0           # the agreement bar's field: its logit 8x steeper
+CHUNK_DEV = 1e-6        # light_chunk against chunk 1, if not bit for bit
+S2_CLI_ITERS = 100      # stage2-train through the CLI: one log line
 
 
 def log(msg):
@@ -2336,6 +2364,52 @@ def phase_stage1_export(runner):
     return {"eval": ev, "export": export}
 
 
+def k1_at_points(runner, pts, n_valid, card, sass):
+    """K1 on the points `pts` [N, 3] (the first n_valid of them real, the
+    rest padding) of the runner's field, held against its plain version at
+    K1's bars (logits < OCC_MAX abs, corr > OCC_CORR over the real points)
+    and timed in turns with it and the bf16 matmul chain, against its bound
+    (the larger of the tensor-core FLOPs or bytes and the softplus
+    epilogue's MUFU and FP32 SASS counts)."""
+    from psnerf_torch.ops import fused_occ as fo
+
+    cfg = runner.cfg
+    n = pts.shape[0]
+    with torch.no_grad():
+        ops = fo.pack_occ_operands(runner.field, cfg.field)
+        ops["slabs"] = fo.occ_slabs(ops)
+        p = torch.from_numpy(pts).to(DEV)
+        em = fo.occ_embed(p, ops)
+        got = fo.fused_occ_logit(runner.field, p, cfg.field)
+        torch.cuda.synchronize()
+        ref = fo._logit_plain(ops, em)
+        err = (got - ref).abs()
+        m1 = {"n": n, "max_abs_err": err.max().item(),
+              "mean_abs_err": err.mean().item(),
+              "corr": float(np.corrcoef(got[:n_valid].cpu().numpy(),
+                                        ref[:n_valid].cpu().numpy())[0, 1])}
+        check(torch.isfinite(got).all()
+              and m1["max_abs_err"] < OCC_MAX and m1["corr"] > OCC_CORR,
+              f"K1 at {n} points {m1}")
+        buf = torch.empty((n,), dtype=torch.float32, device=DEV)
+        t = in_turns({"plain": lambda: fo._logit_plain(ops, em),
+                      "kernel": lambda: fo._launch(ops, em, buf),
+                      "library": lambda: library_occ(ops, em)},
+                     {"plain": 2, "kernel": 10, "library": 3},
+                     ["plain", "kernel", "library", "library", "kernel",
+                      "plain"])
+        flops = occ_flops(n, ops)
+        b_tc, by = bound_ms(flops, nbytes(em, ops["slabs"], *(ops[k] for k in (
+            "b0", "trunk_b", "w8", "b8"))) + n * 4)
+        epi = occ_epilogue_ms(n, ops, sass, card)
+        b = max(b_tc, epi["fp32_ms"], epi["mufu_ms"])
+        return dict(m1, ms=t["kernel"], plain_ms=t["plain"],
+                    library_ms=t["library"], bound_ms=b,
+                    bound_by=by if b == b_tc else "operations", flops=flops,
+                    bound_parts={"tensor_or_bytes_ms": b_tc,
+                                 "tensor_or_bytes_by": by, **epi})
+
+
 def phase_mesh(runner, card, sass):
     """Mesh extraction of the trained default field (phase 9's runner),
     with fused_occ's launches set to 0 just before and read just after:
@@ -2388,41 +2462,8 @@ def phase_mesh(runner, card, sass):
     q = mise.query()
     pts = np.zeros((N_MISE, 3), np.float32)
     pts[:len(q)] = box * (q.astype(np.float32) / res - 0.5)
-    with torch.no_grad():
-        ops = fo.pack_occ_operands(runner.field, cfg.field)
-        ops["slabs"] = fo.occ_slabs(ops)
-        p = torch.from_numpy(pts).to(DEV)
-        em = fo.occ_embed(p, ops)
-        got = fo.fused_occ_logit(runner.field, p, cfg.field)
-        torch.cuda.synchronize()
-        ref = fo._logit_plain(ops, em)
-        err = (got - ref).abs()
-        m1 = {"n": N_MISE, "queries": len(q), "max_abs_err": err.max().item(),
-              "mean_abs_err": err.mean().item(),
-              "corr": float(np.corrcoef(got[:len(q)].cpu().numpy(),
-                                        ref[:len(q)].cpu().numpy())[0, 1])}
-        check(torch.isfinite(got).all()
-              and m1["max_abs_err"] < OCC_MAX and m1["corr"] > OCC_CORR,
-              f"K1 at a MISE batch {m1}")
-        buf = torch.empty((N_MISE,), dtype=torch.float32, device=DEV)
-        t = in_turns({"plain": lambda: fo._logit_plain(ops, em),
-                      "kernel": lambda: fo._launch(ops, em, buf),
-                      "library": lambda: library_occ(ops, em)},
-                     {"plain": 2, "kernel": 10, "library": 3},
-                     ["plain", "kernel", "library", "library", "kernel",
-                      "plain"])
-        flops = occ_flops(N_MISE, ops)
-        b_tc, by = bound_ms(flops, nbytes(em, ops["slabs"], *(ops[k] for k in (
-            "b0", "trunk_b", "w8", "b8"))) + N_MISE * 4)
-        epi = occ_epilogue_ms(N_MISE, ops, sass, card)
-        b = max(b_tc, epi["fp32_ms"], epi["mufu_ms"])
-        k1_row = dict(m1, ms=t["kernel"], plain_ms=t["plain"],
-                      library_ms=t["library"], bound_ms=b,
-                      bound_by=by if b == b_tc else "operations",
-                      flops=flops, bound_parts={"tensor_or_bytes_ms": b_tc,
-                                                "tensor_or_bytes_by": by,
-                                                **epi})
-        del p, em, got, ref, buf
+    k1_row = dict(k1_at_points(runner, pts, len(q), card, sass),
+                  queries=len(q))
     log(json.dumps({"fused_occ_logit_mise_batch": k1_row}))
 
     # ---- the K1 route's mesh against the plain route's, by Chamfer
@@ -2460,6 +2501,329 @@ def phase_mesh(runner, card, sass):
     return k1, mesh, k1_row
 
 
+def export_arrays(out, views):
+    """{view name: {mask, visibility, vis_plus}} of a shape_extract tree."""
+    load = lambda sub, nm: np.load(os.path.join(out, sub, nm + ".npy"))
+    return {nm: {sub: load(sub, nm) for sub in ("mask", "visibility",
+                                                "vis_plus")}
+            for nm in (f"view_{vi + 1:02d}" for vi in views)}
+
+
+def run_export(runner, name, views, **kw):
+    """shape_extract of every view toward the 96 lights and 32 vis_plus
+    directions with fused_occ's launches set to 0 just before and read just
+    after: ({wall_s, timings, k1_launches}, export_arrays)."""
+    from psnerf_torch.ops import fused_occ as fo
+
+    d = os.path.join(WORK, f"export_{name}")
+    fo.fused_occ_logit.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timings = runner.shape_extract(d, visibility=True, vis_plus=True,
+                                   vis_plus_num=32, tile=TILE, **kw)
+    rec = {"wall_s": time.perf_counter() - t0, "timings": timings,
+           "k1_launches": fo.fused_occ_logit.launches}
+    arrays = export_arrays(d, views)
+    shutil.rmtree(d)
+    return rec, arrays
+
+
+def compare_exports(got, base):
+    """Per view: the largest |difference| of the visibility and vis_plus
+    arrays, and the binary (> 0.5) vis_plus agreement on the surface
+    pixels; the march's masks must be equal."""
+    out = {"max_abs_dev": {}, "vis_plus_agreement": {}}
+    for nm, a in got.items():
+        b = base[nm]
+        check(np.array_equal(a["mask"], b["mask"]),
+              f"{nm}: the march's mask is the faithful one's")
+        m = b["mask"]
+        out["max_abs_dev"][nm] = {sub: float(np.abs(a[sub] - b[sub]).max())
+                                  for sub in ("visibility", "vis_plus")}
+        out["vis_plus_agreement"][nm] = float(
+            ((a["vis_plus"][:, m] > 0.5) == (b["vis_plus"][:, m] > 0.5))
+            .mean())
+    return out
+
+
+def phase_export_protocols(runner, faithful, card, sass):
+    """The rescaled, mixed and guided export protocols and light chunks of
+    4 and 8 on phase 9's trained default field (3 views, 96 lights, 32
+    vis_plus directions), each with fused_occ's launches counted, against
+    phase 10's faithful export: its legs and launches; the mixed and
+    guided train-light visibility bit for bit the faithful one's; the
+    chunked exports equal to chunk 1; the binary vis_plus agreement of
+    every protocol with the faithful one, the guided one's above VIS_AGREE
+    (tests/test_pipeline.py's bar). The rescaled protocol's bar is held on
+    the same field with its occupancy logit SHARPEN times steeper
+    (faithful, rescaled and guided exports again): after 30 steps the
+    field is close to its geometric-init sphere, whose occupancy ramps
+    over ~0.3 units, and each sample composites its own alpha, so the
+    rescaled protocol, which packs its 64 samples into [0.1, the box exit]
+    (up to 5x denser than the faithful grid on a short lit ray), darkens
+    the lit pairs near 0.5 (0.886-0.921 agreement as trained, NVIDIA H100
+    80GB HBM3, 700 W; > 0.99 sharpened).
+    Then K1 at the guide grid's GUIDE_RES^3 points against its plain
+    version and its bound."""
+    from psnerf_torch.data.stage1 import load_stage1_data
+
+    views = load_stage1_data(runner.scene, "all", None, None, None, False,
+                             True, normal_loss=False, mask_valid=False,
+                             device="cpu")["views"]
+    base = export_arrays(faithful["dir"], views)
+    n_tiles = -(-HW[0] * HW[1] // TILE)
+    surf_tiles = sum(-(-int(a["mask"].sum()) // TILE) for a in base.values())
+    march = len(views) * n_tiles * 9 + 9       # and the warm-up's tile
+    out = {"faithful": {k: faithful[k] for k in ("wall_s", "timings",
+                                                 "k1_launches")}}
+    for name, kw in PROTOCOLS.items():
+        rec, got = run_export(runner, name, views, **kw)
+        chunk = kw.get("light_chunk", 1)
+        rec["k1_launches_expected"] = march + 1 + surf_tiles * (
+            -(-N_LIGHTS // chunk) + -(-32 // chunk)) + (name == "guided")
+        rec.update(compare_exports(got, base))
+        if name.startswith("chunk"):
+            rec["bit_for_bit"] = all(max(v.values()) == 0.0
+                                     for v in rec["max_abs_dev"].values())
+        out[name] = rec
+        log(json.dumps({f"export_protocol_{name}": rec}))
+        check(rec["k1_launches"] >= surf_tiles * -(-N_LIGHTS // chunk),
+              f"{name}: K1 launches {rec['k1_launches']}, expected "
+              f"{rec['k1_launches_expected']}")
+        if name == "guided":      # tests/test_pipeline.py's own bar
+            for nm, agree in rec["vis_plus_agreement"].items():
+                check(agree > VIS_AGREE, f"guided {nm}: vis_plus agreement "
+                      f"{agree} with the faithful export")
+        for nm, dev in rec["max_abs_dev"].items():
+            if name in ("mixed", "guided"):
+                check(dev["visibility"] == 0.0, f"{name} {nm}: train-light "
+                      f"visibility bit for bit the faithful export's {dev}")
+            if name.startswith("chunk"):
+                check(max(dev.values()) <= CHUNK_DEV,
+                      f"{name} {nm}: against chunk 1 {dev}")
+
+    # ---- the agreement bar on the same surface, SHARPEN x steeper
+    last = runner.field.geo[-1]
+    saved = (last.g.detach().clone(), last.b.detach().clone())
+    with torch.no_grad():
+        last.g[0] *= SHARPEN
+        last.b[0] *= SHARPEN
+    try:
+        sharp_base = run_export(runner, "sharp_faithful", views)
+        sharp = {"faithful": sharp_base[0]}
+        for name in ("rescaled", "guided"):
+            rec, got = run_export(runner, f"sharp_{name}", views,
+                                  **PROTOCOLS[name])
+            rec.update(compare_exports(got, sharp_base[1]))
+            sharp[name] = rec
+        log(json.dumps({"export_protocols_sharpened": sharp}))
+    finally:
+        with torch.no_grad():
+            last.g.copy_(saved[0])
+            last.b.copy_(saved[1])
+    for name in ("rescaled", "guided"):
+        for nm, agree in sharp[name]["vis_plus_agreement"].items():
+            check(agree > VIS_AGREE, f"{name} {nm}: vis_plus agreement "
+                  f"{agree} with the faithful export (logit x{SHARPEN})")
+        if name == "guided":
+            for nm, dev in sharp[name]["max_abs_dev"].items():
+                check(dev["visibility"] == 0.0,
+                      f"sharpened guided {nm}: train lights bit for bit")
+    out["sharpened"] = sharp
+
+    # ---- K1 at the guide grid's points (occupancy_guide_grid's cell
+    # centres), against its plain version and its bound
+    half = GUIDE_BOX / GUIDE_RES
+    xs = torch.linspace(-GUIDE_BOX + half, GUIDE_BOX - half, GUIDE_RES)
+    grid = torch.stack(torch.meshgrid(xs, xs, xs, indexing="ij"), dim=-1)
+    pts = grid.reshape(-1, 3).numpy()
+    at_guide = k1_at_points(runner, pts, len(pts), card, sass)
+    log(json.dumps({"fused_occ_logit_guide_grid": at_guide}))
+    return {"protocols": out, "at_guide_grid": at_guide,
+            "launches": {k: v["k1_launches"] for k, v in out.items()
+                         if k != "sharpened"}}
+
+
+def kernel_counts(zero=False):
+    """The launch counts of K1, K2/K3 in the f32 form, K4 and K5 (set to 0
+    first with zero=True)."""
+    from psnerf_torch.ops import fused_occ as fo
+    from psnerf_torch.ops import fused_radiance as fr
+    from psnerf_torch.ops import fused_vis as fv
+
+    if zero:
+        fo.fused_occ_logit.launches = 0
+        fr.reset_launches()
+        fv.fused_visibility.launches = 0
+        fv.fused_vis_shade.launches = 0
+    return {"fused_occ_logit": fo.fused_occ_logit.launches,
+            "fused_radiance_fwd_f32": fr.radiance_forward.launches["float32"],
+            "fused_radiance_bwd_f32": fr.radiance_backward.launches["float32"],
+            "fused_visibility": fv.fused_visibility.launches,
+            "fused_vis_shade": fv.fused_vis_shade.launches}
+
+
+def cli_configs(scene, s1_dir, s2_dir):
+    """A stage-1 YAML that inherits configs/stage1/default.yaml by absolute
+    path (the full field, 2048 rays, 256 march steps, 64 + 32 samples) with
+    the scene's distances and data, logging every 10 steps; and a stage-2
+    conf of configs/stage2/bear.conf's blocks with the scene's data, no
+    intensity normalization, the stage-1 export as its shape and
+    bench.py's batch (train_all_pixels off). Returns their paths."""
+    import re
+
+    from psnerf_torch.config import stage2_config_from_conf
+
+    s1 = os.path.join(WORK, "cli_s1.yaml")
+    with open(s1, "w") as fh:
+        fh.write(f"""inherit_from: {os.path.join(ROOT, "configs", "stage1",
+                                                "default.yaml")}
+rendering:
+  near: 1.2
+  far: 5.0
+  radius: 1.2
+  interval_start: 0.6
+  interval_end: 0.05
+dataloading:
+  obj_name: synthetic
+  data_dir: {scene}
+  inten_normalize: null
+training:
+  out_dir: {s1_dir}
+  print_every: 10
+""")
+    with open(os.path.join(ROOT, "configs", "stage2", "bear.conf")) as fh:
+        conf = fh.read()
+    for pat, new in ((r"data_dir = .*", f"data_dir = {scene}"),
+                     (r"\n\s*inten_normalize = .*", ""),
+                     (r"stage1_shape_path = .*",
+                      f"stage1_shape_path = {s1_dir}/shape_out"),
+                     (r"train_all_pixels = .*", "train_all_pixels = False")):
+        conf, n = re.subn(pat, new, conf)
+        check(n == 1, f"bear.conf: {pat} replaced {n} times")
+    s2 = os.path.join(WORK, "cli_s2.conf")
+    with open(s2, "w") as fh:
+        fh.write(conf)
+    bear = stage2_config_from_conf(os.path.join(ROOT, "configs", "stage2",
+                                                "bear.conf"))
+    got = stage2_config_from_conf(s2)
+    check(got.net == bear.net and got.train == bear.train
+          and got.light_bs == bear.light_bs and got.inten_normalize is None
+          and not got.train_all_pixels, "the CLI's stage-2 conf is bear's")
+    return s1, s2
+
+
+def phase_cli(scene):
+    """The user's workflow through psnerf_torch.cli.main, in process, at
+    the full width of configs/stage1/default.yaml and configs/stage2/
+    bear.conf on the 512x512, 96-light scene: stage1-train (20 steps),
+    stage1-eval, shape-extract --vis_plus (32 directions), extract-mesh
+    (32 / 2), stage2-train (S2_CLI_ITERS steps), stage2-eval (evaluate,
+    --render_envmap of a sky .hdr, --edit_albedo --edit_specular) and
+    evaluation; one more stage2-eval as `python -m psnerf_torch.cli.main`
+    in a fresh process. Each in-process command with the kernels' counts
+    set to 0 just before and read just after; each must launch the
+    kernels its path needs. Checks tests/test_cli.py's output tree and
+    finite losses and PSNR."""
+    import contextlib
+    import io
+
+    from psnerf_torch.cli.main import main as cli
+
+    s1_dir, s2_dir = (os.path.join(WORK, "cli", k) for k in ("s1", "s2"))
+    s1, s2 = cli_configs(scene, s1_dir, s2_dir)
+    hdr = os.path.join(WORK, "cli_sky.hdr")
+    write_hdr(hdr, sky_envmap())
+    cmds = [
+        ("stage1-train", ["stage1-train", s1, "--workdir", s1_dir,
+                          "--max-iters", "20"]),
+        ("stage1-eval", ["stage1-eval", s1, "--workdir", s1_dir]),
+        ("shape-extract", ["shape-extract", s1, "--workdir", s1_dir,
+                           "--vis_plus", "--vis_plus_num", "32"]),
+        ("extract-mesh", ["extract-mesh", s1, "--workdir", s1_dir,
+                          "--resolution0", "32", "--upsampling", "2"]),
+        ("stage2-train", ["stage2-train", "--conf", s2, "--workdir", s2_dir,
+                          "--max-iters", str(S2_CLI_ITERS)]),
+        ("stage2-eval", ["stage2-eval", "--conf", s2, "--workdir", s2_dir,
+                         "--out", f"{s2_dir}/test_out"]),
+        ("stage2-eval-envmap", ["stage2-eval", "--conf", s2, "--workdir",
+                                s2_dir, "--out", f"{s2_dir}/relight",
+                                "--render_envmap", "--envmap_path", hdr]),
+        ("stage2-eval-edit", ["stage2-eval", "--conf", s2, "--workdir",
+                              s2_dir, "--out", f"{s2_dir}/edit",
+                              "--edit_albedo", "--color", "#cc2010",
+                              "--edit_specular", "--basis", "3"]),
+        ("evaluation", ["evaluation", "--data_path", scene,
+                        "--test_out_path", f"{s2_dir}/test_out"]),
+    ]
+    # the kernels each command's path must launch
+    needs = {"stage1-train": ("fused_occ_logit", "fused_radiance_fwd_f32",
+                              "fused_radiance_bwd_f32"),
+             "stage1-eval": ("fused_occ_logit",),
+             "shape-extract": ("fused_occ_logit",),
+             "extract-mesh": ("fused_occ_logit",),
+             "stage2-eval": ("fused_visibility",),
+             "stage2-eval-envmap": ("fused_vis_shade",),
+             "stage2-eval-edit": ("fused_visibility",)}
+    rec = {}
+    for name, argv in cmds:
+        kernel_counts(zero=True)
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli(argv)
+        torch.cuda.synchronize()
+        rec[name] = {"wall_s": time.perf_counter() - t0,
+                     "launches": kernel_counts()}
+        log(json.dumps({f"cli_{name}": rec[name]}))
+        for k in needs.get(name, ()):
+            check(rec[name]["launches"][k] > 0,
+                  f"cli {name} launched no {k}: {rec[name]}")
+        if name == "evaluation":
+            res = json.loads("{" + out.getvalue().rsplit("{", 1)[1])
+            rec[name]["result"] = {k: res.get(k) for k in
+                                   ("psnr", "ssim", "normal_mae")}
+            check(np.isfinite(res["psnr"]), f"evaluation {res}")
+
+    # a fresh process finds the built kernels
+    t0 = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-m", "psnerf_torch.cli.main", "stage2-eval",
+         "--conf", s2, "--workdir", s2_dir, "--out", f"{s2_dir}/test_sub"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    rec["subprocess_stage2_eval"] = {"wall_s": time.perf_counter() - t0,
+                                     "rc": sub.returncode,
+                                     "stdout_tail": sub.stdout[-300:]}
+    log(json.dumps({"cli_subprocess": rec["subprocess_stage2_eval"]}))
+    check(sub.returncode == 0, f"python -m psnerf_torch.cli.main stage2-eval:"
+          f" {sub.stderr[-2000:]}")
+
+    # ---- tests/test_cli.py's output tree, finite losses
+    for path in ("s1/checkpoints/model.npz", "s1/shape_out/points/view_01.npy",
+                 "s1/shape_out/vis_plus/light_dir.json", "s1/mesh.ply",
+                 "s1/eval/metrics.json", "s2/checkpoints/model.npz",
+                 "s2/test_out/rgb/img/view_03/001.png",
+                 "s2/test_sub/rgb/img/view_03/001.png",
+                 "s2/relight/rgb/img/view_03.png",
+                 "s2/relight/light_probe.png",
+                 "s2/edit/rgb/img/view_03/001.png"):
+        check(os.path.exists(os.path.join(WORK, "cli", path)),
+              f"cli output {path}")
+    losses = {k: [r["loss"] for r in read_losses(os.path.join(WORK, "cli", k))]
+              for k in ("s1", "s2")}
+    check(len(losses["s1"]) == 2 and len(losses["s2"]) == 1
+          and np.isfinite(losses["s1"] + losses["s2"]).all(),
+          f"cli losses {losses}")
+    with open(os.path.join(s1_dir, "eval", "metrics.json")) as fh:
+        s1_psnr = [m["psnr"] for m in json.load(fh)]
+    check(np.isfinite(s1_psnr).all(), f"stage1-eval psnr {s1_psnr}")
+    rec["losses"], rec["stage1_eval_psnr"] = losses, s1_psnr
+    shutil.rmtree(os.path.join(WORK, "cli"))
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2490,8 +2854,13 @@ def main():
         launches1, e2e1, trained = phase_stage1_main(scene, "float32", 20, 10,
                                                      vis_every=10)
         e2e_export = phase_stage1_export(trained)
+        e2e_protocols = phase_export_protocols(
+            trained, dict(e2e_export["export"],
+                          dir=os.path.join(WORK, "stage1_export")),
+            card, k1["sass"])
         k1_mesh, e2e_mesh, k1_mise = phase_mesh(trained, card, k1["sass"])
         del trained
+        e2e_cli = phase_cli(scene)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2519,7 +2888,9 @@ def main():
                                      "bound_ops_ms", "bound_bytes_ms",
                                      "launches_mesh", "at_mise_batch",
                                      "launches_relight", "at_envmap_chunk",
-                                     "launches_edit")
+                                     "launches_edit", "launches_cli",
+                                     "at_guide_grid",
+                                     "launches_export_protocols")
                    if x in k}}
 
     log(json.dumps({"card": card["nvidia_smi"], "main_path": e2e,
@@ -2528,14 +2899,21 @@ def main():
                     "stage1_main_path_float32": e2e1,
                     "stage1_eval_export": e2e_export,
                     "relight_edit": e2e_re, "mesh": e2e_mesh,
+                    "export_protocols": e2e_protocols["protocols"],
+                    "cli": e2e_cli,
                     "f32_workspace": stages["workspace"],
                     "bf16_workspace": bstages["workspace"], "ptxas": regs}))
     log(card["nvidia_smi"])
+    cli_launches = lambda k: {c: r["launches"][k] for c, r in e2e_cli.items()
+                              if "launches" in r}
     # K1 counts the default-field train path, K2/K3 each form's own path
     log(json.dumps({"kernels": [
         entry("fused_occ_logit", "fused_occ.cu",
               "psnerf_tpu/ops/fused_occ.py:113",
-              dict(k1, launches_mesh=k1_mesh, at_mise_batch=k1_mise),
+              dict(k1, launches_mesh=k1_mesh, at_mise_batch=k1_mise,
+                   launches_cli=cli_launches("fused_occ_logit"),
+                   at_guide_grid=e2e_protocols["at_guide_grid"],
+                   launches_export_protocols=e2e_protocols["launches"]),
               launches1["fused_occ_logit"]),
         entry("fused_radiance_and_alpha (forward)", "fused_radiance.cu",
               "psnerf_tpu/ops/fused_radiance.py:390", k2,
@@ -2557,12 +2935,14 @@ def main():
               ("reduce", "reduce (the split-K slots in fixed order)"))],
         entry("fused_radiance_and_alpha (forward, f32 operands: prologue "
               "and forward kernel)", "fused_radiance_f32.cu",
-              "psnerf_tpu/ops/fused_radiance.py:390", k2f,
+              "psnerf_tpu/ops/fused_radiance.py:390",
+              dict(k2f, launches_cli=cli_launches("fused_radiance_fwd_f32")),
               launches1["fused_radiance_fwd"]["float32"]),
         entry("fused_radiance_and_alpha (backward, f32 operands: prologue, "
               "sweeps, weight-gradient passes, reduce)",
               "fused_radiance_f32.cu", "psnerf_tpu/ops/fused_radiance.py:410",
-              k3f, launches1["fused_radiance_bwd"]["float32"]),
+              dict(k3f, launches_cli=cli_launches("fused_radiance_bwd_f32")),
+              launches1["fused_radiance_bwd"]["float32"]),
         *[entry(f"fused_radiance_and_alpha f32 {name}",
                 "slot_reduce.cuh" if kern == "reduce"
                 else "fused_radiance_f32.cu",
@@ -2576,13 +2956,15 @@ def main():
               ("reduce", "weight-gradient reduce (fixed order)"))],
         entry("fused_visibility", "fused_vis.cu",
               "psnerf_tpu/ops/fused_vis.py:219",
-              dict(k4, launches_edit=launches_re["edit"]["fused_visibility"]),
+              dict(k4, launches_edit=launches_re["edit"]["fused_visibility"],
+                   launches_cli=cli_launches("fused_visibility")),
               launches["fused_visibility"]),
         entry("fused_vis_shade", "fused_vis.cu",
               "psnerf_tpu/ops/fused_vis.py:387",
               dict(k5, launches_stage2_train=launches_s2["fused_vis_shade"],
                    launches_relight=launches_re["relight"]["fused_vis_shade"],
-                   at_envmap_chunk=k5_env),
+                   at_envmap_chunk=k5_env,
+                   launches_cli=cli_launches("fused_vis_shade")),
               launches["fused_vis_shade"])], "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))

@@ -124,9 +124,10 @@ def init_occupancy_field(cfg: OccFieldConfig,
 
 def _softplus100(x: torch.Tensor) -> torch.Tensor:
     """softplus with beta=100: log(1 + e^(100 x)) / 100, linear above the
-    cutover at 100 x > 20."""
-    bx = 100.0 * x
-    return torch.where(bx > 20.0, x, torch.nn.functional.softplus(bx) / 100.0)
+    cutover at 100 x > 20 (torch's fused softplus: the values of the
+    composition where(100 x > 20, x, softplus(100 x) / 100) bit for bit, in
+    one pass, and its derivatives in one)."""
+    return torch.nn.functional.softplus(x, beta=100.0, threshold=20.0)
 
 
 def _rnd(x: torch.Tensor, cdt) -> torch.Tensor:

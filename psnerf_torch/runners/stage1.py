@@ -12,8 +12,8 @@ The eval render and the export march every pixel through fused_occ (the
 export also every surface point toward every light); their integration
 pass stays plain PyTorch, as in the JAX package. Images are processed
 row-major (pixel n -> x = n % w, y = n // w). Each full image queues all of
-its tiles on the device and reads the results back once. The export runs
-the faithful protocol only.
+its tiles on the device and reads the results back once. The export's
+visibility runs the faithful, rescaled, mixed or grid-guided protocol.
 
 Mesh extraction evaluates the MISE octree's query points through fused_occ
 in batches of 2^20 points on the card (100,000 on the plain route), carves
@@ -47,7 +47,8 @@ from psnerf_torch.mesh.refine import (make_mask_carver, pixel_to_ndc_camera,
 from psnerf_torch.ops.fps import farthest_point_sampling_np
 from psnerf_torch.ops.fused_occ import make_fused_occ_fn
 from psnerf_torch.ops.fused_radiance import supports
-from psnerf_torch.render.marching import light_visibility
+from psnerf_torch.render.marching import (light_visibility,
+                                          occupancy_guide_grid)
 from psnerf_torch.render.phong import phong_shade
 from psnerf_torch.render.unisurf import (draw_unisurf_noise,
                                          render_shape_extract,
@@ -58,6 +59,9 @@ from psnerf_torch.train.checkpoints import (latest_checkpoint,
 from psnerf_torch.train.logging import MetricLogger, _to8, stage1_vis_strip
 from psnerf_torch.train.stage1 import make_stage1_train_step
 
+# light_visibility's and occupancy_guide_grid's defaults, which the export
+# runs at
+VIS_NEAR, VIS_FAR, GUIDE_BOX, GUIDE_DILATE = 0.1, 3.5, 1.1, 3
 
 def world_lights(scene, cfg: Stage1Config, views) -> list:
     """The SDPS-estimated light directions [L, 3] of each view, rotated
@@ -67,6 +71,23 @@ def world_lights(scene, cfg: Stage1Config, views) -> list:
                  allow_pickle=True)[views]
     return [np.einsum("ij,kj->ki", scene.pose_gl[vi, :3, :3], lp[i])
             .astype(np.float32) for i, vi in enumerate(views)]
+
+
+def check_guide_calibration(res: int, coarse: int, dilate: int = GUIDE_DILATE,
+                            box: float = GUIDE_BOX, lnear: float = VIS_NEAR,
+                            lfar: float = VIS_FAR) -> None:
+    """Raise ValueError unless the guided march's coarse probes, at most
+    (lfar - lnear) / (coarse - 1) apart along a ray, are no farther apart
+    than the dilated slab of a thin occluder in a res^3 guide grid is thick,
+    (2 dilate + 1) * 2 box / res: else a thin occluder can fall between two
+    probes. At the defaults (64, 16): 0.227 <= 0.241."""
+    spacing = (lfar - lnear) / (coarse - 1)
+    slab = (2 * dilate + 1) * 2 * box / res
+    if not spacing <= slab:
+        raise ValueError(
+            f"guide_res={res} with guide_coarse={coarse} under-covers: probe "
+            f"spacing {spacing:.3f} exceeds the dilated slab {slab:.3f}; "
+            "raise guide_coarse or lower guide_res")
 
 
 def _row_major_pixels(h: int, w: int, device) -> torch.Tensor:
@@ -315,7 +336,12 @@ class Stage1Runner:
                       vis_plus: bool = False, vis_plus_num: int = 256,
                       semisphere: bool = True, tile: int = 4096,
                       n_steps: int = 512, seed: int = 0,
-                      vis_steps: int = 128) -> dict:
+                      vis_steps: int = 128, vis_rescale: bool = False,
+                      vis_plus_steps: int | None = None,
+                      vis_plus_rescale: bool | None = None,
+                      light_chunk: int | None = None,
+                      vis_plus_guided: bool = False,
+                      guide_res: int = 64, guide_coarse: int = 16) -> dict:
         """Export every view's surface points, normals and mask [H, W, ...]
         (points/, normal/, mask/ .npy) for stage 2; with `visibility`, the
         visibility toward each SDPS-estimated light (rotated into the world
@@ -325,16 +351,39 @@ class Stage1Runner:
         (on the half sphere facing the camera with `semisphere`), listed in
         vis_plus/light_dir.json.
 
-        Faithful protocol: vis_steps samples on [0.1, 3.5] per light ray.
-        Visibility runs only on the surface pixels, compacted into tiles,
-        and is scattered back on the host. .npy writes run on one
+        The visibility protocol (render/marching.py light_visibility):
+        vis_steps samples on [0.1, 3.5] per light ray (faithful), or with
+        vis_rescale on [0.1, the ray's box exit]. vis_plus_steps and
+        vis_plus_rescale set the vis_plus directions' protocol apart
+        (default: the train lights'), so a mixed export keeps the faithful
+        train-light visibility that stage 2 reads as ground truth and
+        rescales only the vis_plus directions that supervise its visibility
+        net. vis_plus_guided marches the vis_plus directions over the
+        interval a guide_res^3 occupancy grid leaves (occupancy_guide_grid,
+        built once per export through the same occupancy route; its probes
+        at guide_coarse points a ray must be no farther apart than a
+        dilated slab is thick, else ValueError), at vis_plus_steps = 16
+        unless given. light_chunk: lights per occupancy call (default 1).
+        Every call builds its protocols anew from its own arguments.
+
+        Visibility runs only on the surface pixels, compacted into tiles
+        (of at most the surface's pixel count, as the march's tiles are of
+        at most the image's), and is scattered back on the host. .npy writes run on one
         background thread. Returns the seconds of each leg summed over the
-        views: warmup_s (the first march tile and one light), fps_s,
-        march_s, vis_train_s, vis_plus_s (device legs, each ending in one
-        read back), host_s (scatter and writes, on the thread) and
-        host_tail_s (what the writes add after the last device leg)."""
+        views: warmup_s (the first march tile and one light), guide_s (the
+        grid), fps_s, march_s, vis_train_s, vis_plus_s (device legs, each
+        ending in one read back), host_s (scatter and writes, on the
+        thread) and host_tail_s (what the writes add after the last device
+        leg)."""
         cfg = self.cfg
         dev = self.device
+        guided = visibility and vis_plus and vis_plus_guided
+        if guided:
+            check_guide_calibration(guide_res, guide_coarse)
+        if vis_plus_steps is None:
+            vis_plus_steps = 16 if vis_plus_guided else vis_steps
+        if vis_plus_rescale is None:
+            vis_plus_rescale = vis_rescale
         data = load_stage1_data(
             self.scene, "all", cfg.inten_normalize, cfg.train_view,
             cfg.train_light, False, cfg.render.white_background,
@@ -342,6 +391,7 @@ class Stage1Runner:
         h, w = data["imgs"].shape[1:3]
         pix = _row_major_pixels(h, w, dev)
         n = pix.shape[0]
+        tile = min(tile, n)            # a small image pads no further
         pix = torch.cat([pix, pix.new_zeros(((-n) % tile, 2))])
         subs = ["points", "normal", "mask"] + (
             ["visibility"] if visibility else []) + (
@@ -355,20 +405,30 @@ class Stage1Runner:
         march = lambda pix_tile, pose: render_shape_extract(
             self.field, cfg.field, cfg.render, pix_tile, data["K"], pose,
             n_steps=n_steps, occ_fn=occ_fn)
-        vis = lambda pts, dirs: light_visibility(vis_occ, pts, dirs,
-                                                 n_steps=vis_steps)
+        chunk = 1 if light_chunk is None else light_chunk
+        vis = lambda pts, dirs, steps, rescale, guide=None: light_visibility(
+            vis_occ, pts, dirs, n_steps=steps, rescale=rescale,
+            light_chunk=chunk, guide=guide, guide_coarse=guide_coarse)
 
-        timings = dict.fromkeys(("warmup_s", "fps_s", "march_s",
+        timings = dict.fromkeys(("warmup_s", "guide_s", "fps_s", "march_s",
                                  "vis_train_s", "vis_plus_s", "host_s"), 0.0)
         poses_np = data["poses"].cpu().numpy()
         t0 = time.time()
         march(pix[:tile], data["poses"][0])
         if visibility:
             vis(pix.new_zeros((tile, 3)),
-                torch.tensor([[0.0, 0.0, 1.0]], device=dev))
+                torch.tensor([[0.0, 0.0, 1.0]], device=dev), vis_steps,
+                vis_rescale)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         timings["warmup_s"] = time.time() - t0
+        guide = None
+        if guided:
+            t0 = time.time()
+            guide = occupancy_guide_grid(vis_occ, res=guide_res, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            timings["guide_s"] = time.time() - t0
 
         writer = ThreadPoolExecutor(max_workers=1)
         host_s = [0.0]
@@ -387,9 +447,11 @@ class Stage1Runner:
         vis_plus_json = {}
         for v, vi in enumerate(data["views"]):
             name = f"view_{vi + 1:02d}"
-            segments = []                       # (dirs, timing key, subdir)
+            # (dirs, timing key, subdir, protocol: steps, rescale, guide)
+            segments = []
             if visibility:
-                segments.append((light_pred[v], "vis_train_s", "visibility"))
+                segments.append((light_pred[v], "vis_train_s", "visibility",
+                                 (vis_steps, vis_rescale, None)))
                 if vis_plus:
                     t0 = time.time()
                     cand = rng.normal(size=(10000, 3))
@@ -401,7 +463,9 @@ class Stage1Runner:
                     extra = cand[idx].astype(np.float32)
                     vis_plus_json[name] = extra.tolist()
                     timings["fps_s"] += time.time() - t0
-                    segments.append((extra, "vis_plus_s", "vis_plus"))
+                    segments.append((extra, "vis_plus_s", "vis_plus",
+                                     (vis_plus_steps, vis_plus_rescale,
+                                      guide)))
 
             # pass 1: march and normals over all pixels, one read back
             t0 = time.time()
@@ -430,16 +494,17 @@ class Stage1Runner:
             # off the surface the visibility is 1
             surf_idx = np.nonzero(mask.reshape(-1))[0]
             n_surf = len(surf_idx)
-            vpad = (-n_surf) % tile if n_surf else tile
+            vtile = min(tile, max(n_surf, 1))
+            vpad = (-n_surf) % vtile if n_surf else vtile
             idx_dev = torch.as_tensor(
                 np.concatenate([surf_idx, np.zeros((vpad,), np.int64)]),
                 device=dev)
-            for dirs, tkey, sub in segments:
+            for dirs, tkey, sub, proto in segments:
                 t0 = time.time()
                 ldir = torch.as_tensor(dirs, device=dev)
                 vis_c = torch.cat(
-                    [vis(pts_dev[idx_dev[s:s + tile]], ldir)
-                     for s in range(0, n_surf + vpad, tile)],
+                    [vis(pts_dev[idx_dev[s:s + vtile]], ldir, *proto)
+                     for s in range(0, n_surf + vpad, vtile)],
                     dim=1)[:, :n_surf].cpu().numpy()
                 timings[tkey] += time.time() - t0
 

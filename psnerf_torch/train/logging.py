@@ -1,7 +1,11 @@
 """Training observability (counterpart of psnerf_tpu/train/logging.py):
 metrics as a JSONL stream (`MetricLogger`, one {"it", "wall", **scalars}
-object per line) and the stage-1 visualisation strip. The TensorBoard
-mirror comes with a later slice."""
+object per line, plotted by psnerf_torch.cli.plot_metrics) and the stage-1
+visualisation strip. With `tb_dir`, or PSNERF_TENSORBOARD=1 (then `tb/`
+beside the JSONL), the scalars are mirrored to TensorBoard event files
+through torch.utils.tensorboard; where the `tensorboard` package is not
+installed the logger says so once and keeps the JSONL only, as the JAX
+package's does."""
 
 from __future__ import annotations
 
@@ -13,10 +17,20 @@ import numpy as np
 
 
 class MetricLogger:
-    def __init__(self, path: str):
+    def __init__(self, path: str, tb_dir: str | None = None):
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         self._f = open(path, "a", buffering=1)
         self._t0 = time.time()
+        self._tb = None
+        if tb_dir is None and os.environ.get("PSNERF_TENSORBOARD") == "1":
+            tb_dir = os.path.join(os.path.dirname(os.path.abspath(path)), "tb")
+        if tb_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:      # the writer is optional
+                print(f"[logging] tensorboard unavailable ({e}); JSONL only")
+            else:
+                self._tb = SummaryWriter(tb_dir)
 
     def log(self, it: int, scalars: dict) -> None:
         rec = {"it": int(it), "wall": round(time.time() - self._t0, 3)}
@@ -28,8 +42,14 @@ class MetricLogger:
             except (TypeError, ValueError):
                 pass
         self._f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            for k, v in rec.items():
+                if k not in ("it", "wall"):
+                    self._tb.add_scalar(k, v, int(it))
 
     def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
         self._f.close()
 
 

@@ -1,5 +1,7 @@
 """psnerf_torch stands alone: no module of it (nor chip_smoke.py) imports
-jax, psnerf_tpu or cv2 (the card's machine has no OpenCV), it imports on a
+jax, psnerf_tpu, cv2, yaml or matplotlib (the card's machine has no OpenCV,
+and PyYAML and matplotlib are not on record there: the port parses its
+YAML configs itself and draws its plots with Pillow), it imports on a
 machine without triton or a GPU, and an entry point asked for CUDA where
 there is none raises."""
 
@@ -19,7 +21,7 @@ from psnerf_torch.device import resolve_device
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "psnerf_torch"
-FORBIDDEN = ("jax", "jaxlib", "psnerf_tpu", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "psnerf_tpu", "cv2", "yaml", "matplotlib")
 
 
 def _sources():

@@ -1,7 +1,7 @@
 """psnerf_torch's stage-1 eval and shape export against psnerf_tpu's, on the
 CPU at toy sizes (plain f32 routes on both sides):
-  * light_visibility (faithful protocol) within 1e-5, and its refusal of
-    the rescaled and guided protocols;
+  * light_visibility (faithful protocol, and the rescaled, chunked and
+    guided ones) within 1e-5;
   * render_shape_extract: masks equal, points within 1e-4, normals within
     0.08 degrees (PARITY.md), visibility within 1e-4;
   * farthest_point_sampling_np: identical indices;
@@ -80,11 +80,26 @@ def test_light_visibility_matches_jax(field):
 
 
 @pytest.mark.parametrize("kw", [dict(rescale=True), dict(light_chunk=2),
-                                dict(guide=torch.ones(4, 4, 4))])
-def test_light_visibility_refuses_other_protocols(kw):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        marching.light_visibility(lambda p: p[:, 0], torch.zeros(4, 3),
-                                  torch.eye(3), **kw)
+                                dict(guide=True)])
+def test_light_visibility_refuses_other_protocols(field, kw):
+    """The protocols besides the faithful one (rescaled, light chunks, a
+    guide grid) are not refused: each agrees with the JAX package within
+    1e-5 (test_torch_export_protocols.py holds more cases)."""
+    jp, cfg, f = field
+    rng = np.random.default_rng(2)
+    surf = (unit(rng, (40, 3)) * 0.6).astype(np.float32)
+    ldir = unit(rng, (3, 3))
+    jfn = lambda p: jocc.occ_alpha(jp, p, JCFG)
+    jkw, pkw = dict(kw), dict(kw)
+    if "guide" in kw:
+        grid = np.asarray(jmarch.occupancy_guide_grid(jfn, res=16, dilate=1))
+        jkw["guide"], pkw["guide"] = j(grid), t(grid)
+    ref = jmarch.light_visibility(jfn, j(surf), j(ldir), n_steps=16, **jkw)
+    got = marching.light_visibility(lambda p: occ.occ_alpha(f, p, cfg),
+                                    t(surf), t(ldir), n_steps=16, **pkw)
+    assert got.shape == (3, 40)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
 
 
 def test_render_shape_extract_matches_jax(field):
