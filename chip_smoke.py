@@ -102,7 +102,21 @@ Phases (any failure exits non-zero; nothing is caught):
      blocks, each command's kernel launches counted (every command must
      launch its path's kernels) and its seconds logged; one stage2-eval
      as `python -m psnerf_torch.cli.main` in a fresh process;
- 14. one JSON line of kernels, then the last line
+ 14. preprocessing, conversion and LPIPS, with cuDNN's TF32 set back to
+     PyTorch's default (on) for the phase, so that the port's own f32
+     setting is what holds: reference-layout LCNet, NENet, stage-1 and
+     stage-2 torch checkpoints made from seed 0, each through
+     convert-ckpt and its npz loaded back leaf for leaf; sdps-preprocess
+     over a copy of the phase-6 scene (LCNet from the converted npz,
+     NENet from the .pth.tar), its seconds per view and per leg, LCNet and
+     NENet ms per view by CUDA events beside their f32 FLOPs and bound;
+     view 1's first SDPS_CMP_LIGHTS lights through both nets on the card
+     and on the CPU (logits, classes away from near-ties, normals);
+     light-avg and the SDPS-normalized averages of the port's own output,
+     then stage1-train on them (inten_normalize: sdps), K1 and K2/K3-f32
+     launched; evaluation --lpips_weights (a random npz) on phase 13's
+     stage2-eval output, and one pair's LPIPS on the card against the CPU;
+ 15. one JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It needs no network and writes only inside the checkout (a work directory
@@ -189,6 +203,14 @@ VIS_AGREE = 0.93        # binary vis_plus agreement (tests/test_pipeline.py)
 SHARPEN = 8.0           # the agreement bar's field: its logit 8x steeper
 CHUNK_DEV = 1e-6        # light_chunk against chunk 1, if not bit for bit
 S2_CLI_ITERS = 100      # stage2-train through the CLI: one log line
+# phase 14: SDPS-Net and LPIPS on the card against the CPU (f32 both)
+SDPS_CMP_LIGHTS = 8     # view 1's first lights
+SDPS_LOGIT_REL = 1e-4   # LCNet logits, of each head's max |logit|
+SDPS_TIE = 1e-3         # a top-two logit gap under this share of that max
+                        # may flip a class: logged, not held
+SDPS_NORMAL_ABS = 1e-4  # NENet normals inside the mask
+S1_SDPS_STEPS = 5       # stage1-train on the port's own SDPS output
+LPIPS_REL = 1e-5
 
 
 def log(msg):
@@ -2663,19 +2685,11 @@ def kernel_counts(zero=False):
             "fused_vis_shade": fv.fused_vis_shade.launches}
 
 
-def cli_configs(scene, s1_dir, s2_dir):
+def stage1_yaml(path, scene, out_dir, inten_normalize="null",
+                print_every=10):
     """A stage-1 YAML that inherits configs/stage1/default.yaml by absolute
-    path (the full field, 2048 rays, 256 march steps, 64 + 32 samples) with
-    the scene's distances and data, logging every 10 steps; and a stage-2
-    conf of configs/stage2/bear.conf's blocks with the scene's data, no
-    intensity normalization, the stage-1 export as its shape and
-    bench.py's batch (train_all_pixels off). Returns their paths."""
-    import re
-
-    from psnerf_torch.config import stage2_config_from_conf
-
-    s1 = os.path.join(WORK, "cli_s1.yaml")
-    with open(s1, "w") as fh:
+    path with the synthetic scene's distances and data; returns path."""
+    with open(path, "w") as fh:
         fh.write(f"""inherit_from: {os.path.join(ROOT, "configs", "stage1",
                                                 "default.yaml")}
 rendering:
@@ -2687,11 +2701,26 @@ rendering:
 dataloading:
   obj_name: synthetic
   data_dir: {scene}
-  inten_normalize: null
+  inten_normalize: {inten_normalize}
 training:
-  out_dir: {s1_dir}
-  print_every: 10
+  out_dir: {out_dir}
+  print_every: {print_every}
 """)
+    return path
+
+
+def cli_configs(scene, s1_dir, s2_dir):
+    """A stage-1 YAML that inherits configs/stage1/default.yaml by absolute
+    path (the full field, 2048 rays, 256 march steps, 64 + 32 samples) with
+    the scene's distances and data, logging every 10 steps; and a stage-2
+    conf of configs/stage2/bear.conf's blocks with the scene's data, no
+    intensity normalization, the stage-1 export as its shape and
+    bench.py's batch (train_all_pixels off). Returns their paths."""
+    import re
+
+    from psnerf_torch.config import stage2_config_from_conf
+
+    s1 = stage1_yaml(os.path.join(WORK, "cli_s1.yaml"), scene, s1_dir)
     with open(os.path.join(ROOT, "configs", "stage2", "bear.conf")) as fh:
         conf = fh.read()
     for pat, new in ((r"data_dir = .*", f"data_dir = {scene}"),
@@ -2820,7 +2849,390 @@ def phase_cli(scene):
         s1_psnr = [m["psnr"] for m in json.load(fh)]
     check(np.isfinite(s1_psnr).all(), f"stage1-eval psnr {s1_psnr}")
     rec["losses"], rec["stage1_eval_psnr"] = losses, s1_psnr
-    shutil.rmtree(os.path.join(WORK, "cli"))
+    return rec
+
+
+def sdps_reference_state_dict(net, kind):
+    """The released SDPS-Net checkpoints' layout (LCNet_CVPR2019 /
+    NENet_CVPR2019 .pth.tar) of an LCNet ("lcnet") or NENet ("nenet"):
+    the inverse of preprocess.sdps.load_{lcnet,nenet}_torch."""
+    from psnerf_torch.train.checkpoints import flatten_tree
+
+    conv = lambda ref, path: {f"{ref}.weight": f"{path}/w",
+                              f"{ref}.bias": f"{path}/b"}
+    keys = {}
+    if kind == "lcnet":
+        for i in range(7):
+            keys.update(conv(f"featExtractor.conv{i + 1}.0", f"feat/{i}"))
+        for i in range(4):
+            keys.update(conv(f"classifier.conv{i + 1}.0", f"cls/{i}"))
+        for name, ref in (("dir_x", "dir_x_est"), ("dir_y", "dir_y_est"),
+                          ("ints", "int_est")):
+            for k in range(2):
+                keys.update(conv(f"classifier.{ref}.{k}.0",
+                                 f"heads/{name}/{k}"))
+    else:
+        for i in range(5):
+            keys.update(conv(f"extractor.conv{i + 1}.0", f"feat/{i}"))
+        keys["extractor.conv6.0.weight"] = "feat_deconv/w"
+        keys.update(conv("extractor.conv7.0", "feat_out"))
+        keys.update(conv("regressor.deconv1.0", "reg/0"))
+        keys.update(conv("regressor.deconv2.0", "reg/1"))
+        keys["regressor.deconv3.0.weight"] = "reg_deconv/w"
+        keys["regressor.est_normal.0.weight"] = "est_normal/w"
+    flat = flatten_tree(net)
+    check(sorted(flat) == sorted(keys.values()), f"{kind} reference keys")
+    return {ref: torch.as_tensor(flat[path]) for ref, path in keys.items()}
+
+
+def stage1_reference_state_dict(field):
+    """The reference NeuralNetwork layout of a stage-1 field under "model"
+    (CheckpointIO's bundle): lin{l}.weight_v [dout, din], weight_g
+    [dout, 1], bias; lina{l}.* for the appearance MLP."""
+    sd = {}
+    for name, layers in (("lin", field.geo), ("lina", field.app)):
+        for l, lyr in enumerate(layers):
+            sd[f"{name}{l}.weight_v"] = lyr.v.detach().t().contiguous()
+            sd[f"{name}{l}.weight_g"] = lyr.g.detach()[:, None].clone()
+            sd[f"{name}{l}.bias"] = lyr.b.detach().clone()
+    return {"model": sd}
+
+
+def stage2_reference_state_dicts(params):
+    """The reference ModelParameters/*.pth ({"model_state_dict": <head>_net
+    .linears.<i>.{weight [dout, din], bias}}) and LightParameters/*.pth
+    layouts of init_stage2_params' tree."""
+    sd = {}
+    for head, mlp in params["model"].items():
+        for i, lyr in enumerate(mlp):
+            sd[f"{head}_net.linears.{i}.weight"] = \
+                lyr.w.detach().t().contiguous()
+            sd[f"{head}_net.linears.{i}.bias"] = lyr.b.detach().clone()
+    return ({"model_state_dict": sd},
+            {"light_state_dict": {"weight": params["light_dirs"].clone()},
+             "light_inten_state_dict": {"weight":
+                                        params["light_ints"].clone()}})
+
+
+def conv_flops(net, *args):
+    """FLOPs (2 a multiply-add) of the convolutions of one forward of an
+    SDPS net on args, counted from the layers' shapes by forward hooks."""
+    from psnerf_torch.preprocess.sdps import Conv, Deconv
+
+    total = [0]
+
+    def hook(mod, inp, out):
+        w = mod.w
+        if isinstance(mod, Deconv):   # each input pixel meets the kernel
+            total[0] += 2 * inp[0].numel() * w.shape[1] * w[0, 0].numel()
+        else:
+            total[0] += 2 * out.numel() * w[0].numel()
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (Conv, Deconv))]
+    try:
+        net(*args)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def alex_flops(h, w):
+    """FLOPs of LPIPS's AlexNet convolutions on one h x w image."""
+    from psnerf_torch.eval.lpips_torch import _ALEX
+
+    total, cin = 0, 3
+    for spec in _ALEX:
+        if spec == "M":
+            h, w = (h - 3) // 2 + 1, (w - 3) // 2 + 1
+            continue
+        cout, k, stride, pad = spec
+        h, w = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+        total += 2 * cout * h * w * cin * k * k
+        cin = cout
+    return total
+
+
+def random_lpips_npz(path, seed=SEED):
+    """Random LPIPS weights in tools/export_lpips_npz.py's layout:
+    conv{0..4}_{w,b} (OIHW) and non-negative lin{0..4}_w [1, C, 1, 1]."""
+    from psnerf_torch.eval.lpips_torch import _ALEX
+
+    rng = np.random.default_rng(seed)
+    params, cin = {}, 3
+    for i, (cout, k, _, _) in enumerate(s for s in _ALEX if s != "M"):
+        params[f"conv{i}_w"] = rng.normal(0, 0.05, (cout, cin, k, k)) \
+            .astype(np.float32)
+        params[f"conv{i}_b"] = rng.normal(0, 0.01, cout).astype(np.float32)
+        params[f"lin{i}_w"] = rng.random((1, cout, 1, 1)).astype(np.float32)
+        cin = cout
+    np.savez(path, **params)
+    return path
+
+
+def phase_preprocess(scene, cli_rec):
+    """Phase 14 (module docstring): conversion, SDPS on the card and
+    against the CPU, the SDPS-normalized images into stage1-train, and
+    LPIPS, with cuDNN's TF32 at PyTorch's default throughout."""
+    import contextlib
+    import io
+
+    from psnerf_torch.cli.main import main as cli
+    from psnerf_torch.data.scene import imread
+    from psnerf_torch.eval.lpips_torch import LPIPS, lpips_distance
+    from psnerf_torch.fields.occupancy import (OccFieldConfig,
+                                               init_occupancy_field)
+    from psnerf_torch.fields.psnet import PSNetConfig, init_psnet
+    from psnerf_torch.preprocess import light_avg, runner, sdps
+    from psnerf_torch.train.checkpoints import flatten_tree, load_checkpoint
+    from psnerf_torch.train.stage2 import init_stage2_params
+
+    root = os.path.join(WORK, "prep")
+    os.makedirs(root)
+    rec = {"cli_s": {}}
+
+    def run(name, argv):
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli(argv)
+        torch.cuda.synchronize()
+        rec["cli_s"][name] = time.perf_counter() - t0
+        return out.getvalue()
+
+    prior_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True        # PyTorch's default
+    try:
+        # ---- a. reference checkpoints from seed 0 through convert-ckpt
+        gen = torch.Generator().manual_seed(SEED)
+        rng = np.random.default_rng(SEED)
+        nets = {"lcnet": sdps.LCNet(generator=gen, device="cpu"),
+                "nenet": sdps.NENet(generator=gen, device="cpu")}
+        field = init_occupancy_field(OccFieldConfig(), generator=gen)
+        dirs = rng.normal(size=(N_LIGHTS * 3, 3))
+        s2 = init_stage2_params(
+            init_psnet(PSNetConfig(), generator=gen),
+            dirs / np.linalg.norm(dirs, axis=1, keepdims=True),
+            rng.uniform(1.0, 3.0, (N_LIGHTS * 3, 1)))
+        s2_model, s2_lights = stage2_reference_state_dicts(s2)
+        lights = os.path.join(root, "lights.pth")
+        torch.save(s2_lights, lights)
+        blobs = {"lcnet": ({"state_dict": sdps_reference_state_dict(
+                    nets["lcnet"], "lcnet")}, nets["lcnet"], []),
+                 "nenet": ({"state_dict": sdps_reference_state_dict(
+                     nets["nenet"], "nenet")}, nets["nenet"], []),
+                 "stage1": (stage1_reference_state_dict(field), field, []),
+                 "stage2": (s2_model, s2, ["--lights", lights])}
+        ckpt, rec["converted_leaves"] = {}, {}
+        for stage, (blob, tree, extra) in blobs.items():
+            src = os.path.join(root, f"{stage}.pth.tar")
+            dst = os.path.join(root, f"{stage}.npz")
+            torch.save(blob, src)
+            run(f"convert-ckpt {stage}", ["convert-ckpt", "--stage", stage,
+                                          "--model", src, *extra,
+                                          "--out", dst])
+            got, want = load_checkpoint(dst)[0], flatten_tree(tree)
+            check(sorted(got) == sorted(want)
+                  and all(got[k].dtype == want[k].dtype
+                          and np.array_equal(got[k], want[k]) for k in want),
+                  f"convert-ckpt {stage}: the npz against the source leaves")
+            ckpt[stage] = {"tar": src, "npz": dst}
+            rec["converted_leaves"][stage] = len(got)
+        log(json.dumps({"preprocess_convert": {
+            "leaves": rec["converted_leaves"], "cli_s": rec["cli_s"]}}))
+
+        # ---- b. sdps-preprocess over a copy of the scene, on the card
+        copy = os.path.join(root, "scene")
+        shutil.copytree(scene, copy, ignore=shutil.ignore_patterns("exports"))
+        run("sdps-preprocess", ["sdps-preprocess", "--obj", copy,
+                                "--lcnet", ckpt["lcnet"]["npz"],
+                                "--nenet", ckpt["nenet"]["tar"]])
+        with open(os.path.join(copy, "params.json")) as fh:
+            n_view = json.load(fh)["n_view"]
+        out_dir = os.path.join(copy, f"sdps_out_l{N_LIGHTS}")
+        normals = [np.load(os.path.join(out_dir, "outnpy",
+                                        f"view_{v:02d}.npy"))
+                   for v in range(1, n_view + 1)]
+        l_dirs = np.load(os.path.join(out_dir, "light_direction_pred.npy"))
+        l_ints = np.load(os.path.join(out_dir, "light_intensity_pred.npy"))
+        check(l_dirs.shape == (n_view, N_LIGHTS, 3)
+              and l_ints.shape == (n_view, N_LIGHTS)
+              and np.allclose(np.linalg.norm(l_dirs, axis=-1), 1, atol=1e-5)
+              and l_ints.min() >= 0.2 and l_ints.max() <= 2.0,
+              f"sdps light predictions {l_dirs.shape} {l_ints.shape}")
+        unit = []
+        for v, n in enumerate(normals, 1):
+            m = np.asarray(runner.read_view(copy, f"view_{v:02d}",
+                                            light_slt=[0])[1]) > 0.5
+            unit.append(float(np.abs(np.linalg.norm(n[m], axis=-1) - 1)
+                              .max()))
+            check(n.shape == (*HW, 3) and np.isfinite(n).all()
+                  and unit[-1] < 1e-5 and not n[~m].any(),
+                  f"sdps normals of view {v}: unit {unit[-1]}")
+        # the runner again on the same nets: its legs per view
+        lc = sdps.load_sdps_net(ckpt["lcnet"]["npz"], "lcnet", DEV)
+        ne = sdps.load_sdps_net(ckpt["nenet"]["tar"], "nenet", DEV)
+        legs = {}
+        t0 = time.perf_counter()
+        again = runner.run_sdps(copy, lc, ne, timings=legs,
+                                out_dir=os.path.join(root, "sdps_again"))
+        again_s = time.perf_counter() - t0
+        # cuDNN may pick another algorithm for the same shapes on a rerun
+        # (its heuristics see another free workspace): f32 sums in another
+        # order, which the normalization amplifies where a raw normal is
+        # short, so a rerun is held at the card-against-CPU bar
+        rerun = max(float(np.abs(np.load(os.path.join(
+            again, "outnpy", f"view_{v:02d}.npy")) - normals[v - 1]).max())
+            for v in range(1, n_view + 1))
+        rerun_lights = all(np.array_equal(np.load(os.path.join(again, f)),
+                                          np.load(os.path.join(out_dir, f)))
+                           for f in ("light_direction_pred.npy",
+                                     "light_intensity_pred.npy"))
+        check(rerun <= SDPS_NORMAL_ABS, f"sdps rerun differs by {rerun}")
+        # LCNet and NENet of view 1 (all lights) by CUDA events
+        imgs, mask = runner.read_view(copy, "view_01")
+        cropped, cmask, _, imgs_lc, mask_lc = runner.sdps_inputs(imgs, mask)
+        t = lambda a: torch.as_tensor(a, device=DEV)
+        x_lc, m_lc = t(imgs_lc.transpose(0, 3, 1, 2)), t(mask_lc[None])
+        x_ne = t(cropped.transpose(0, 3, 1, 2))
+        with torch.no_grad():
+            pred = lc(x_lc, m_lc)
+            flops = {"lcnet": conv_flops(lc, x_lc, m_lc),
+                     "nenet": conv_flops(ne, x_ne, pred["dirs"],
+                                         pred["intens"])}
+            ms = in_turns({"lcnet": lambda: lc(x_lc, m_lc),
+                           "nenet": lambda: ne(x_ne, pred["dirs"],
+                                               pred["intens"])},
+                          {"lcnet": 10, "nenet": 3},
+                          ["lcnet", "nenet", "nenet", "lcnet"])
+        nets_rec = {k: {"ms": ms[k], "gflop": flops[k] / 1e9,
+                        "f32_bound_ms": flops[k] / PEAK_F32_FLOPS * 1e3,
+                        "tflop_s": flops[k] / ms[k] / 1e9}
+                    for k in ms}
+        rec["sdps"] = {
+            "views": n_view, "lights": N_LIGHTS,
+            "cli_s": rec["cli_s"]["sdps-preprocess"],
+            "cli_s_per_view": rec["cli_s"]["sdps-preprocess"] / n_view,
+            "runner_s": again_s, "legs_s_per_view": {
+                k: v for k, v in legs.items() if k != "crop_hw"},
+            "crop_hw": legs["crop_hw"], "view1": nets_rec,
+            "normals_unit_err": max(unit), "rerun_max_abs": rerun,
+            "rerun_light_preds_equal": rerun_lights}
+        log(json.dumps({"preprocess_sdps": rec["sdps"]}))
+
+        # ---- c. view 1's first lights on the card and on the CPU
+        k = SDPS_CMP_LIGHTS
+        sub, smask, _, sub_lc, sub_mlc = runner.sdps_inputs(imgs[:k], mask)
+        cpu = {"lcnet": sdps.load_sdps_net(ckpt["lcnet"]["npz"], "lcnet",
+                                           "cpu"),
+               "nenet": sdps.load_sdps_net(ckpt["nenet"]["tar"], "nenet",
+                                           "cpu")}
+        with torch.no_grad():
+            args = lambda dev: (torch.as_tensor(sub_lc.transpose(0, 3, 1, 2),
+                                                device=dev),
+                                torch.as_tensor(sub_mlc[None], device=dev))
+            got, want = lc(*args(DEV)), cpu["lcnet"](*args("cpu"))
+            # NENet on both from the CPU's light estimates
+            x = sub.transpose(0, 3, 1, 2)
+            n_dev = ne(t(x), want["dirs"].to(DEV),
+                       want["intens"].to(DEV)).cpu().numpy()
+            n_cpu = cpu["nenet"](torch.as_tensor(x), want["dirs"],
+                                 want["intens"]).numpy()
+        cmp = {}
+        for head in ("dirs_x", "dirs_y", "ints"):
+            g, w = got[head].cpu().numpy(), want[head].numpy()
+            scale = float(np.abs(w).max())
+            top2 = np.sort(w, axis=1)[:, -2:]
+            clear = (top2[:, 1] - top2[:, 0]) > SDPS_TIE * scale
+            same = g.argmax(1) == w.argmax(1)
+            cmp[head] = {"rel_err": float(np.abs(g - w).max()) / scale,
+                         "near_ties": int((~clear).sum()),
+                         "near_tie_flips": int((~clear & ~same).sum())}
+            check(cmp[head]["rel_err"] <= SDPS_LOGIT_REL and same[clear].all(),
+                  f"LCNet {head} card against CPU: {cmp[head]}")
+        inside = smask > 0.5
+        cmp["normals_max_abs"] = float(np.abs(n_dev - n_cpu)[:, inside].max())
+        check(cmp["normals_max_abs"] <= SDPS_NORMAL_ABS,
+              f"NENet card against CPU: {cmp['normals_max_abs']}")
+        cmp["lights"], cmp["crop_hw"] = len(sub), list(sub.shape[1:3])
+        rec["card_vs_cpu"] = cmp
+        log(json.dumps({"preprocess_card_vs_cpu": cmp}))
+
+        # ---- d. light averages, the SDPS-normalized images, stage 1
+        run("light-avg", ["light-avg", "--obj", copy])
+        t0 = time.perf_counter()
+        norm_dir = light_avg.light_average(copy, intnorm=True, sdps=True)
+        rec["light_average_sdps_s"] = time.perf_counter() - t0
+        check(os.path.basename(norm_dir) == f"img_intnorm_sdps_l{N_LIGHTS}"
+              and os.path.exists(os.path.join(norm_dir, "avg",
+                                              "view_01.png")),
+              f"light_average(sdps=True) wrote {norm_dir}")
+        gen_normals = np.load(os.path.join(scene, f"sdps_out_l{N_LIGHTS}",
+                                           "outnpy", "view_01.npy"))
+        check(not np.array_equal(gen_normals, normals[0]),
+              "the port's SDPS normals replaced the generator's")
+        s1_dir = os.path.join(root, "s1")
+        yaml = stage1_yaml(os.path.join(root, "s1_sdps.yaml"), copy, s1_dir,
+                           inten_normalize="sdps", print_every=1)
+        kernel_counts(zero=True)
+        run("stage1-train", ["stage1-train", yaml, "--workdir", s1_dir,
+                             "--max-iters", str(S1_SDPS_STEPS)])
+        s1_launches = kernel_counts()
+        losses = [r["loss"] for r in read_losses(s1_dir)]
+        for kern in ("fused_occ_logit", "fused_radiance_fwd_f32",
+                     "fused_radiance_bwd_f32"):
+            check(s1_launches[kern] > 0,
+                  f"stage1-train on the SDPS output launched no {kern}")
+        check(len(losses) == S1_SDPS_STEPS and np.isfinite(losses).all(),
+              f"stage1-train on the SDPS output: losses {losses}")
+        rec["stage1"] = {"launches": s1_launches, "losses": losses,
+                         "wall_s": rec["cli_s"]["stage1-train"]}
+        log(json.dumps({"preprocess_stage1": rec["stage1"],
+                        "light_avg_s": rec["cli_s"]["light-avg"],
+                        "light_average_sdps_s":
+                            rec["light_average_sdps_s"]}))
+
+        # ---- e. LPIPS
+        npz = random_lpips_npz(os.path.join(root, "lpips_alex.npz"))
+        test_out = os.path.join(WORK, "cli", "s2", "test_out")
+        res = run("evaluation --lpips_weights", [
+            "evaluation", "--data_path", scene, "--test_out_path", test_out,
+            "--lpips_weights", npz])
+        res = json.loads("{" + res.rsplit("{", 1)[1])
+        check(isinstance(res["lpips"], float) and np.isfinite(res["lpips"])
+              and res["lpips_status"] == "computed"
+              and res["psnr"] == cli_rec["evaluation"]["result"]["psnr"],
+              f"evaluation --lpips_weights: {res}")
+        a = imread(os.path.join(test_out, "rgb", "img", "view_03",
+                                "001.png"))[..., :3] / np.float32(255)
+        b = imread(os.path.join(scene, "img", "view_03",
+                                "001.png"))[..., :3] / np.float32(255)
+        metric = LPIPS(npz, device=DEV)
+        d_dev, d_cpu = metric(a, b), LPIPS(npz, device="cpu")(a, b)
+        check(abs(d_dev - d_cpu) <= LPIPS_REL * abs(d_cpu) and d_cpu > 0,
+              f"LPIPS card {d_dev} against CPU {d_cpu}")
+        ta, tb = t(a.astype(np.float32)), t(b.astype(np.float32))
+        with torch.no_grad():
+            pair_ms = in_turns(
+                {"pair": lambda: metric(a, b),
+                 "device": lambda: lpips_distance(metric.params, ta, tb)},
+                {"pair": 20, "device": 20},
+                ["pair", "device", "device", "pair"])
+        pair_flops = 2 * alex_flops(*a.shape[:2])
+        rec["lpips"] = {
+            "evaluation_s": rec["cli_s"]["evaluation --lpips_weights"],
+            "evaluation_no_weights_s": cli_rec["evaluation"]["wall_s"],
+            "lpips": res["lpips"], "pair_card": d_dev, "pair_cpu": d_cpu,
+            "pair_rel_err": abs(d_dev - d_cpu) / abs(d_cpu),
+            "ms_per_pair": pair_ms["pair"],
+            "ms_per_pair_on_device_inputs": pair_ms["device"],
+            "gflop_per_pair": pair_flops / 1e9,
+            "f32_bound_ms": pair_flops / PEAK_F32_FLOPS * 1e3}
+        log(json.dumps({"preprocess_lpips": rec["lpips"]}))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prior_tf32
     return rec
 
 
@@ -2861,6 +3273,7 @@ def main():
         k1_mesh, e2e_mesh, k1_mise = phase_mesh(trained, card, k1["sass"])
         del trained
         e2e_cli = phase_cli(scene)
+        e2e_pre = phase_preprocess(scene, e2e_cli)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2900,7 +3313,7 @@ def main():
                     "stage1_eval_export": e2e_export,
                     "relight_edit": e2e_re, "mesh": e2e_mesh,
                     "export_protocols": e2e_protocols["protocols"],
-                    "cli": e2e_cli,
+                    "cli": e2e_cli, "preprocess": e2e_pre,
                     "f32_workspace": stages["workspace"],
                     "bf16_workspace": bstages["workspace"], "ptxas": regs}))
     log(card["nvidia_smi"])

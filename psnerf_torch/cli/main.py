@@ -12,13 +12,25 @@ subcommands and flags):
                   --render_envmap / --edit_albedo / --edit_specular)
   evaluation      --data_path ... --test_out_path ...   (evaluation.py)
   chamfer         --mesh_gt --mesh_pred    (chamfer_dist.py)
+  light-avg       --obj <dir> [--intnorm]  (light_avg.py)
+  convert-ckpt    --stage stage1|stage2|lcnet|nenet --model <.pth[.tar]>
+                  [--lights <.pth>] --out <.npz>
+  sdps-preprocess --obj <dir> --lcnet <ckpt> --nenet <ckpt>
+                  (preprocessing/test.py; a converted .npz or a torch
+                  checkpoint for each net)
 
-Every command that builds a runner takes `--device` (default cuda: it
-raises where CUDA is missing; `--device cpu` runs on the CPU). `light-avg`,
-`convert-ckpt`, `sdps-preprocess`, `--mesh-devices` and `--lpips_weights`
-are parsed as the JAX package parses them and raise NotImplementedError:
-they are ported with ROADMAP queue 1 items 6 (preprocessing and
-conversion), 8 (multi-GPU) and 7 (LPIPS).
+From a raw dataset: sdps-preprocess -> light-avg --obj <dir> (and the
+SDPS-normalized images, preprocess.light_avg.light_average(intnorm=True,
+sdps=True)) -> stage1-train -> shape-extract -> stage2-train ->
+stage2-eval -> evaluation.
+
+Every command that runs on the card takes `--device` (default cuda: it
+raises where CUDA is missing; `--device cpu` runs on the CPU): the
+runners' commands, sdps-preprocess, and evaluation, whose LPIPS
+(`--lpips_weights`, else LPIPS_WEIGHTS) runs there; evaluation without
+weights touches no device. `--mesh-devices` is parsed as the JAX package
+parses it and raises NotImplementedError: it is ported with ROADMAP queue
+1 item 8 (multi-GPU).
 """
 
 from __future__ import annotations
@@ -31,12 +43,7 @@ import sys
 import numpy as np
 
 NOT_PORTED = {
-    "light-avg": "ROADMAP queue 1 item 6 (preprocessing and conversion)",
-    "convert-ckpt": "ROADMAP queue 1 item 6 (preprocessing and conversion)",
-    "sdps-preprocess": "ROADMAP queue 1 item 6 (preprocessing and "
-                       "conversion)",
     "--mesh-devices": "ROADMAP queue 1 item 8 (multi-GPU)",
-    "--lpips_weights": "ROADMAP queue 1 item 7 (LPIPS)",
 }
 
 
@@ -47,8 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     def runner_parser(name, **kw):
         p = sub.add_parser(name, **kw)
         p.add_argument("--device", default="cuda",
-                       help="torch device of the runner (default cuda; "
-                            "cpu runs on the CPU)")
+                       help="torch device (default cuda; cpu runs on the "
+                            "CPU)")
         return p
 
     p = runner_parser("stage1-train")
@@ -109,7 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--color", default=None)
     p.add_argument("--basis", type=int, default=None)
 
-    p = sub.add_parser("evaluation")
+    p = runner_parser("evaluation")
     p.add_argument("--data_path", required=True)
     p.add_argument("--test_out_path", required=True)
     p.add_argument("--inten_normalize", default=None)
@@ -125,8 +132,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--intnorm", action="store_true")
 
     p = sub.add_parser("convert-ckpt",
-                       help="reference torch checkpoint -> npz (not ported "
-                            "yet: raises)")
+                       help="reference torch checkpoint -> npz")
     p.add_argument("--stage", choices=["stage1", "stage2", "lcnet", "nenet"],
                    required=True)
     p.add_argument("--model", required=True, help="torch .pt/.pth[.tar] path")
@@ -134,9 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stage2 LightParameters .pth (optional)")
     p.add_argument("--out", required=True, help="output .npz path")
 
-    p = sub.add_parser("sdps-preprocess",
-                       help="run SDPS-Net (LCNet+NENet) over a dataset (not "
-                            "ported yet: raises)")
+    p = runner_parser("sdps-preprocess",
+                      help="run SDPS-Net (LCNet+NENet) over a dataset")
     p.add_argument("--obj", required=True, help="dataset directory")
     p.add_argument("--lcnet", required=True, help="converted or torch ckpt")
     p.add_argument("--nenet", required=True)
@@ -154,8 +159,6 @@ def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     args = build_parser().parse_args(argv)
     cmd = args.cmd
-    if cmd in ("light-avg", "convert-ckpt", "sdps-preprocess"):
-        _not_ported(cmd)
     if getattr(args, "mesh_devices", None):
         _not_ported("--mesh-devices")
 
@@ -222,10 +225,10 @@ def main(argv=None):
     elif cmd == "evaluation":
         from psnerf_torch.eval.evaluation import evaluate_outputs
 
-        if args.lpips_weights:
-            _not_ported("--lpips_weights")
         res = evaluate_outputs(args.data_path, args.test_out_path,
-                               args.inten_normalize)
+                               args.inten_normalize,
+                               lpips_weights=args.lpips_weights,
+                               device=args.device)
         print(json.dumps(res, indent=2))
 
     elif cmd == "chamfer":
@@ -236,6 +239,41 @@ def main(argv=None):
         vp, tp = load_mesh(args.mesh_pred)
         cd = chamfer_distance(vp, tp, vg, tg, args.num_samples)
         print(f"Chamfer Distance (mm):  {cd * 1000:.2f}")
+
+    elif cmd == "light-avg":
+        from psnerf_torch.preprocess.light_avg import light_average
+
+        light_average(args.obj, intnorm=args.intnorm)
+
+    elif cmd == "convert-ckpt":
+        from psnerf_torch import convert
+        from psnerf_torch.preprocess import sdps
+        from psnerf_torch.train.checkpoints import save_checkpoint
+
+        blob = convert.load_torch_file(args.model)
+        if args.stage == "stage1":
+            tree = convert.stage1_params_from_torch(blob)
+        elif args.stage == "stage2":
+            lights = (convert.load_torch_file(args.lights) if args.lights
+                      else None)
+            tree = convert.stage2_params_from_torch(blob, lights)
+        elif args.stage == "lcnet":
+            tree = sdps.load_lcnet_torch(blob.get("state_dict", blob))
+        else:
+            tree = sdps.load_nenet_torch(blob.get("state_dict", blob))
+        save_checkpoint(args.out, tree)
+        print(f"converted {args.stage} checkpoint -> {args.out}")
+
+    elif cmd == "sdps-preprocess":
+        from psnerf_torch.preprocess.runner import run_sdps
+        from psnerf_torch.preprocess.sdps import load_sdps_net
+
+        out = run_sdps(args.obj,
+                       load_sdps_net(args.lcnet, "lcnet", args.device),
+                       load_sdps_net(args.nenet, "nenet", args.device),
+                       train_light=args.train_light,
+                       light_intnorm_gt=args.intnorm_gt)
+        print(f"SDPS outputs written to {out}")
 
 
 if __name__ == "__main__":

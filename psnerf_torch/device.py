@@ -22,3 +22,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev
+
+
+def f32_convolutions():
+    """A context in which cuDNN runs convolutions in f32, not TF32.
+    PyTorch's default `torch.backends.cudnn.allow_tf32 = True` rounds conv
+    operands to TF32 on the card; the JAX package's convolutions are f32,
+    and SDPS-Net's class argmaxes flip under that rounding. The benchmark
+    and determinism settings are kept as the caller set them."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)

@@ -2,10 +2,10 @@
 dataset's ground truth (counterpart of psnerf_tpu/eval/evaluation.py):
 PSNR, SSIM and normal MAE, with white-background compositing under
 mask_pred & norm_mask and, for SDPS-normalized runs, a per-channel
-least-squares rescale. Images are read with Pillow.
-
-LPIPS is not ported yet: the result carries `lpips: null` and the status
-string the JAX package gives when it has no LPIPS weights.
+least-squares rescale. Images are read with Pillow. LPIPS
+(eval/lpips_torch.py) runs on `device` when weights are given (the
+argument or LPIPS_WEIGHTS); without them the result carries `lpips: null`
+and the JAX package's status string, and no device is touched.
 """
 
 from __future__ import annotations
@@ -16,7 +16,10 @@ from collections import defaultdict
 
 import numpy as np
 
+import torch
+
 from psnerf_torch.data.scene import imread
+from psnerf_torch.eval.lpips_torch import LPIPS
 from psnerf_torch.eval.metrics import mae, psnr, scale_img, ssim, white_bg
 
 LPIPS_UNAVAILABLE = ("unavailable: set LPIPS_WEIGHTS "
@@ -26,11 +29,14 @@ LPIPS_UNAVAILABLE = ("unavailable: set LPIPS_WEIGHTS "
 def evaluate_outputs(data_path: str, test_out_path: str,
                      inten_normalize: str | None = None,
                      train_all_view: bool = False,
-                     train_light: int | None = None) -> dict:
-    """{psnr, ssim (means over every test view and light), lpips: None,
-    lpips_status, normal_mae (mean over views, when the dataset has
-    ground-truth normals)} of the eval tree under test_out_path (rgb/img,
-    mask/img, normal/npy as Stage2Runner.evaluate writes them)."""
+                     train_light: int | None = None,
+                     lpips_weights: str | None = None,
+                     device: str | torch.device = "cuda") -> dict:
+    """{psnr, ssim (means over every test view and light), lpips (the mean
+    x 100, or None without weights), lpips_status, normal_mae (mean over
+    views, when the dataset has ground-truth normals)} of the eval tree
+    under test_out_path (rgb/img, mask/img, normal/npy as
+    Stage2Runner.evaluate writes them)."""
     with open(os.path.join(data_path, "params.json")) as f:
         para = json.load(f)
     test_slt = (np.arange(para["n_view"]) if train_all_view
@@ -47,6 +53,7 @@ def evaluate_outputs(data_path: str, test_out_path: str,
         light_slt = [np.arange(len(para["light_direction"][vi]))
                      for vi in test_slt]
 
+    lpips_fn = LPIPS(lpips_weights, device=device)
     img_data = defaultdict(list)
     normal_data = []
     for vidx, vi in enumerate(test_slt):
@@ -82,10 +89,16 @@ def evaluate_outputs(data_path: str, test_out_path: str,
             a, b = white_bg(img_pred, mask), white_bg(img_gt, mask)
             img_data["psnr"].append(psnr(a, b, mask))
             img_data["ssim"].append(ssim(a, b))
+            if lpips_fn.available:
+                img_data["lpips"].append(lpips_fn(a, b))
 
     out = {k: float(np.mean(v)) for k, v in img_data.items()}
-    out["lpips"] = None
-    out["lpips_status"] = LPIPS_UNAVAILABLE
+    if "lpips" in out:
+        out["lpips"] *= 100
+        out["lpips_status"] = "computed"
+    else:
+        out["lpips"] = None
+        out["lpips_status"] = LPIPS_UNAVAILABLE
     if normal_data:
         out["normal_mae"] = float(np.mean(normal_data))
     return out

@@ -6,13 +6,18 @@ tests/test_cli.py:163-209, on the same 32x32 scene and the same configs
 --edit_specular) -> evaluation (a finite PSNR) -> chamfer, with the same
 file contract. Also: plot_metrics draws the stage-1 metrics into a PNG of
 one panel per scalar; PhaseTimer and trace run on the CPU; the MetricLogger
-mirrors to TensorBoard and keeps its JSONL when the writer is missing; the
-subcommands not ported yet raise NotImplementedError; `--device` defaults
-to the card.
+mirrors to TensorBoard and keeps its JSONL when the writer is missing;
+`--mesh-devices` raises NotImplementedError; `--device` defaults to the
+card. The preprocessing commands: sdps-preprocess from a converted .npz
+and from a reference .pth.tar of each net (convert-ckpt writing the npz),
+light-avg as the JAX CLI's, evaluation --lpips_weights on the workflow's
+output; sdps-preprocess and LPIPS raise without CUDA unless `--device
+cpu` is given.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -24,7 +29,8 @@ import torch
 from psnerf_torch.cli.main import main
 from psnerf_torch.data.synthetic import generate_synthetic_scene
 from psnerf_torch.train.checkpoints import load_checkpoint
-from torch_helpers import CLI_STAGE1_YAML, CLI_STAGE2_CONF
+from torch_helpers import (CLI_STAGE1_YAML, CLI_STAGE2_CONF,
+                           random_lpips_state_dict, sdps_reference_state_dict)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -150,13 +156,8 @@ def test_python_m_entry_point(workspace, workflow):
 
 
 @pytest.mark.parametrize("argv", [
-    ["light-avg", "--obj", "x"],
-    ["convert-ckpt", "--stage", "stage1", "--model", "m.pt", "--out", "o"],
-    ["sdps-preprocess", "--obj", "x", "--lcnet", "a", "--nenet", "b"],
     ["stage1-train", "c.yaml", "--mesh-devices", "2", *CPU],
     ["stage2-train", "--conf", "c.conf", "--mesh-devices", "2", *CPU],
-    ["evaluation", "--data_path", "d", "--test_out_path", "o",
-     "--lpips_weights", "w.npz"],
 ])
 def test_unported_subcommands_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
@@ -219,3 +220,116 @@ def test_metric_logger_tensorboard_mirror(tmp_path, monkeypatch, capsys):
     with open(tmp_path / "b" / "m.jsonl") as f:
         rec = json.loads(f.read())
     assert rec["it"] == 2 and rec["loss"] == 0.25 and "skip" not in rec
+
+
+def _sdps_checkpoints(root):
+    """Reference-layout LCNet and NENet .pth.tar files from seed 0, and
+    their npz conversions by convert-ckpt; returns {(kind, fmt): path}."""
+    from psnerf_torch.preprocess import sdps
+    from psnerf_torch.train.checkpoints import flatten_tree
+
+    gen = torch.Generator().manual_seed(0)
+    paths = {}
+    for kind, make in (("lcnet", sdps.LCNet), ("nenet", sdps.NENet)):
+        net = make(generator=gen, device="cpu")
+        tar = os.path.join(root, f"{kind}.pth.tar")
+        torch.save({"state_dict": sdps_reference_state_dict(
+            flatten_tree(net), kind)}, tar)
+        npz = os.path.join(root, f"{kind}.npz")
+        main(["convert-ckpt", "--stage", kind, "--model", tar, "--out", npz])
+        paths[kind, "tar"], paths[kind, "npz"] = tar, npz
+    return paths
+
+
+def test_sdps_preprocess_from_npz_and_pth_tar(tmp_path):
+    """sdps-preprocess with LCNet from its npz and NENet from its .pth.tar,
+    and the other way round: the same files as run_sdps on the nets."""
+    from psnerf_torch.preprocess.runner import run_sdps
+    from psnerf_torch.preprocess.sdps import load_sdps_net
+
+    ckpt = _sdps_checkpoints(str(tmp_path))
+    scene = str(tmp_path / "scene")
+    generate_synthetic_scene(scene, n_views=2, n_test=0, n_lights=4,
+                             hw=(40, 40))
+    ref = run_sdps(scene, load_sdps_net(ckpt["lcnet", "tar"], "lcnet", "cpu"),
+                   load_sdps_net(ckpt["nenet", "tar"], "nenet", "cpu"),
+                   out_dir=str(tmp_path / "ref"))
+    for lc, ne in (("npz", "tar"), ("tar", "npz")):
+        main(["sdps-preprocess", "--obj", scene, "--lcnet", ckpt["lcnet", lc],
+              "--nenet", ckpt["nenet", ne], *CPU])
+        out = os.path.join(scene, "sdps_out_l4")
+        for rel in ("outnpy/view_01.npy", "outnpy/view_02.npy",
+                    "light_direction_pred.npy", "light_intensity_pred.npy"):
+            np.testing.assert_array_equal(np.load(os.path.join(out, rel)),
+                                          np.load(os.path.join(ref, rel)))
+        assert os.path.exists(os.path.join(out, "outimg", "view_02.png"))
+        shutil.rmtree(out)
+
+
+def test_sdps_preprocess_needs_cuda_unless_cpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ckpt = _sdps_checkpoints(str(tmp_path))
+    argv = ["sdps-preprocess", "--obj", str(tmp_path / "nowhere"),
+            "--lcnet", ckpt["lcnet", "npz"], "--nenet", ckpt["nenet", "tar"]]
+    with pytest.raises(RuntimeError, match="is_available"):
+        main(argv)
+    with pytest.raises(FileNotFoundError, match="params.json"):
+        main(argv + CPU)          # past the device: no dataset there
+
+
+@pytest.mark.parametrize("intnorm", [False, True])
+def test_light_avg_matches_the_jax_cli(tmp_path, monkeypatch, intnorm):
+    from PIL import Image
+
+    from psnerf_tpu.cli import main as jcli
+
+    monkeypatch.setattr("psnerf_tpu.utils.profiling.enable_compilation_cache",
+                        lambda *a, **k: None)
+    src = tmp_path / "src"
+    generate_synthetic_scene(str(src), n_views=2, n_test=0, n_lights=4,
+                             hw=(20, 24))
+    with open(src / "params.json") as f:
+        para = json.load(f)
+    para["light_intensity"] = np.random.default_rng(0).uniform(
+        0.5, 1.5, (4, 3)).tolist()
+    with open(src / "params.json", "w") as f:
+        json.dump(para, f)
+    flag = ["--intnorm"] if intnorm else []
+    for name, cli in (("port", main), ("jax", jcli.main)):
+        shutil.copytree(src, tmp_path / name)
+        cli(["light-avg", "--obj", str(tmp_path / name), *flag])
+    sub = "img_intnorm_gt" if intnorm else "img"
+    files = sorted(Path(tmp_path / "jax" / sub).rglob("*.png"))
+    assert len(files) == 10        # 8 light images and 2 averages
+    for f in files:
+        rel = f.relative_to(tmp_path / "jax")
+        got = np.asarray(Image.open(tmp_path / "port" / rel))
+        np.testing.assert_array_equal(got, np.asarray(Image.open(f)),
+                                      err_msg=str(rel))
+
+
+def test_evaluation_with_lpips_weights(workspace, workflow, tmp_path,
+                                       monkeypatch, capsys):
+    """evaluation --lpips_weights on the workflow's stage-2 output: a
+    finite LPIPS, "computed", and the same psnr as without weights; the
+    default device is the card, which a run without weights never needs."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from export_lpips_npz import export_from_state_dict
+
+    monkeypatch.delenv("LPIPS_WEIGHTS", raising=False)
+    npz = str(tmp_path / "lpips.npz")
+    export_from_state_dict(random_lpips_state_dict(), npz)
+    capsys.readouterr()
+    root = str(workspace)
+    argv = ["evaluation", "--data_path", os.path.join(root, "scene"),
+            "--test_out_path", f"{root}/test_out"]
+    main(argv + ["--lpips_weights", npz, *CPU])
+    res = json.loads("{" + capsys.readouterr().out.rsplit("{", 1)[1])
+    assert res["lpips_status"] == "computed" and np.isfinite(res["lpips"])
+    assert res["psnr"] == workflow["psnr"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        main(argv + ["--lpips_weights", npz])
+    main(argv)
+    res = json.loads("{" + capsys.readouterr().out.rsplit("{", 1)[1])
+    assert res["lpips"] is None and res["psnr"] == workflow["psnr"]

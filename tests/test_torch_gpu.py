@@ -707,3 +707,95 @@ def test_stage2_train_step_cuda_matches_cpu():
                 (dt, k)
             lr = lrs.get(k, tcfg.sg_learning_rate)
             assert diff.max().item() <= 2 * lr * (1 + 1e-4), (dt, k)
+
+
+def _cudnn_tf32_default():
+    """PyTorch's default cuDNN TF32 setting (on) for a test; the SDPS and
+    LPIPS convolutions must switch it off themselves."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    return old
+
+
+@pytest.mark.parametrize("n_lights", [8, 96])
+def test_sdps_nets_cuda_match_cpu(n_lights):
+    """LCNet (128x128) and NENet (a 96x120 crop) of one seeded parameter
+    set on the card against the CPU, cuDNN's TF32 left at PyTorch's default:
+    LCNet's logits within 1e-4 of each head's max |logit|, its classes
+    equal where the top two logits differ by more than 1e-3 of that max;
+    NENet's normals within 1e-4 abs."""
+    _need_gpu()
+    import copy
+
+    from psnerf_torch.preprocess import sdps
+
+    old = _cudnn_tf32_default()
+    try:
+        gen = torch.Generator().manual_seed(0)
+        nets = {"cpu": (sdps.LCNet(generator=gen, device="cpu"),
+                        sdps.NENet(generator=gen, device="cpu"))}
+        nets["cuda"] = tuple(copy.deepcopy(n).cuda() for n in nets["cpu"])
+        rng = np.random.default_rng(n_lights)
+        imgs = rng.uniform(size=(n_lights, 3, 128, 128)).astype(np.float32)
+        mask = (rng.uniform(size=(1, 128, 128)) > 0.2).astype(np.float32)
+        crop = rng.uniform(size=(n_lights, 3, 96, 120)).astype(np.float32)
+        out = {}
+        with torch.no_grad():
+            pred = nets["cpu"][0](torch.as_tensor(imgs), torch.as_tensor(mask))
+            for dev, (lc, ne) in nets.items():
+                t = lambda a: torch.as_tensor(a, device=dev)
+                logits = lc.logits(t(imgs), t(mask))
+                # NENet on both devices from the CPU's light estimates
+                normals = ne(t(crop), pred["dirs"].to(dev),
+                             pred["intens"].to(dev))
+                out[dev] = ({k: v.cpu() for k, v in logits.items()},
+                            normals.cpu())
+        (lc_c, n_c), (lc_g, n_g) = out["cpu"], out["cuda"]
+        for k in lc_c:
+            scale = lc_c[k].abs().max().item()
+            assert (lc_g[k] - lc_c[k]).abs().max().item() <= 1e-4 * scale, k
+            top2 = lc_c[k].topk(2, dim=1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 1e-3 * scale
+            assert clear.any()
+            assert torch.equal(lc_g[k].argmax(1)[clear],
+                               lc_c[k].argmax(1)[clear]), k
+        assert (n_g - n_c).abs().max().item() <= 1e-4
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def test_lpips_cuda_matches_cpu():
+    """LPIPS of a 512x512 pair on the card against the CPU, from random
+    AlexNet+LPIPS weights, cuDNN's TF32 left at PyTorch's default: within
+    1e-5 relative; 0 for a pair of the same image."""
+    _need_gpu()
+    from psnerf_torch.eval import lpips_torch
+
+    old = _cudnn_tf32_default()
+    try:
+        rng = np.random.default_rng(3)
+        params, cin = {}, 3
+        for i, (k, cout) in enumerate(zip([11, 5, 3, 3, 3],
+                                          lpips_torch._TAP_CHANNELS)):
+            params[f"conv{i}_w"] = torch.as_tensor(rng.normal(
+                0, 0.05, (cout, cin, k, k)).astype(np.float32))
+            params[f"conv{i}_b"] = torch.as_tensor(rng.normal(
+                0, 0.01, cout).astype(np.float32))
+            params[f"lin{i}_w"] = torch.as_tensor(rng.random(
+                (1, cout, 1, 1)).astype(np.float32))
+            cin = cout
+        a = rng.uniform(size=(512, 512, 3)).astype(np.float32)
+        b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+        got = {}
+        for dev in ("cpu", "cuda"):
+            p = {k: v.to(dev) for k, v in params.items()}
+            t = lambda x: torch.as_tensor(x, device=dev)
+            with torch.no_grad():
+                got[dev] = float(lpips_torch.lpips_distance(p, t(a), t(b)))
+                if dev == "cuda":
+                    assert float(lpips_torch.lpips_distance(p, t(a),
+                                                            t(a))) == 0.0
+        assert got["cpu"] > 0
+        assert abs(got["cuda"] - got["cpu"]) <= 1e-5 * got["cpu"], got
+    finally:
+        torch.backends.cudnn.allow_tf32 = old

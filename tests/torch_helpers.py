@@ -218,3 +218,58 @@ visibility{{
     }}
 }}
 """
+
+
+def sdps_reference_keys(kind: str) -> dict:
+    """{reference state-dict key: JAX leaf path} of the released SDPS-Net
+    checkpoints (LCNet_CVPR2019 / NENet_CVPR2019 .pth.tar), kind "lcnet"
+    or "nenet"."""
+    conv = lambda ref, path: {f"{ref}.weight": f"{path}/w",
+                              f"{ref}.bias": f"{path}/b"}
+    keys = {}
+    if kind == "lcnet":
+        for i in range(7):
+            keys.update(conv(f"featExtractor.conv{i + 1}.0", f"feat/{i}"))
+        for i in range(4):
+            keys.update(conv(f"classifier.conv{i + 1}.0", f"cls/{i}"))
+        for name, ref in (("dir_x", "dir_x_est"), ("dir_y", "dir_y_est"),
+                          ("ints", "int_est")):
+            for k in range(2):
+                keys.update(conv(f"classifier.{ref}.{k}.0",
+                                 f"heads/{name}/{k}"))
+        return keys
+    for i in range(5):
+        keys.update(conv(f"extractor.conv{i + 1}.0", f"feat/{i}"))
+    keys["extractor.conv6.0.weight"] = "feat_deconv/w"
+    keys.update(conv("extractor.conv7.0", "feat_out"))
+    keys.update(conv("regressor.deconv1.0", "reg/0"))
+    keys.update(conv("regressor.deconv2.0", "reg/1"))
+    keys["regressor.deconv3.0.weight"] = "reg_deconv/w"
+    keys["regressor.est_normal.0.weight"] = "est_normal/w"
+    return keys
+
+
+def sdps_reference_state_dict(flat: dict, kind: str) -> dict:
+    """A reference-layout state dict of torch tensors from {JAX leaf path:
+    array}."""
+    return {ref: torch.as_tensor(np.array(flat[path]))
+            for ref, path in sdps_reference_keys(kind).items()}
+
+
+def random_lpips_state_dict(seed: int = 3) -> dict:
+    """Random lpips-alex weights in the lpips package's spelling
+    (net.sliceK.N.* AlexNet convs, non-negative lin{i}.model.1.weight
+    heads), numpy arrays, for tools/export_lpips_npz.py."""
+    rng = np.random.default_rng(seed)
+    slice_of_conv = {0: 1, 3: 2, 6: 3, 8: 4, 10: 5}
+    sd, cin = {}, 3
+    for i, (conv_id, k, cout) in enumerate(zip(
+            slice_of_conv, [11, 5, 3, 3, 3], [64, 192, 384, 256, 256])):
+        pre = f"net.slice{slice_of_conv[conv_id]}.{conv_id}"
+        sd[f"{pre}.weight"] = rng.normal(0, 0.05, (cout, cin, k, k)) \
+            .astype(np.float32)
+        sd[f"{pre}.bias"] = rng.normal(0, 0.01, (cout,)).astype(np.float32)
+        sd[f"lin{i}.model.1.weight"] = rng.random((1, cout, 1, 1)) \
+            .astype(np.float32)
+        cin = cout
+    return sd
