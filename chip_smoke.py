@@ -116,7 +116,29 @@ Phases (any failure exits non-zero; nothing is caught):
      then stage1-train on them (inten_normalize: sdps), K1 and K2/K3-f32
      launched; evaluation --lpips_weights (a random npz) on phase 13's
      stage2-eval output, and one pair's LPIPS on the card against the CPU;
- 15. one JSON line of kernels, then the last line
+ 15. data-parallel runs (psnerf_torch.parallel): two gloo ranks sharing
+     cuda:0 (NCCL refuses two ranks on one device), spawned by
+     parallel.launch after the build, first hold all_reduce, all_gather
+     and broadcast on CUDA tensors; then each path with the counts set
+     to 0 just before and read just after on each rank, against the same
+     path in this one process: Stage1Runner(mesh=...).train at the f32
+     field (5 steps) and the bf16 field (2), the first step's loss and
+     all-reduced gradients at MESH_STEP_BARS, the params within Adam's
+     2 lr a step and at least MESH_PARAM_SHARE of their elements inside
+     rtol 2e-4, atol 2e-6 (tests/test_parallel.py:342);
+     Stage1Runner(mesh=...).shape_extract, the faithful export (512 march
+     steps, the 128-step visibility toward each view's 96 lights over the
+     1 x 2 rays x lights layout) of the 3 views on one trained field, its
+     npys against one process's: points and normals at 1e-5, the
+     visibility at phase 10's route bar; Stage2Runner(mesh=...).train (5
+     steps) at the same bars as stage 1; on one
+     lifted checkpoint, evaluate's npys and render_view's rgb route at
+     1e-5 abs, and over a 1 x 2 mesh one envmap chunk's light sum at the
+     light-sum bars and render_envmap; then stage1-train --mesh-devices 1
+     through the command line (one NCCL rank). Each rank's counts of K1,
+     K2/K3 (both forms), K4 and K5 must be > 0 on the paths that take
+     them; every wall is logged beside the card's name and power limit;
+ 16. one JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It needs no network and writes only inside the checkout (a work directory
@@ -211,6 +233,25 @@ SDPS_TIE = 1e-3         # a top-two logit gap under this share of that max
 SDPS_NORMAL_ABS = 1e-4  # NENet normals inside the mask
 S1_SDPS_STEPS = 5       # stage1-train on the port's own SDPS output
 LPIPS_REL = 1e-5
+# phase 15: data-parallel runs, two gloo ranks sharing cuda:0
+MESH_RANKS = 2
+MESH_S1_STEPS = {"float32": 5, "bfloat16": 2}
+MESH_S2_STEPS = 5
+MESH_PARAM_BARS = dict(rtol=2e-4, atol=2e-6)   # tests/test_parallel.py:342
+# the least share of a run's param elements inside MESH_PARAM_BARS: the
+# card measured 99.84% at the bf16 field (its lowest), 100% and 99.999%
+MESH_PARAM_SHARE = 0.995
+# the first step's loss (relative) and gradients (of each leaf's max):
+# tests/test_parallel.py's step bars and the stage-1 step's gradient bar
+# of tests/test_torch_stage1_train.py; the bf16 field's at GRAD_REL (its
+# plain autograd rounds each rank's partial weight gradients to bf16)
+MESH_STEP_BARS = {"stage1_float32": (1e-4, 1e-4),
+                  "stage1_bfloat16": (1e-4, GRAD_REL),
+                  "stage2": (1e-5, 1e-4)}
+MESH_EVAL_ABS = 1e-5     # frames (tests/test_parallel.py:49-52)
+MESH_MARCH_STEPS, MESH_VIS_STEPS = 512, 128     # the faithful export's
+MESH_CLI_STEPS = 3
+MESH_TIMEOUT_S = 400
 
 
 def log(msg):
@@ -3236,6 +3277,433 @@ def phase_preprocess(scene, cli_rec):
     return rec
 
 
+# ------------------------------------------- phase 15: data-parallel runs
+
+def mesh_counts():
+    """The launch counts of K1, both forms of K2/K3, K4 and K5."""
+    from psnerf_torch.ops import fused_radiance as fr
+
+    c = kernel_counts()
+    c["fused_radiance_fwd_bf16"] = fr.radiance_forward.launches["bfloat16"]
+    c["fused_radiance_bwd_bf16"] = fr.radiance_backward.launches["bfloat16"]
+    return c
+
+
+def mesh_timed(out, name, fn):
+    """fn() with every kernel count set to 0 just before and read just
+    after, and its wall; both land in out under name."""
+    kernel_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    out["wall_s"][name] = time.perf_counter() - t0
+    out["launches"][name] = mesh_counts()
+    return res
+
+
+def export_errors(got_dir, want_dir):
+    """shape_extract's npys in got_dir against want_dir's, every view:
+    the mask agreement, points and normals on the common mask, and the
+    visibility [L, H, W] on it."""
+    err = {"mask_agreement": 1.0, "points_max_abs_err": 0.0,
+           "normal_max_abs_err": 0.0, "vis_max_abs_err": 0.0,
+           "vis_mean_abs_err": 0.0, "surface_pixels": 0, "lights": 0}
+    names = sorted(os.listdir(os.path.join(want_dir, "mask")))
+    check(names == sorted(os.listdir(os.path.join(got_dir, "mask")))
+          and len(names) > 0, f"export views {names}")
+    for name in names:
+        a, b = ({sub: np.load(os.path.join(d, sub, name))
+                 for sub in ("points", "normal", "mask", "visibility")}
+                for d in (got_dir, want_dir))
+        common = a["mask"] & b["mask"]
+        diff = lambda k: np.abs(a[k] - b[k])
+        err["mask_agreement"] = min(err["mask_agreement"],
+                                    float((a["mask"] == b["mask"]).mean()))
+        for k in ("points", "normal"):
+            err[f"{k}_max_abs_err"] = max(err[f"{k}_max_abs_err"],
+                                          float(diff(k)[common].max()))
+        vis = diff("visibility")[:, common]
+        err["vis_max_abs_err"] = max(err["vis_max_abs_err"],
+                                     float(vis.max()))
+        err["vis_mean_abs_err"] = max(err["vis_mean_abs_err"],
+                                      float(vis.mean()))
+        err["surface_pixels"] += int(b["mask"].sum())
+        err["lights"] = max(err["lights"], int(b["visibility"].shape[0]))
+    err["views"] = len(names)
+    return err
+
+
+def mesh_rank(mesh, scene, single):
+    """One of MESH_RANKS gloo ranks sharing cuda:0 (phase 15), each path
+    with the counts set to 0 just before and read just after:
+    (a) Stage1Runner(mesh=...).train at the f32 and the bf16 field;
+    (c) Stage1Runner(mesh=...).shape_extract, the faithful export, of the
+    one-process runner's trained f32 field (resumed from its checkpoint)
+    into WORK/mesh_export; (b) Stage2Runner(mesh=...)
+    .train, then on the one-process runner's lifted checkpoint evaluate
+    (K4 per rank), render_view's rgb route (K5 per rank) and, over a
+    1 x MESH_RANKS rays x lights mesh, one envmap chunk's light sum and
+    render_envmap (K5's light sum per rank, summed over the light axis).
+    Rank 0 holds what it gathered against the one-process arrays that
+    `single` names. Returns the params, the comparisons, the counts and
+    the walls."""
+    import torch.distributed as dist
+
+    from psnerf_torch.parallel import make_mesh_2d
+    from psnerf_torch.parallel.mesh import all_gather_cat, all_sum
+    from psnerf_torch.runners.stage1 import Stage1Runner
+    from psnerf_torch.runners.stage2 import Stage2Runner
+    from psnerf_torch.train.stage1 import field_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank, "device": str(mesh.device),
+           "backend": mesh.backend, "launches": {}, "wall_s": {}}
+    # the three collectives the port uses, on CUDA tensors
+    x = torch.full((4,), float(mesh.rank + 1), device=DEV)
+    y = x.clone()
+    dist.broadcast(y, src=1)
+    out["collectives"] = {
+        "all_reduce": all_sum(x, dist.group.WORLD).tolist(),
+        "all_gather": all_gather_cat(x, dist.group.WORLD).tolist(),
+        "broadcast": y.tolist()}
+    for compute, steps in MESH_S1_STEPS.items():
+        r = Stage1Runner(stage1_config(scene, compute),
+                         os.path.join(WORK, f"mesh_s1_{compute}"),
+                         resume=False, mesh=mesh)
+        first = mesh_timed(out, f"stage1_{compute}",
+                           lambda: (first_step_stage1(r),
+                                    r.train(steps, log_every=10 ** 9))[0])
+        out[f"stage1_{compute}"] = {"first": first, "params": {
+            k: v.detach().cpu().numpy()
+            for k, v in field_params(r.field).items()}}
+    r = Stage1Runner(stage1_config(scene, "float32"), single["stage1_wd"],
+                     resume=True, mesh=mesh)
+    mesh_timed(out, "shape_extract", lambda: r.shape_extract(
+        os.path.join(WORK, "mesh_export"), tile=TILE,
+        n_steps=MESH_MARCH_STEPS, vis_steps=MESH_VIS_STEPS))
+    del r
+    cfg2 = stage2_train_config(scene)
+    r2 = Stage2Runner(cfg2, os.path.join(WORK, "mesh_s2"), resume=False,
+                      mesh=mesh)
+    first = mesh_timed(out, "stage2_train",
+                       lambda: (first_step_stage2(r2),
+                                r2.train(MESH_S2_STEPS,
+                                         log_every=10 ** 9))[0])
+    out["stage2"] = {"first": first, "params": {
+        k: v.cpu().numpy() for k, v in stage2_leaves(r2).items()}}
+    del r2
+    ev = Stage2Runner(cfg2, single["stage2_wd"], resume=True, mesh=mesh)
+    mesh_timed(out, "evaluate",
+               lambda: ev.evaluate(os.path.join(WORK, "mesh_eval"),
+                                   split="test", tile=TILE))
+    test = ev._eval_data("test")
+    dirs, ints = ev.trained_lights_for_view(test, 0)
+    rgb = mesh_timed(out, "render_view_rgb",
+                     lambda: ev.render_view(test, 0, dirs, ints, TILE,
+                                            outputs=("rgb",))["rgb"])
+    del ev
+    ev2 = Stage2Runner(cfg2, single["stage2_wd"], resume=True,
+                       mesh=make_mesh_2d(1, MESH_RANKS, mesh.device))
+    env_dirs, texels = single["env_chunk"]
+    rgb_sum = mesh_timed(out, "envmap_chunk_2d", lambda: ev2.render_view(
+        test, 0, env_dirs, texels, TILE, outputs=("rgb_sum",))["rgb_sum"])
+    mesh_timed(out, "render_envmap_2d", lambda: ev2.render_envmap(
+        os.path.join(WORK, "mesh_relight"), single["env"], split="test",
+        light_h=LIGHT_H, tile=TILE))
+    if mesh.is_main:
+        mask = test["surface_mask"][0].cpu().numpy().reshape(HW)
+        ref = np.load(single["rgb"])
+        out["render_view_rgb_max_abs_err"] = float(np.abs(rgb - ref).max())
+        out["envmap_chunk_2d"] = rgb_sum[mask]
+    return out
+
+
+def phase_data_parallel(scene, card):
+    """Data-parallel runs through psnerf_torch.parallel.launch, after the
+    kernels were built: MESH_RANKS gloo ranks sharing cuda:0 (NCCL refuses
+    two ranks on one device) run mesh_rank, each path held against the
+    same path in this one process; then stage1-train --mesh-devices 1
+    through the command line (one NCCL rank). Returns the per-rank counts
+    and the phase's numbers."""
+    from psnerf_torch.cli.main import main as cli
+    from psnerf_torch.core.spherical import gen_light_xyz
+    from psnerf_torch.parallel.launch import launch
+    from psnerf_torch.runners.stage1 import Stage1Runner
+    from psnerf_torch.runners.stage2 import (ENV_CHUNK, Stage2Runner,
+                                             load_envmap)
+    from psnerf_torch.train.checkpoints import load_checkpoint
+    from psnerf_torch.train.stage1 import field_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()       # the earlier phases' blocks: 3 processes
+    walls, single = {}, {}
+    # ---- the one-process runs the ranks are held against
+    params1 = {}
+    for compute, steps in MESH_S1_STEPS.items():
+        wd = os.path.join(WORK, f"single_s1_{compute}")
+        r = Stage1Runner(stage1_config(scene, compute), wd, resume=False,
+                         device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = first_step_stage1(r)
+        r.train(steps, log_every=10 ** 9)
+        torch.cuda.synchronize()
+        walls[f"stage1_{compute}"] = time.perf_counter() - t0
+        params1[compute] = {"first": first, "lr": r.tcfg.learning_rate,
+                            "steps": steps, "params": {
+                                k: v.detach().cpu().numpy()
+                                for k, v in field_params(r.field).items()}}
+        if compute == "float32":
+            single["stage1_wd"] = wd
+            t0 = time.perf_counter()
+            r.shape_extract(os.path.join(WORK, "single_export"), tile=TILE,
+                            n_steps=MESH_MARCH_STEPS,
+                            vis_steps=MESH_VIS_STEPS)
+            torch.cuda.synchronize()
+            walls["shape_extract"] = time.perf_counter() - t0
+        del r
+    cfg2 = stage2_train_config(scene)
+    wd2 = os.path.join(WORK, "single_s2")
+    r2 = Stage2Runner(cfg2, wd2, resume=False, device=DEV)
+    t0 = time.perf_counter()
+    first = first_step_stage2(r2)
+    r2.train(MESH_S2_STEPS, log_every=10 ** 9)
+    torch.cuda.synchronize()
+    walls["stage2_train"] = time.perf_counter() - t0
+    tc = r2.tcfg
+    params2 = {"first": first, "steps": MESH_S2_STEPS, "lr": {
+        k: {"light_dirs": tc.light_learning_rate,
+            "light_ints": tc.light_inten_lr}.get(k, tc.sg_learning_rate)
+        for k in stage2_leaves(r2)}, "params": {
+        k: v.cpu().numpy() for k, v in stage2_leaves(r2).items()}}
+    test = r2._eval_data("test")
+    hdr = os.path.join(WORK, "mesh_sky.hdr")
+    write_hdr(hdr, sky_envmap())
+    env = load_envmap(hdr, LIGHT_H)
+    lxyz, _ = gen_light_xyz(LIGHT_H, 2 * LIGHT_H, envmap_radius=1.0)
+    env_dirs = lxyz.reshape(-1, 3)
+    env_dirs = env_dirs / np.linalg.norm(env_dirs, axis=-1, keepdims=True)
+    with torch.no_grad():
+        lift = lift_visibility(r2, test, env_dirs)
+    r2.save(r2.it)                       # the lifted params for the ranks
+    single.update(stage2_wd=wd2, env=env, env_chunk=(
+        env_dirs[:ENV_CHUNK], env.reshape(-1, 3)[:ENV_CHUNK]))
+    t0 = time.perf_counter()
+    r2.evaluate(os.path.join(WORK, "single_eval"), split="test", tile=TILE)
+    walls["evaluate"] = time.perf_counter() - t0
+    dirs, ints = r2.trained_lights_for_view(test, 0)
+    t0 = time.perf_counter()
+    rgb = r2.render_view(test, 0, dirs, ints, TILE, outputs=("rgb",))["rgb"]
+    walls["render_view_rgb"] = time.perf_counter() - t0
+    single["rgb"] = os.path.join(WORK, "single_rgb.npy")
+    np.save(single["rgb"], rgb)
+    del rgb
+    t0 = time.perf_counter()
+    sum1 = r2.render_view(test, 0, *single["env_chunk"], TILE,
+                          outputs=("rgb_sum",))["rgb_sum"]
+    walls["envmap_chunk_2d"] = time.perf_counter() - t0
+    del r2
+    mask = test["surface_mask"][0].cpu().numpy().reshape(HW)
+    sum1 = sum1[mask]
+    n_views = len(test["views"])
+
+    # ---- MESH_RANKS gloo ranks on cuda:0
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rank, MESH_RANKS, scene, single, device="cuda:0",
+                   timeout=MESH_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    want = [float(r + 1) for r in range(MESH_RANKS)]
+    for rk in ranks:
+        c = rk["collectives"]
+        check(rk["backend"] == "gloo" and rk["device"] == "cuda:0",
+              f"rank {rk['rank']} on {rk['device']} over {rk['backend']}")
+        check(c["all_reduce"] == [sum(want)] * 4
+              and c["all_gather"] == [v for v in want for _ in range(4)]
+              and c["broadcast"] == [2.0] * 4,
+              f"gloo collectives on CUDA tensors {c}")
+    errs = {}
+    for compute in MESH_S1_STEPS:
+        name = f"stage1_{compute}"
+        errs[name] = train_errors([rk[name] for rk in ranks],
+                                  params1[compute], MESH_STEP_BARS[name])
+    errs["stage2_train"] = train_errors([rk["stage2"] for rk in ranks],
+                                        params2, MESH_STEP_BARS["stage2"])
+    rk0 = ranks[0]
+    # (c) the export rank 0 wrote: points and normals on the common mask,
+    # the visibility at phase 10's K1-route bar
+    ee = errs["shape_extract"] = export_errors(
+        os.path.join(WORK, "mesh_export"), os.path.join(WORK, "single_export"))
+    check(ee["mask_agreement"] >= 0.995 and ee["points_max_abs_err"] <= 1e-5
+          and ee["normal_max_abs_err"] <= 1e-5
+          and ee["vis_mean_abs_err"] <= 1e-2, f"sharded shape_extract {ee}")
+    # (b) evaluate's npys, the rgb route, the 2-D envmap chunk
+    ev = {}
+    name = f"view_{int(test['views'][0]) + 1:02d}"
+    for sub in ("rgb", "albedo", "rough", "visibility", "mask"):
+        a = np.load(os.path.join(WORK, "single_eval", sub, "npy",
+                                 name + ".npy"))
+        b = np.load(os.path.join(WORK, "mesh_eval", sub, "npy",
+                                 name + ".npy"))
+        check(a.shape == b.shape, f"evaluate {sub} shapes")
+        ev[sub] = float(np.abs(a.astype(np.float64) - b).max())
+    errs["evaluate"] = ev
+    errs["render_view_rgb"] = rk0["render_view_rgb_max_abs_err"]
+    check(max(ev.values()) <= MESH_EVAL_ABS
+          and errs["render_view_rgb"] <= MESH_EVAL_ABS,
+          f"sharded evaluate and rgb route {ev} {errs['render_view_rgb']}")
+    texels = single["env_chunk"][1]
+    scale = texels.sum(0)
+    err = np.abs(rk0["envmap_chunk_2d"] - sum1)
+    errs["envmap_chunk_2d"] = {"max_abs_err": err.max(0).tolist(),
+                               "mean_abs_err": err.mean(0).tolist(),
+                               "bar_max": (RGB_MAX * scale).tolist(),
+                               "bar_mean": (RGB_MEAN * scale).tolist()}
+    check((err.max(0) < RGB_MAX * scale).all()
+          and (err.mean(0) < RGB_MEAN * scale).all()
+          and (np.ptp(sum1, 0) > SUM_SPAN * RGB_MAX * scale).all(),
+          f"2-D envmap chunk light sum {errs['envmap_chunk_2d']}")
+    # every path launched its kernels on every rank
+    need = {"stage1_float32": ("fused_occ_logit", "fused_radiance_fwd_f32",
+                               "fused_radiance_bwd_f32"),
+            "stage1_bfloat16": ("fused_occ_logit", "fused_radiance_fwd_bf16",
+                                "fused_radiance_bwd_bf16"),
+            "shape_extract": ("fused_occ_logit",),
+            "evaluate": ("fused_visibility",),
+            "render_view_rgb": ("fused_vis_shade",),
+            "envmap_chunk_2d": ("fused_vis_shade",),
+            "render_envmap_2d": ("fused_vis_shade",)}
+    for rk in ranks:
+        for path, kernels in need.items():
+            got = rk["launches"][path]
+            check(all(got[k] > 0 for k in kernels),
+                  f"rank {rk['rank']} {path} launches {got}")
+        env_launches = rk["launches"]["render_envmap_2d"]["fused_vis_shade"]
+        n_chunks = -(-2 * LIGHT_H * LIGHT_H // ENV_CHUNK)
+        check(env_launches == n_chunks * n_views,
+              f"rank {rk['rank']} envmap launches {env_launches}")
+
+    # ---- (d) the command line: one NCCL rank
+    yaml = stage1_yaml(os.path.join(WORK, "mesh_cli.yaml"), scene,
+                       os.path.join(WORK, "mesh_cli"), print_every=1)
+    t0 = time.perf_counter()
+    cli(["stage1-train", yaml, "--max-iters", str(MESH_CLI_STEPS),
+         "--mesh-devices", "1", "--no-resume"])
+    cli_s = time.perf_counter() - t0
+    flat, scalars = load_checkpoint(os.path.join(WORK, "mesh_cli",
+                                                 "checkpoints", "model.npz"))
+    losses = [r["loss"] for r in read_losses(os.path.join(WORK, "mesh_cli"))]
+    check(scalars["it"] == MESH_CLI_STEPS and len(losses) == MESH_CLI_STEPS
+          and np.isfinite(losses).all(),
+          f"stage1-train --mesh-devices 1: it {scalars}, losses {losses}")
+    e2e = {"ranks": MESH_RANKS, "backend": "gloo", "device": "cuda:0",
+           "errors": errs, "visibility_lift": lift,
+           "launches": [rk["launches"] for rk in ranks],
+           "walls_s": {"one_process": walls,
+                       "ranks": [rk["wall_s"] for rk in ranks],
+                       "launch": launch_s, "cli_mesh_devices_1": cli_s,
+                       "phase": time.perf_counter() - t_phase},
+           "cli": {"mesh_devices": 1, "backend": "nccl", "steps":
+                   MESH_CLI_STEPS, "losses": losses},
+           "card": card["nvidia_smi"]}
+    log(json.dumps({"data_parallel": e2e}))
+    total = lambda k: [sum(p[k] for p in rk["launches"].values())
+                       for rk in ranks]
+    return {k: total(k) for k in ranks[0]["launches"]["evaluate"]}, e2e
+
+
+def first_step_stage1(r):
+    """The runner's next training step as train runs it (on the rank's
+    block under its mesh): the loss terms and every leaf's gradient,
+    summed over the ranks."""
+    from psnerf_torch.parallel import shard_noise, shard_stage1_batch
+    from psnerf_torch.train.stage1 import field_params
+
+    use_outside = r.it > r.tcfg.outside_after
+    batch, noise = r.sample(use_outside)
+    if r.mesh is not None:
+        batch = shard_stage1_batch(batch, r.mesh)
+        noise = shard_noise(noise, r.mesh)
+    terms = r.step_fn(r.field, r.opt_state, batch, r.it, noise,
+                      use_outside=use_outside)
+    r.it += 1
+    return {"terms": {k: float(v) for k, v in terms.items()},
+            "grads": {k: p.grad.cpu().numpy()
+                      for k, p in field_params(r.field).items()}}
+
+
+def first_step_stage2(r):
+    """Stage 2's next training step as train runs it: its loss terms and
+    gradients (summed over the ranks under a mesh), then the update."""
+    from psnerf_torch.parallel import shard_noise, shard_stage2_batch
+
+    batch, noise = r.sample()
+    if r.mesh is not None:
+        batch = shard_stage2_batch(batch, r.mesh)
+        noise = shard_noise(noise, r.mesh)
+    terms, grads = r.step_fn.loss_and_grads(r.params, batch, r.it, noise)
+    r.step_fn(r.params, r.opt_state, batch, r.it, noise)
+    r.it += 1
+    return {"terms": {k: float(v) for k, v in terms.items()},
+            "grads": {k: g.cpu().numpy() for k, g in grads.items()}}
+
+
+def train_errors(per_rank, want, bars):
+    """Every rank's training run against one process's. The first step's
+    loss terms (relative) and every leaf's gradient (of its max) at `bars`:
+    the ranks' sums compose into the one-process step. The params after
+    the run within Adam's flip bound, 2 lr a step (the rule of
+    tests/test_torch_gpu.py's card-against-CPU step): Adam moves a param
+    by about lr whatever its gradient's size, so a near-zero gradient
+    whose rounding differs between the two summation orders moves it by
+    up to 2 lr the other way; and at least MESH_PARAM_SHARE of each run's
+    elements inside MESH_PARAM_BARS (tests/test_parallel.py's). The ranks
+    agree bit for bit."""
+    loss_rel, grad_rel = bars
+    rep = {"loss_rel_err": 0.0, "grad_err_over_scale": 0.0,
+           "param_max_abs_err": 0.0, "param_err_over_lr_steps": 0.0,
+           "share_within_param_bars": 1.0}
+    for got in per_rank:
+        g1, w1 = got["first"], want["first"]
+        check(g1["terms"].keys() == w1["terms"].keys(), "terms")
+        for k, v in w1["terms"].items():
+            if k in ("lr", "sg_lr"):
+                continue
+            e = abs(g1["terms"][k] - v) / (abs(v) + 1e-12)
+            rep["loss_rel_err"] = max(rep["loss_rel_err"], e)
+            check(e <= loss_rel, f"first step {k}: {e} relative")
+        for k, v in w1["grads"].items():
+            e = float(np.abs(g1["grads"][k] - v).max()
+                      / (np.abs(v).max() + 1e-12))
+            rep["grad_err_over_scale"] = max(rep["grad_err_over_scale"], e)
+            check(e <= grad_rel, f"first step grad {k}: {e} of its max")
+        n_in = n_all = 0
+        for k, v in want["params"].items():
+            lr = (want["lr"][k] if isinstance(want["lr"], dict)
+                  else want["lr"])
+            d = np.abs(got["params"][k] - v)
+            bound = 2 * lr * want["steps"] * (1 + 1e-3)
+            rep["param_max_abs_err"] = max(rep["param_max_abs_err"],
+                                           float(d.max()))
+            rep["param_err_over_lr_steps"] = max(
+                rep["param_err_over_lr_steps"],
+                float(d.max() / (lr * want["steps"])))
+            check(d.max() <= bound, f"param {k}: {d.max()} > {bound}")
+            n_in += int(np.isclose(got["params"][k], v,
+                                   **MESH_PARAM_BARS).sum())
+            n_all += d.size
+        rep["share_within_param_bars"] = min(rep["share_within_param_bars"],
+                                             n_in / n_all)
+        check(n_in / n_all >= MESH_PARAM_SHARE,
+              f"{n_in} of {n_all} param elements inside {MESH_PARAM_BARS}")
+    rep["ranks_bitwise_equal"] = all(
+        np.array_equal(per_rank[0]["params"][k], r["params"][k])
+        for r in per_rank[1:] for k in want["params"])
+    check(rep["ranks_bitwise_equal"], "ranks' params differ")
+    return rep
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3274,6 +3742,7 @@ def main():
         del trained
         e2e_cli = phase_cli(scene)
         e2e_pre = phase_preprocess(scene, e2e_cli)
+        dp, e2e_dp = phase_data_parallel(scene, card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -3303,7 +3772,8 @@ def main():
                                      "launches_relight", "at_envmap_chunk",
                                      "launches_edit", "launches_cli",
                                      "at_guide_grid",
-                                     "launches_export_protocols")
+                                     "launches_export_protocols",
+                                     "launches_data_parallel")
                    if x in k}}
 
     log(json.dumps({"card": card["nvidia_smi"], "main_path": e2e,
@@ -3314,6 +3784,7 @@ def main():
                     "relight_edit": e2e_re, "mesh": e2e_mesh,
                     "export_protocols": e2e_protocols["protocols"],
                     "cli": e2e_cli, "preprocess": e2e_pre,
+                    "data_parallel": e2e_dp,
                     "f32_workspace": stages["workspace"],
                     "bf16_workspace": bstages["workspace"], "ptxas": regs}))
     log(card["nvidia_smi"])
@@ -3326,13 +3797,16 @@ def main():
               dict(k1, launches_mesh=k1_mesh, at_mise_batch=k1_mise,
                    launches_cli=cli_launches("fused_occ_logit"),
                    at_guide_grid=e2e_protocols["at_guide_grid"],
-                   launches_export_protocols=e2e_protocols["launches"]),
+                   launches_export_protocols=e2e_protocols["launches"],
+                   launches_data_parallel=dp["fused_occ_logit"]),
               launches1["fused_occ_logit"]),
         entry("fused_radiance_and_alpha (forward)", "fused_radiance.cu",
-              "psnerf_tpu/ops/fused_radiance.py:390", k2,
+              "psnerf_tpu/ops/fused_radiance.py:390",
+              dict(k2, launches_data_parallel=dp["fused_radiance_fwd_bf16"]),
               launches_bf["fused_radiance_fwd"]["bfloat16"]),
         entry("fused_radiance_and_alpha (backward)", "fused_radiance.cu",
-              "psnerf_tpu/ops/fused_radiance.py:410", k3,
+              "psnerf_tpu/ops/fused_radiance.py:410",
+              dict(k3, launches_data_parallel=dp["fused_radiance_bwd_bf16"]),
               launches_bf["fused_radiance_bwd"]["bfloat16"]),
         *[entry(f"fused_radiance_and_alpha bf16 {name}",
                 "slot_reduce.cuh" if kern == "reduce"
@@ -3349,12 +3823,14 @@ def main():
         entry("fused_radiance_and_alpha (forward, f32 operands: prologue "
               "and forward kernel)", "fused_radiance_f32.cu",
               "psnerf_tpu/ops/fused_radiance.py:390",
-              dict(k2f, launches_cli=cli_launches("fused_radiance_fwd_f32")),
+              dict(k2f, launches_cli=cli_launches("fused_radiance_fwd_f32"),
+                   launches_data_parallel=dp["fused_radiance_fwd_f32"]),
               launches1["fused_radiance_fwd"]["float32"]),
         entry("fused_radiance_and_alpha (backward, f32 operands: prologue, "
               "sweeps, weight-gradient passes, reduce)",
               "fused_radiance_f32.cu", "psnerf_tpu/ops/fused_radiance.py:410",
-              dict(k3f, launches_cli=cli_launches("fused_radiance_bwd_f32")),
+              dict(k3f, launches_cli=cli_launches("fused_radiance_bwd_f32"),
+                   launches_data_parallel=dp["fused_radiance_bwd_f32"]),
               launches1["fused_radiance_bwd"]["float32"]),
         *[entry(f"fused_radiance_and_alpha f32 {name}",
                 "slot_reduce.cuh" if kern == "reduce"
@@ -3370,14 +3846,16 @@ def main():
         entry("fused_visibility", "fused_vis.cu",
               "psnerf_tpu/ops/fused_vis.py:219",
               dict(k4, launches_edit=launches_re["edit"]["fused_visibility"],
-                   launches_cli=cli_launches("fused_visibility")),
+                   launches_cli=cli_launches("fused_visibility"),
+                   launches_data_parallel=dp["fused_visibility"]),
               launches["fused_visibility"]),
         entry("fused_vis_shade", "fused_vis.cu",
               "psnerf_tpu/ops/fused_vis.py:387",
               dict(k5, launches_stage2_train=launches_s2["fused_vis_shade"],
                    launches_relight=launches_re["relight"]["fused_vis_shade"],
                    at_envmap_chunk=k5_env,
-                   launches_cli=cli_launches("fused_vis_shade")),
+                   launches_cli=cli_launches("fused_vis_shade"),
+                   launches_data_parallel=dp["fused_vis_shade"]),
               launches["fused_vis_shade"])], "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))

@@ -28,9 +28,13 @@ Every command that runs on the card takes `--device` (default cuda: it
 raises where CUDA is missing; `--device cpu` runs on the CPU): the
 runners' commands, sdps-preprocess, and evaluation, whose LPIPS
 (`--lpips_weights`, else LPIPS_WEIGHTS) runs there; evaluation without
-weights touches no device. `--mesh-devices` is parsed as the JAX package
-parses it and raises NotImplementedError: it is ported with ROADMAP queue
-1 item 8 (multi-GPU).
+weights touches no device.
+
+stage1-train and stage2-train take `--mesh-devices N`: data-parallel
+training on N ranks, one process a device (psnerf_torch.parallel.launch
+spawns them: rank r on cuda:r, or N CPU ranks under `--device cpu`; under
+torchrun each process is one rank already and builds its mesh from the
+environment). Rank 0 writes the checkpoints and metrics.
 """
 
 from __future__ import annotations
@@ -41,10 +45,6 @@ import os
 import sys
 
 import numpy as np
-
-NOT_PORTED = {
-    "--mesh-devices": "ROADMAP queue 1 item 8 (multi-GPU)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,8 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-iters", type=int, default=100000)
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--mesh-devices", type=int, default=None,
-                   help="data-parallel training over N devices (not "
-                        "ported yet: raises)")
+                   help="data-parallel training over N devices, one rank "
+                        "each (1-D 'rays' mesh; params replicated, batches "
+                        "sharded, one gradient all-reduce a step)")
 
     p = runner_parser("stage1-eval")
     p.add_argument("config")
@@ -100,8 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--workdir", default=None)
     p.add_argument("--max-iters", type=int, default=200000)
     p.add_argument("--mesh-devices", type=int, default=None,
-                   help="data-parallel training over N devices (not "
-                        "ported yet: raises)")
+                   help="data-parallel training over N devices, one rank "
+                        "each")
 
     p = runner_parser("stage2-eval")
     p.add_argument("--conf", required=True)
@@ -150,18 +151,27 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to psnerf_torch yet: "
-                              f"{NOT_PORTED[what]}")
-
-
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     args = build_parser().parse_args(argv)
-    cmd = args.cmd
-    if getattr(args, "mesh_devices", None):
-        _not_ported("--mesh-devices")
+    n_ranks = getattr(args, "mesh_devices", None)
+    if not n_ranks:
+        return run(args)
+    from psnerf_torch.parallel import launch, make_mesh
 
+    if "WORLD_SIZE" in os.environ:            # a rank under torchrun
+        return run(args, make_mesh(n_ranks, device=args.device))
+    launch(run_rank, n_ranks, args, device=args.device)
+
+
+def run_rank(mesh, args):
+    """One rank of a `--mesh-devices` run (launch's target)."""
+    run(args, mesh)
+
+
+def run(args, mesh=None):
+    """Run the parsed command, on the ranks of `mesh` if one is given."""
+    cmd = args.cmd
     if cmd in ("stage1-train", "stage1-eval", "shape-extract", "extract-mesh"):
         from psnerf_torch.config import stage1_config_from_yaml
         from psnerf_torch.runners.stage1 import Stage1Runner
@@ -170,7 +180,7 @@ def main(argv=None):
         workdir = args.workdir or cfg.out_dir
         runner = Stage1Runner(cfg, workdir,
                               resume=not getattr(args, "no_resume", False),
-                              device=args.device)
+                              device=args.device, mesh=mesh)
         if cmd == "stage1-train":
             runner.train(args.max_iters)
         elif cmd == "stage1-eval":
@@ -199,7 +209,7 @@ def main(argv=None):
         cfg = stage2_config_from_conf(args.conf)
         workdir = args.workdir or os.path.join("out2", cfg.obj_name,
                                                cfg.expname)
-        runner = Stage2Runner(cfg, workdir, device=args.device)
+        runner = Stage2Runner(cfg, workdir, device=args.device, mesh=mesh)
         if cmd == "stage2-train":
             runner.train(args.max_iters, plot_every=cfg.plot_freq)
         else:

@@ -20,6 +20,15 @@ in batches of 2^20 points on the card (100,000 on the plain route), carves
 the value grid by the training views' dilated silhouettes on the device,
 marches it on the host, optionally refines the vertices against the field
 and writes OBJ or PLY.
+
+Under a mesh (psnerf_torch.parallel, one process a device) every rank
+holds the field and the optimizer state whole, draws each step's batch and
+noise whole from its identically seeded generator and trains on its block
+of the rays (one gradient all-reduce a step); the eval render and the
+export's march split each image's pixels over the ranks, the export's
+visibility its surface points and lights over a rays x lights layout. Only
+rank 0 writes files (checkpoints, metrics, images, exports); the mesh
+extraction runs on rank 0 alone, as the JAX package's MISE takes no mesh.
 """
 
 from __future__ import annotations
@@ -47,6 +56,14 @@ from psnerf_torch.mesh.refine import (make_mask_carver, pixel_to_ndc_camera,
 from psnerf_torch.ops.fps import farthest_point_sampling_np
 from psnerf_torch.ops.fused_occ import make_fused_occ_fn
 from psnerf_torch.ops.fused_radiance import supports
+from psnerf_torch.parallel.mesh import (LIGHT_AXIS, RAY_AXIS, barrier,
+                                        gather_rays, rank0_flag, rank0_only,
+                                        rank_tile, ray_block, replicate, say,
+                                        shard_noise, shard_stage1_batch,
+                                        writes)
+from psnerf_torch.parallel.sharded_export import (export_vis_mesh,
+                                                  make_sharded_march_fn,
+                                                  make_sharded_vis_fn)
 from psnerf_torch.render.marching import (light_visibility,
                                           occupancy_guide_grid)
 from psnerf_torch.render.phong import phong_shade
@@ -101,11 +118,22 @@ class Stage1Runner:
     def __init__(self, cfg: Stage1Config, workdir: str, seed: int = 0,
                  resume: bool = True, use_fused_occ: bool | None = None,
                  use_fused_radiance: bool | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         """use_fused_occ / use_fused_radiance: None = on when the device is
         CUDA (the radiance kernels also need `supports(cfg.field)`: their
         layout takes the default OccFieldConfig() in either operand
-        form)."""
+        form). mesh: a 1-D mesh (psnerf_torch.parallel.make_mesh) to train,
+        render and export data-parallel over its ranks, on mesh.device;
+        n_training_points must be divisible by the rank count."""
+        if mesh is not None:
+            if mesh.shape[LIGHT_AXIS] != 1:
+                raise ValueError("Stage1Runner takes a 1-D (rays) mesh")
+            if cfg.train.n_training_points % mesh.size:
+                raise ValueError(
+                    f"n_training_points={cfg.train.n_training_points} not "
+                    f"divisible by the {mesh.size}-rank mesh")
+            device = mesh.device
+        self.mesh = mesh
         self.device = dev = resolve_device(device)
         on_card = dev.type == "cuda"
         if use_fused_occ is None:
@@ -141,7 +169,7 @@ class Stage1Runner:
             device=dev)
         init_opt, self.step_fn = make_stage1_train_step(
             cfg.field, cfg.render, self.tcfg, use_fused_occ=use_fused_occ,
-            use_fused_radiance=use_fused_radiance)
+            use_fused_radiance=use_fused_radiance, mesh=mesh)
         self.opt_state = init_opt(self.field)
         self.it = 0
         self.ckpt_dir = os.path.join(workdir, "checkpoints")
@@ -152,12 +180,18 @@ class Stage1Runner:
                 load_module(self.field, flat, "params/")
                 self.opt_state = load_tree(self.opt_state, flat, "opt/")
                 self.it = int(scalars.get("it", 0))
-                print(f"resumed from {ck} at it={self.it}")
-        self.logger = MetricLogger(os.path.join(workdir, "metrics.jsonl"))
+                say(mesh, f"resumed from {ck} at it={self.it}")
+        self.writes = writes(mesh)
+        if mesh is not None:
+            replicate(self.field, mesh)
+            replicate(self.opt_state, mesh)
+        self.logger = (MetricLogger(os.path.join(workdir, "metrics.jsonl"))
+                       if self.writes else None)
 
     def sample(self, use_outside: bool):
         """One step's view, ray batch and render noise, all drawn on the
-        device from the runner's generator."""
+        device from the runner's generator (whole, on every rank of a
+        mesh)."""
         dev, gen = self.device, self.generator
         view = torch.randint(0, self.n_views, (1,), generator=gen, device=dev)
         n = self.tcfg.n_training_points
@@ -193,17 +227,20 @@ class Stage1Runner:
         t_start = t0 = time.time()
         while self.it < max_iters:
             if vis_every and self.it > 0 and self.it % vis_every == 0:
-                os.makedirs(os.path.join(self.workdir, "vis"), exist_ok=True)
                 self.render_visdata(os.path.join(self.workdir, "vis",
                                                  f"it_{self.it}.png"))
-            if (wall_budget_s is not None
-                    and time.time() - t_start > wall_budget_s):
+            if wall_budget_s is not None and rank0_flag(
+                    time.time() - t_start > wall_budget_s, self.mesh,
+                    self.device):
                 self.save(self.it)
-                print(f"[stage1] wall budget reached at it={self.it}; "
-                      "checkpointed for resume")
+                say(self.mesh, f"[stage1] wall budget reached at "
+                    f"it={self.it}; checkpointed for resume")
                 return self
             use_outside = self.it > self.tcfg.outside_after
             batch, noise = self.sample(use_outside)
+            if self.mesh is not None:
+                batch = shard_stage1_batch(batch, self.mesh)
+                noise = shard_noise(noise, self.mesh)
             terms = self.step_fn(self.field, self.opt_state, batch, self.it,
                                  noise, use_outside=use_outside)
             losses.append(terms["loss"])
@@ -219,12 +256,14 @@ class Stage1Runner:
                         f": {terms}")
                 losses = []
                 dt = time.time() - t0
-                print(f"[stage1 it {self.it}] loss={terms['loss']:.4f} "
-                      f"rgb={terms['fullrgb_loss']:.4f} "
-                      f"grad={terms['grad_loss']:.4f} "
-                      f"normal={terms.get('normal_loss', 0.0):.4f} "
-                      f"lr={terms['lr']:.2e} {log_every / dt:.1f} it/s")
-                self.logger.log(self.it, terms)
+                say(self.mesh, f"[stage1 it {self.it}] "
+                    f"loss={terms['loss']:.4f} "
+                    f"rgb={terms['fullrgb_loss']:.4f} "
+                    f"grad={terms['grad_loss']:.4f} "
+                    f"normal={terms.get('normal_loss', 0.0):.4f} "
+                    f"lr={terms['lr']:.2e} {log_every / dt:.1f} it/s")
+                if self.logger:
+                    self.logger.log(self.it, terms)
                 if on_log:
                     on_log(self.it, terms)
                 t0 = time.time()
@@ -234,13 +273,17 @@ class Stage1Runner:
 
     def save(self, it: int) -> str:
         """Write the params, the optimizer state and `it` to the rolling
-        checkpoint, and to a numbered one every backup_every steps."""
+        checkpoint, and to a numbered one every backup_every steps (rank 0
+        of a mesh writes; every rank returns once it has)."""
         tree = {"params": self.field, "opt": self.opt_state}
         path = os.path.join(self.ckpt_dir, "model.npz")
-        save_checkpoint(path, tree, {"it": it})
-        if it % self.cfg.backup_every == 0:
-            save_checkpoint(os.path.join(self.ckpt_dir, f"model_{it}.npz"),
-                            tree, {"it": it})
+        if self.writes:
+            save_checkpoint(path, tree, {"it": it})
+            if it % self.cfg.backup_every == 0:
+                save_checkpoint(os.path.join(self.ckpt_dir,
+                                             f"model_{it}.npz"),
+                                tree, {"it": it})
+        barrier(self.mesh)
         return path
 
     # ---------------------------------------------------------------- eval
@@ -258,10 +301,13 @@ class Stage1Runner:
         pose = data["poses"][view]
         light = pose[:3, 3] / torch.linalg.norm(pose[:3, 3])
         occ_fn = self._occ_fn()
+        sub = rank_tile(tile, self.mesh)
+        if self.mesh is not None:           # this rank's block of the pixels
+            pix = ray_block(pix, self.mesh, 0, "pixels")
         chunks = []
-        for s in range(0, pix.shape[0], tile):
+        for s in range(0, pix.shape[0], sub):
             out = render_unisurf(
-                self.field, cfg.field, cfg.render, pix[s:s + tile], data["K"],
+                self.field, cfg.field, cfg.render, pix[s:s + sub], data["K"],
                 pose, it=1e5, noise=None, use_outside=True, train=False,
                 occ_fn=occ_fn)
             chunks.append({
@@ -271,47 +317,53 @@ class Stage1Runner:
                                      light)})
         shapes = {"rgb": (h, w, 3), "normal": (h, w, 3), "mask": (h, w),
                   "acc": (h, w), "phong": (h, w, 3)}
-        return {k: torch.cat([c[k] for c in chunks])[:n].reshape(shape)
-                .cpu().numpy() for k, shape in shapes.items()}
+        whole = lambda x: x if self.mesh is None else gather_rays(x,
+                                                                  self.mesh)
+        return {k: whole(torch.cat([c[k] for c in chunks]))[:n]
+                .reshape(shape).cpu().numpy() for k, shape in shapes.items()}
 
     def eval_views(self, out_dir: str, split: str = "test",
                    tile: int = 4096) -> list:
         """Render every view of a split; write rgb, normal, mask, acc and
         phong PNGs, the normal .npy, and metrics.json with each view's PSNR
-        against its image."""
+        against its image (rank 0 of a mesh writes)."""
         cfg = self.cfg
         data = load_stage1_data(
             self.scene, split, cfg.inten_normalize, cfg.train_view,
             cfg.train_light, False, cfg.render.white_background,
             normal_loss=True, mask_valid=False, device=self.device)
         subs = ("rgb", "normal", "mask", "acc", "phong")
-        for sub in subs:
-            os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
         metrics = []
         for v, vi in enumerate(data["views"]):
             r = self.render_view(v, tile, data)
+            gt = data["imgs"][v].cpu().numpy()
+            mse = float(np.mean((r["rgb"] - gt) ** 2))
+            metrics.append({"view": int(vi),
+                            "psnr": -10 * np.log10(mse + 1e-12)})
+            if not self.writes:
+                continue
             name = f"view_{vi + 1:02d}"
             panels = {"rgb": r["rgb"], "normal": r["normal"] / 2 + 0.5,
                       "mask": r["mask"].astype(np.float64), "acc": r["acc"],
                       "phong": r["phong"]}
             for sub in subs:
+                os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
                 imwrite(os.path.join(out_dir, sub, name + ".png"),
                         _to8(panels[sub]))
             np.save(os.path.join(out_dir, "normal", name + ".npy"),
                     r["normal"])
-            gt = data["imgs"][v].cpu().numpy()
-            mse = float(np.mean((r["rgb"] - gt) ** 2))
-            metrics.append({"view": int(vi),
-                            "psnr": -10 * np.log10(mse + 1e-12)})
-        with open(os.path.join(out_dir, "metrics.json"), "w") as f:
-            json.dump(metrics, f, indent=2)
+        if self.writes:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "metrics.json"), "w") as f:
+                json.dump(metrics, f, indent=2)
+        barrier(self.mesh)
         return metrics
 
     def render_visdata(self, out_path: str, views=(0, 1),
                        tile: int = 4096) -> np.ndarray:
         """The visualisation strip of each training view in `views` (gt |
         render | normal | SDPS normal | angular error | mask | acc | phong),
-        stacked vertically, written to out_path."""
+        stacked vertically, written to out_path (by rank 0 of a mesh)."""
         rows = []
         for v in views:
             if v >= self.n_views:
@@ -327,7 +379,11 @@ class Stage1Runner:
                 r, self.data["imgs"][v].cpu().numpy(), gt_normal,
                 self.data["masks"][v].cpu().numpy()))
         strip = np.concatenate(rows, axis=0)
-        imwrite(out_path, strip)
+        if self.writes:
+            os.makedirs(os.path.dirname(os.path.abspath(out_path)),
+                        exist_ok=True)
+            imwrite(out_path, strip)
+        barrier(self.mesh)
         return strip
 
     # --------------------------------------------------------- shape export
@@ -368,8 +424,12 @@ class Stage1Runner:
 
         Visibility runs only on the surface pixels, compacted into tiles
         (of at most the surface's pixel count, as the march's tiles are of
-        at most the image's), and is scattered back on the host. .npy writes run on one
-        background thread. Returns the seconds of each leg summed over the
+        at most the image's), and is scattered back on the host. .npy writes
+        run on one background thread. Under a mesh the ranks split each
+        march tile's pixels, and each visibility tile's points and the
+        lights over export_vis_mesh's rays x lights layout (`tile` must be
+        divisible by the rank count); rank 0 writes. Returns the seconds of
+        each leg summed over the
         views: warmup_s (the first march tile and one light), guide_s (the
         grid), fps_s, march_s, vis_train_s, vis_plus_s (device legs, each
         ending in one read back), host_s (scatter and writes, on the
@@ -392,23 +452,30 @@ class Stage1Runner:
         pix = _row_major_pixels(h, w, dev)
         n = pix.shape[0]
         tile = min(tile, n)            # a small image pads no further
+        rank_tile(tile, self.mesh)
         pix = torch.cat([pix, pix.new_zeros(((-n) % tile, 2))])
         subs = ["points", "normal", "mask"] + (
             ["visibility"] if visibility else []) + (
             ["vis_plus"] if vis_plus else [])
         for sub in subs:
-            os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+            if self.writes:
+                os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
         light_pred = (world_lights(self.scene, cfg, data["views"])
                       if visibility else None)
         occ_fn = self._occ_fn()
         vis_occ = occ_fn or (lambda p: occ_alpha(self.field, p, cfg.field))
-        march = lambda pix_tile, pose: render_shape_extract(
-            self.field, cfg.field, cfg.render, pix_tile, data["K"], pose,
-            n_steps=n_steps, occ_fn=occ_fn)
         chunk = 1 if light_chunk is None else light_chunk
-        vis = lambda pts, dirs, steps, rescale, guide=None: light_visibility(
-            vis_occ, pts, dirs, n_steps=steps, rescale=rescale,
-            light_chunk=chunk, guide=guide, guide_coarse=guide_coarse)
+        if self.mesh is None:
+            march = lambda pix_tile, pose: render_shape_extract(
+                self.field, cfg.field, cfg.render, pix_tile, data["K"], pose,
+                n_steps=n_steps, occ_fn=occ_fn)
+            vis = lambda pts, dirs, steps, rescale, guide=None: \
+                light_visibility(vis_occ, pts, dirs, n_steps=steps,
+                                 rescale=rescale, light_chunk=chunk,
+                                 guide=guide, guide_coarse=guide_coarse)
+        else:
+            march, vis = self._sharded_export_fns(data["K"], n_steps, chunk,
+                                                  guide_coarse)
 
         timings = dict.fromkeys(("warmup_s", "guide_s", "fps_s", "march_s",
                                  "vis_train_s", "vis_plus_s", "host_s"), 0.0)
@@ -445,6 +512,8 @@ class Stage1Runner:
 
         rng = np.random.default_rng(seed)
         vis_plus_json = {}
+        ray_ranks = 1 if self.mesh is None else export_vis_mesh(
+            self.mesh).shape[RAY_AXIS]
         for v, vi in enumerate(data["views"]):
             name = f"view_{vi + 1:02d}"
             # (dirs, timing key, subdir, protocol: steps, rescale, guide)
@@ -486,7 +555,8 @@ class Stage1Runner:
                                  ("mask", mask)):
                     np.save(os.path.join(out_dir, sub, name + ".npy"), arr)
 
-            submit_host(save_geo)
+            if self.writes:
+                submit_host(save_geo)
             if not visibility:
                 continue
             # pass 2: visibility of the surface pixels only, compacted into
@@ -494,7 +564,7 @@ class Stage1Runner:
             # off the surface the visibility is 1
             surf_idx = np.nonzero(mask.reshape(-1))[0]
             n_surf = len(surf_idx)
-            vtile = min(tile, max(n_surf, 1))
+            vtile = -(-min(tile, max(n_surf, 1)) // ray_ranks) * ray_ranks
             vpad = (-n_surf) % vtile if n_surf else vtile
             idx_dev = torch.as_tensor(
                 np.concatenate([surf_idx, np.zeros((vpad,), np.int64)]),
@@ -515,21 +585,56 @@ class Stage1Runner:
                     np.save(os.path.join(out_dir, sub, name + ".npy"),
                             full.reshape(-1, h, w))
 
-                submit_host(scatter_save)
+                if self.writes:
+                    submit_host(scatter_save)
         t0 = time.time()
         for f in pending_writes:
             f.result()                          # raise the writers' errors
         writer.shutdown(wait=True)
         timings["host_s"] = host_s[0]
         timings["host_tail_s"] = time.time() - t0
-        if vis_plus:
+        if vis_plus and self.writes:
             with open(os.path.join(out_dir, "vis_plus", "light_dir.json"),
                       "w") as f:
                 json.dump(vis_plus_json, f, indent=4)
-        print(f"[shape_extract] leg breakdown (s): {timings}")
+        barrier(self.mesh)
+        say(self.mesh, f"[shape_extract] leg breakdown (s): {timings}")
         return timings
 
+    def _sharded_export_fns(self, K, n_steps, light_chunk, guide_coarse):
+        """The export's march(pix_tile, pose) and vis(points, dirs, steps,
+        rescale, guide=None) over the mesh: the march splits each tile's
+        pixels over the ranks, the visibility its points and (padded with
+        copies of light 0, sliced off after) the lights over
+        export_vis_mesh's layout. The fused_occ kernel runs on each rank
+        when the runner takes it."""
+        cfg = self.cfg
+        builder = ((lambda f: make_fused_occ_fn(f, cfg.field))
+                   if self.use_fused_occ else None)
+        sharded_march = make_sharded_march_fn(cfg.field, cfg.render,
+                                              self.mesh, n_steps, builder)
+        march = lambda pix_tile, pose: sharded_march(self.field, pix_tile, K,
+                                                     pose)
+        mesh2 = export_vis_mesh(self.mesh)
+        n_light = mesh2.shape[LIGHT_AXIS]
+        fns = {}
+
+        def vis(pts, dirs, steps, rescale, guide=None):
+            key = (steps, rescale)
+            if key not in fns:
+                fns[key] = make_sharded_vis_fn(
+                    cfg.field, mesh2, builder, vis_steps=steps,
+                    vis_rescale=rescale, light_chunk=light_chunk,
+                    guide_coarse=guide_coarse)
+            L = dirs.shape[0]
+            pad = dirs[:1].expand((-L) % n_light, 3)
+            return fns[key](self.field, pts, torch.cat([dirs, pad]),
+                            guide)[:L]
+
+        return march, vis
+
     # ---------------------------------------------------------- mesh export
+    @rank0_only
     def extract_mesh_to(self, path: str, resolution0: int | None = None,
                         upsampling: int | None = None,
                         mask_carve: bool = False,
@@ -552,6 +657,7 @@ class Stage1Runner:
                                        timings=timings)
         return self._finish_mesh(path, verts, tris, timings)
 
+    @rank0_only
     def extract_mesh_both(self, path_raw: str, path_exterior: str,
                           resolution0: int | None = None,
                           upsampling: int | None = None,

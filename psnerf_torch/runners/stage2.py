@@ -12,6 +12,14 @@ kernel's per-pixel light sums over chunks of 128 envmap texels, each a
 directional light with per-channel intensities; material edits
 (edit_material) render the trained lights with an albedo or SG-basis
 override, through the visibility kernel's precompute and plain shading.
+
+Under a mesh (psnerf_torch.parallel, one process a device) every rank
+holds the parameters, the light tables and the optimizer state whole,
+draws each step's batch and jitter whole from its identically seeded
+generator and trains on its block (its pixels; on a rays x lights mesh
+also its lights), with one gradient all-reduce a step. render_view, and
+with it evaluate, render_envmap and edit_material, splits each frame the
+same way and gathers it on every rank. Only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -33,6 +41,11 @@ from psnerf_torch.device import resolve_device
 from psnerf_torch.eval.frame import render_frame_stage2
 from psnerf_torch.eval.metrics import mae, psnr
 from psnerf_torch.fields.psnet import init_psnet
+from psnerf_torch.parallel.mesh import (LIGHT_AXIS, RAY_AXIS, barrier,
+                                        rank0_flag, rank_tile,
+                                        replicate, say, shard_noise,
+                                        shard_stage2_batch, writes)
+from psnerf_torch.parallel.sharded_render import make_sharded_frame_renderer
 from psnerf_torch.render.shading import draw_psnet_noise
 from psnerf_torch.train.checkpoints import (latest_checkpoint,
                                             load_checkpoint, load_tree,
@@ -48,9 +61,18 @@ ENV_CHUNK = 128      # envmap lights a render (the JAX package's chunking)
 
 class Stage2Runner:
     def __init__(self, cfg: Stage2Config, workdir: str, seed: int = 0,
-                 resume: bool = True, device: str | torch.device = "cuda"):
+                 resume: bool = True, device: str | torch.device = "cuda",
+                 mesh=None):
+        """mesh: a mesh (psnerf_torch.parallel.make_mesh, or make_mesh_2d
+        for rays x lights) to train and render data-parallel over its
+        ranks, on mesh.device: num_pixels must be divisible by its ray
+        ranks, and on a 2-D mesh light_bs by its light ranks."""
         self.cfg = cfg
         self.workdir = workdir
+        self.mesh = mesh
+        self.writes = writes(mesh)
+        if mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         os.makedirs(workdir, exist_ok=True)
         self.scene = load_scene_params(cfg.data_dir)
@@ -65,6 +87,13 @@ class Stage2Runner:
         total = self.data["imgs"].shape[2]
         self.num_pixels = min(total if cfg.train_all_pixels
                               else cfg.num_pixels, total)
+        if mesh is not None:
+            for what, n, axis in (("num_pixels", self.num_pixels, RAY_AXIS),
+                                  ("light_bs", self.light_bs, LIGHT_AXIS)):
+                if n % mesh.shape[axis]:
+                    raise ValueError(f"{what}={n} not divisible by the "
+                                     f"mesh's {mesh.shape[axis]} {axis} "
+                                     "ranks")
 
         # ---- light table init (trainer.py:132-163) ----
         cnt = self.light_count
@@ -119,7 +148,7 @@ class Stage2Runner:
                 int(m) * self.n_views * self.light_bs
                 for m in cfg.sched_milestones_epochs))
         self.tcfg = tcfg
-        init_opt, self.step_fn = make_stage2_train_step(cfg.net, tcfg)
+        init_opt, self.step_fn = make_stage2_train_step(cfg.net, tcfg, mesh)
         self.opt_state = init_opt(self.params)
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed + 1)
@@ -133,15 +162,20 @@ class Stage2Runner:
                 self.params = load_tree(self.params, flat, "params/")
                 self.opt_state = load_tree(self.opt_state, flat, "opt/")
                 self.it = int(scalars.get("it", 0))
-                print(f"resumed from {ck} at it={self.it}")
-        self.logger = MetricLogger(os.path.join(workdir, "metrics.jsonl"))
+                say(mesh, f"resumed from {ck} at it={self.it}")
+        if mesh is not None:
+            replicate(self.params, mesh)
+            replicate(self.opt_state, mesh)
+        self.logger = (MetricLogger(os.path.join(workdir, "metrics.jsonl"))
+                       if self.writes else None)
 
     # ------------------------------------------------------------- training
     def sample(self):
         """One step's batch and jitter draws, from the runner's generator on
         its device: a view, then the sampler's lights, pixels and vis_plus
         rows. Without vis_plus the visibility net is supervised on the
-        initial directions of the step's lights."""
+        initial directions of the step's lights. Whole, on every rank of a
+        mesh."""
         cfg, dev, gen = self.cfg, self.device, self.generator
         view = torch.randint(0, self.n_views, (1,), generator=gen, device=dev)
         use_vp = cfg.vis_plus and "vis_plus" in self.data
@@ -169,17 +203,22 @@ class Stage2Runner:
         ckpt_every = ckpt_every or self.cfg.ckpt_freq
         losses = []
         t_start = t0 = time.time()
+        mesh = self.mesh
         while self.it < max_iters:
-            if (wall_budget_s is not None
-                    and time.time() - t_start > wall_budget_s):
+            if wall_budget_s is not None and rank0_flag(
+                    time.time() - t_start > wall_budget_s, mesh,
+                    self.device):
                 self.save(self.it)
-                print(f"[stage2] wall budget reached at it={self.it}; "
-                      "checkpointed for resume")
+                say(mesh, f"[stage2] wall budget reached at it={self.it}; "
+                    "checkpointed for resume")
                 return self
             if plot_every and self.it > 0 and self.it % plot_every == 0:
                 self.plot_to_disk(os.path.join(self.workdir, "plots",
                                                f"it_{self.it}.png"))
             batch, noise = self.sample()
+            if mesh is not None:
+                batch = shard_stage2_batch(batch, mesh)
+                noise = shard_noise(noise, mesh)
             terms = self.step_fn(self.params, self.opt_state, batch, self.it,
                                  noise)
             losses.append(terms["loss"])
@@ -197,14 +236,15 @@ class Stage2Runner:
                     self.params["light_dirs"], self._gt_dirs_flat))
                 mse2psnr = lambda x: -10.0 * np.log(x + 1e-8) / np.log(10.0)
                 dt = time.time() - t0
-                print(f"[stage2 it {self.it}] loss={terms['loss']:.5f} "
-                      f"rgb={terms['sg_rgb_loss']:.5f} "
-                      f"psnr={mse2psnr(terms['sg_rgb_loss']):.2f} "
-                      f"vis={terms.get('vis_loss', 0.0):.4f} "
-                      f"normal={terms.get('normal_loss', 0.0):.4f} "
-                      f"ld_err={lderr:.2f}deg {log_every / dt:.1f} it/s")
+                say(mesh, f"[stage2 it {self.it}] loss={terms['loss']:.5f} "
+                    f"rgb={terms['sg_rgb_loss']:.5f} "
+                    f"psnr={mse2psnr(terms['sg_rgb_loss']):.2f} "
+                    f"vis={terms.get('vis_loss', 0.0):.4f} "
+                    f"normal={terms.get('normal_loss', 0.0):.4f} "
+                    f"ld_err={lderr:.2f}deg {log_every / dt:.1f} it/s")
                 terms["light_direction_error"] = lderr
-                self.logger.log(self.it, terms)
+                if self.logger:
+                    self.logger.log(self.it, terms)
                 if on_log:
                     on_log(self.it, terms)
                 t0 = time.time()
@@ -215,21 +255,25 @@ class Stage2Runner:
     def save(self, it: int, backup_every_n_ckpts: int = 10) -> str:
         """Write the params, the optimizer state and `it` to the rolling
         checkpoint, and to a numbered one every ckpt_freq x
-        backup_every_n_ckpts steps."""
+        backup_every_n_ckpts steps (rank 0 of a mesh writes; every rank
+        returns once it has)."""
         tree = {"params": self.params, "opt": self.opt_state}
         path = os.path.join(self.ckpt_dir, "model.npz")
-        save_checkpoint(path, tree, {"it": it})
-        if it > 0 and it % (self.cfg.ckpt_freq * backup_every_n_ckpts) == 0:
-            save_checkpoint(os.path.join(self.ckpt_dir, f"model_{it}.npz"),
-                            tree, {"it": it})
+        if self.writes:
+            save_checkpoint(path, tree, {"it": it})
+            if it > 0 and it % (self.cfg.ckpt_freq
+                                * backup_every_n_ckpts) == 0:
+                save_checkpoint(os.path.join(self.ckpt_dir,
+                                             f"model_{it}.npz"),
+                                tree, {"it": it})
+        barrier(self.mesh)
         return path
 
     def plot_to_disk(self, out_path: str, train_view: int = 0,
                      light: int = 0, tile: int = 4096) -> dict:
         """Train-view and test-view comparison grid (prediction | ground
         truth | normal, one row each) under one light, with each row's PSNR
-        and normal MAE logged and returned."""
-        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        and normal MAE logged and returned (rank 0 of a mesh writes)."""
         rows, stats = [], {}
         for split, view in (("train", train_view), ("test", 0)):
             try:
@@ -254,9 +298,13 @@ class Stage2Runner:
             if np.abs(gt_n).sum() > 0:
                 stats[f"{split}_normal_mae"] = round(
                     mae(normal, gt_n, m)[0], 2)
-        imwrite(out_path, _to8(np.concatenate(rows, axis=0)))
-        self.logger.log(self.it, stats)
-        print(f"[stage2 plot] {out_path} {stats}")
+        if self.writes:
+            os.makedirs(os.path.dirname(os.path.abspath(out_path)),
+                        exist_ok=True)
+            imwrite(out_path, _to8(np.concatenate(rows, axis=0)))
+            self.logger.log(self.it, stats)
+        barrier(self.mesh)
+        say(self.mesh, f"[stage2 plot] {out_path} {stats}")
         return stats
 
     # ------------------------------------------------------------ rendering
@@ -290,7 +338,12 @@ class Stage2Runner:
         compact: render only the surface-mask pixels (padded to the tile)
         and scatter the results back with the reference's fill values
         (auto: on when mask coverage < 0.6). Per-pixel math is independent,
-        so outputs are identical."""
+        so outputs are identical.
+
+        Under a mesh each ray rank renders its block of the (padded)
+        pixels in tiles of tile // ray ranks, and on a rays x lights mesh
+        its block of the lights (their count must divide by the light
+        ranks); every rank returns the whole frame."""
         cfg = self.cfg.net
         if use_fused_vis is None:
             use_fused_vis = self.device.type == "cuda" and cfg.visibility
@@ -333,14 +386,20 @@ class Stage2Runner:
             avail.discard("visibility")
         outs = tuple(o for o in outputs if o in avail)
         f32 = torch.float32
-        out = render_frame_stage2(
-            self.params["model"], cfg, gather(uv), data["poses"][view],
-            data["K"], gather(data["points"][view]),
-            gather(data["normals"][view]), mask_in,
-            torch.as_tensor(np.asarray(light_dirs), dtype=f32, device=dev),
-            torch.as_tensor(np.asarray(light_ints), dtype=f32, device=dev),
-            tile=tile, outputs=outs, use_fused_vis=use_fused_vis,
-            albedo_new=albedo_new, basis_new=basis_new)
+        args = (self.params["model"], gather(uv), data["poses"][view],
+                data["K"], gather(data["points"][view]),
+                gather(data["normals"][view]), mask_in,
+                torch.as_tensor(np.asarray(light_dirs), dtype=f32, device=dev),
+                torch.as_tensor(np.asarray(light_ints), dtype=f32, device=dev))
+        kw = dict(outputs=outs, use_fused_vis=use_fused_vis,
+                  albedo_new=albedo_new, basis_new=basis_new)
+        mesh = self.mesh
+        if mesh is None:
+            out = render_frame_stage2(args[0], cfg, *args[1:], tile=tile,
+                                      **kw)
+        else:
+            out = make_sharded_frame_renderer(
+                cfg, mesh, tile=rank_tile(tile, mesh), **kw)(*args)
         res = {}
         # reference fill values outside the surface mask: ones everywhere
         # except sg_weight; rgb_sum's per-light ones sum to L
@@ -388,14 +447,16 @@ class Stage2Runner:
                  save_npy: bool = True):
         """Standard eval: per view, every light (the reference's
         stage2/eval.py output tree: rgb/img/view_XX/LLL.png, mask/img,
-        normal/npy, ...)."""
+        normal/npy, ...); rank 0 of a mesh writes."""
         data = self._eval_data(split)
         for sub in ["rgb", "normal", "albedo", "rough", "mask", "visibility"]:
-            os.makedirs(os.path.join(out_dir, sub, "img"), exist_ok=True)
-            os.makedirs(os.path.join(out_dir, sub, "npy"), exist_ok=True)
+            for kind in ("img", "npy") if self.writes else ():
+                os.makedirs(os.path.join(out_dir, sub, kind), exist_ok=True)
         for v, vi in enumerate(data["views"]):
             dirs, ints = self.trained_lights_for_view(data, v)
             r = self.render_view(data, v, dirs, ints, tile)
+            if not self.writes:
+                continue
             name = f"view_{vi + 1:02d}"
             for key, sub in (("rgb", "rgb"), ("visibility", "visibility"),
                              ("rough", "rough")):
@@ -435,6 +496,7 @@ class Stage2Runner:
                     np.save(npy("visibility"),
                             r["visibility"][..., 0].clip(0, 1)
                             .astype(np.float32))
+        barrier(self.mesh)
 
     def render_envmap(self, out_dir: str, envmap: np.ndarray,
                       split: str = "test", light_h: int = 16,
@@ -447,15 +509,16 @@ class Stage2Runner:
         (each chunk's sum on the device, one light-sum launch on the card;
         the chunks added on the host in order), clipped, gamma-mapped,
         white off the mask; writes rgb/img/view_XX.png and
-        light_probe.png."""
+        light_probe.png (rank 0 of a mesh writes)."""
         data = self._eval_data(split)
         lxyz, _ = gen_light_xyz(light_h, 2 * light_h, envmap_radius=1.0)
         dirs = lxyz.reshape(-1, 3)
         dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
         texels = envmap.reshape(-1, 3).astype(np.float32) * envmap_scale
-        os.makedirs(os.path.join(out_dir, "rgb", "img"), exist_ok=True)
-        imwrite(os.path.join(out_dir, "light_probe.png"),
-                vis_light_probe(envmap * envmap_scale, light_h * 8))
+        if self.writes:
+            os.makedirs(os.path.join(out_dir, "rgb", "img"), exist_ok=True)
+            imwrite(os.path.join(out_dir, "light_probe.png"),
+                    vis_light_probe(envmap * envmap_scale, light_h * 8))
         for v, vi in enumerate(data["views"]):
             acc = 0.0
             for s in range(0, len(dirs), ENV_CHUNK):
@@ -466,8 +529,10 @@ class Stage2Runner:
             img = np.power(np.clip(acc, 0, 1), 1.0 / gamma)
             mask = r["mask"][..., None]
             img = img * mask + (1 - mask)
-            imwrite(os.path.join(out_dir, "rgb", "img",
-                                 f"view_{vi + 1:02d}.png"), _to8(img))
+            if self.writes:
+                imwrite(os.path.join(out_dir, "rgb", "img",
+                                     f"view_{vi + 1:02d}.png"), _to8(img))
+        barrier(self.mesh)
         return out_dir
 
     def edit_material(self, out_dir: str, split: str = "test",
@@ -476,17 +541,21 @@ class Stage2Runner:
         """Material editing (stage2/eval.py:233-312): an albedo override
         and/or a single-SG-basis swap, rendered under each view's trained
         lights through the tiled frame renderer; writes
-        rgb/img/view_XX/LLL.png, one per light."""
+        rgb/img/view_XX/LLL.png, one per light (rank 0 of a mesh)."""
         data = self._eval_data(split)
-        os.makedirs(os.path.join(out_dir, "rgb", "img"), exist_ok=True)
+        if self.writes:
+            os.makedirs(os.path.join(out_dir, "rgb", "img"), exist_ok=True)
         for v, vi in enumerate(data["views"]):
             dirs, ints = self.trained_lights_for_view(data, v)
             rgb = self.render_view(data, v, dirs, ints, tile=tile,
                                    outputs=("rgb",), albedo_new=albedo_new,
                                    basis_new=basis_new)["rgb"]
+            if not self.writes:
+                continue
             vdir = os.path.join(out_dir, "rgb", "img", f"view_{vi + 1:02d}")
             os.makedirs(vdir, exist_ok=True)
             for li in range(rgb.shape[0]):
                 imwrite(os.path.join(vdir, f"{li + 1:03d}.png"),
                         _to8(rgb[li]))
+        barrier(self.mesh)
         return out_dir

@@ -15,6 +15,7 @@ import torch
 from psnerf_torch.fields.occupancy import OccFieldConfig
 from psnerf_torch.ops.fused_occ import make_fused_occ_fn
 from psnerf_torch.ops.fused_radiance import fused_radiance_and_alpha
+from psnerf_torch.parallel.mesh import all_reduce_grads, world_sum
 from psnerf_torch.render.unisurf import UnisurfConfig, render_unisurf
 from psnerf_torch.train.losses import Stage1LossWeights, stage1_loss
 from psnerf_torch.train.optim import adam_init, adam_update, multistep_lr
@@ -42,7 +43,7 @@ def field_params(field) -> dict:
 def make_stage1_train_step(field_cfg: OccFieldConfig, rcfg: UnisurfConfig,
                            tcfg: Stage1TrainConfig,
                            use_fused_occ: bool = False,
-                           use_fused_radiance: bool = False):
+                           use_fused_radiance: bool = False, mesh=None):
     """Returns (init_opt_state, step) with
 
       step(field, opt_state, batch, it, noise, use_outside) -> terms
@@ -54,7 +55,15 @@ def make_stage1_train_step(field_cfg: OccFieldConfig, rcfg: UnisurfConfig,
     render's U(0, 1) draws (render.unisurf.draw_unisurf_noise).
     use_fused_occ: the march's occupancy queries go through the fused_occ
     kernel; use_fused_radiance: the integration batch (forward and
-    backward) goes through the fused_radiance kernels."""
+    backward) goes through the fused_radiance kernels.
+
+    mesh (psnerf_torch.parallel): the batch and noise are this rank's
+    block (shard_stage1_batch, shard_noise) and the parameters and
+    opt_state are replicated; the losses divide by global counts, every
+    leaf's gradient is summed over the ranks by one all-reduce before
+    Adam, which then runs identically on every rank, and the returned
+    terms are summed over the ranks (the single-device values). The
+    kernels run on the rank's block, with no collective inside."""
     compute = ("bfloat16" if field_cfg.compute_dtype == "bfloat16"
                else "float32")
 
@@ -82,13 +91,15 @@ def make_stage1_train_step(field_cfg: OccFieldConfig, rcfg: UnisurfConfig,
         terms = stage1_loss(out, batch["rgb_gt"], tcfg.weights,
                             normal_gt=batch.get("normal_gt"),
                             norm_mask=norm_mask, mask_gt=batch.get("mask_gt"),
-                            mask_valid=batch.get("mask_valid"))
+                            mask_valid=batch.get("mask_valid"), mesh=mesh)
         terms["loss"].backward()
+        if mesh is not None:
+            all_reduce_grads([p.grad for p in params.values()], mesh)
         lr = multistep_lr(tcfg.learning_rate, tcfg.milestone_iters,
                           tcfg.gamma, it)
         adam_update(params, {k: p.grad for k, p in params.items()},
                     opt_state, lr)
-        terms = {k: v.detach() for k, v in terms.items()}
+        terms = {k: world_sum(v.detach(), mesh) for k, v in terms.items()}
         terms["lr"] = torch.tensor(lr, dtype=torch.float32)
         return terms
 

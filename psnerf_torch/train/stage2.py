@@ -26,6 +26,8 @@ import torch
 
 from psnerf_torch.core.rays import get_camera_params
 from psnerf_torch.fields.psnet import PSNet, PSNetConfig
+from psnerf_torch.parallel.mesh import (LIGHT_AXIS, all_reduce_grads, all_sum,
+                                        world_sum)
 from psnerf_torch.render.shading import render_psnet
 from psnerf_torch.train.losses import Stage2LossWeights, stage2_loss
 from psnerf_torch.train.optim import (adam_init, adam_update, multistep_lr,
@@ -74,7 +76,8 @@ def _light_state(state: dict, name: str) -> dict:
     return {k: {name: v} for k, v in state.items()}
 
 
-def make_stage2_train_step(cfg: PSNetConfig, tcfg: Stage2TrainConfig):
+def make_stage2_train_step(cfg: PSNetConfig, tcfg: Stage2TrainConfig,
+                           mesh=None):
     """Returns (init_opt_state, step) with
 
       step(params, opt_state, batch, it, noise) -> terms
@@ -88,7 +91,14 @@ def make_stage2_train_step(cfg: PSNetConfig, tcfg: Stage2TrainConfig):
     absent, light_vis_train [Lv, 3] (+ vis_train_gt [Lv, N]) or absent.
     it: the host iteration counter. noise: render_psnet's jitter draws
     (draw_psnet_noise). step.loss_and_grads(params, batch, it, noise) gives
-    the terms and the gradients of the same batch without the update."""
+    the terms and the gradients of the same batch without the update.
+
+    mesh (psnerf_torch.parallel): the batch and noise are this rank's block
+    (shard_stage2_batch, shard_noise) and params and opt_state are replicated. The losses divide
+    by global counts; loss_and_grads sums the gradients over the ranks by
+    one all-reduce and the terms likewise (the single-device values), and
+    the light tables' row gate is the union of the ranks' rows, so Adam
+    runs identically on every rank."""
     w = tcfg.weights
     in_warmup = lambda it: it < tcfg.warmup_iters and tcfg.train_order
 
@@ -127,13 +137,16 @@ def make_stage2_train_step(cfg: PSNetConfig, tcfg: Stage2TrainConfig):
             terms = stage2_loss(out, batch["rgb_gt"], batch["object_mask"], w,
                                 vis_gt=batch.get("visibility"),
                                 vis_train_gt=batch.get("vis_train_gt"),
-                                weights_override=override)
+                                weights_override=override, mesh=mesh)
             leaves = {**mp, **tables}
             grads = torch.autograd.grad(terms["loss"], list(leaves.values()),
                                         allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(leaves.items(), grads)}
-        return {k: v.detach() for k, v in terms.items()}, grads
+        if mesh is not None:
+            all_reduce_grads(list(grads.values()), mesh)
+        return {k: world_sum(v.detach(), mesh) for k, v in terms.items()}, \
+            grads
 
     def step(params: dict, opt_state: dict, batch: dict, it, noise: dict):
         terms, grads = loss_and_grads(params, batch, it, noise)
@@ -154,6 +167,8 @@ def make_stage2_train_step(cfg: PSNetConfig, tcfg: Stage2TrainConfig):
                        else 1.0)
         light_live = live * float(not tcfg.ana_fixlight)
         row = row_mask_from_indices(tables["light_dirs"].shape[0], l_slt)
+        if mesh is not None:             # the rows of the whole batch
+            row = (all_sum(row, mesh.groups[LIGHT_AXIS]) > 0).float()
         lr_sg = multistep_lr(tcfg.sg_learning_rate, tcfg.milestone_iters,
                              tcfg.gamma, it)
         lr_l, lr_i = tcfg.light_learning_rate, tcfg.light_inten_lr

@@ -7,9 +7,12 @@ tests/test_cli.py:163-209, on the same 32x32 scene and the same configs
 file contract. Also: plot_metrics draws the stage-1 metrics into a PNG of
 one panel per scalar; PhaseTimer and trace run on the CPU; the MetricLogger
 mirrors to TensorBoard and keeps its JSONL when the writer is missing;
-`--mesh-devices` raises NotImplementedError; `--device` defaults to the
-card. The preprocessing commands: sdps-preprocess from a converted .npz
-and from a reference .pth.tar of each net (convert-ckpt writing the npz),
+stage1-train and stage2-train with `--mesh-devices 2` train on two CPU
+ranks as a fresh process (and stage1-train as two torchrun processes)
+and write the checkpoint of a single-device run;
+`--device` defaults to the card. The preprocessing commands:
+sdps-preprocess from a converted .npz and from a reference .pth.tar of
+each net (convert-ckpt writing the npz),
 light-avg as the JAX CLI's, evaluation --lpips_weights on the workflow's
 output; sdps-preprocess and LPIPS raise without CUDA unless `--device
 cpu` is given.
@@ -156,12 +159,62 @@ def test_python_m_entry_point(workspace, workflow):
 
 
 @pytest.mark.parametrize("argv", [
-    ["stage1-train", "c.yaml", "--mesh-devices", "2", *CPU],
-    ["stage2-train", "--conf", "c.conf", "--mesh-devices", "2", *CPU],
+    ["stage1-train", "{root}/s1.yaml", "--max-iters", "5"],
+    ["stage2-train", "--conf", "{root}/s2.conf", "--max-iters", "5"],
 ])
-def test_unported_subcommands_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        main(argv)
+def test_unported_subcommands_raise(workspace, workflow, tmp_path, argv):
+    """`--mesh-devices 2` (once unported, now two data-parallel CPU ranks)
+    exits 0 as `python -m psnerf_torch.cli.main`, and its checkpoint holds
+    the params of a single-device run of the same steps (rtol 2e-4, atol
+    2e-6, the runners' mesh bar); stage 2 trains on the workflow's
+    export."""
+    argv = [a.format(root=workspace) for a in argv] + CPU
+    main(argv + ["--workdir", str(tmp_path / "single")])
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run(
+        [sys.executable, "-m", "psnerf_torch.cli.main", *argv,
+         "--workdir", str(tmp_path / "mesh"), "--mesh-devices", "2"],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=str(workspace))
+    assert res.returncode == 0, res.stderr[-4000:]
+    single, s_single = load_checkpoint(
+        str(tmp_path / "single" / "checkpoints" / "model.npz"))
+    mesh, s_mesh = load_checkpoint(
+        str(tmp_path / "mesh" / "checkpoints" / "model.npz"))
+    assert s_mesh["it"] == s_single["it"] == 5
+    keys = [k for k in single if k.startswith("params/")]
+    assert keys and sorted(keys) == sorted(
+        k for k in mesh if k.startswith("params/"))
+    for k in keys:
+        np.testing.assert_allclose(mesh[k], single[k], rtol=2e-4,
+                                   atol=2e-6, err_msg=k)
+
+
+def test_mesh_devices_under_torchrun(workspace, tmp_path):
+    """Under torchrun each process is one rank already: `--mesh-devices 2`
+    builds its mesh from torchrun's environment (env://, gloo on the CPU)
+    instead of spawning, and writes the checkpoint of a one-process run
+    (rtol 2e-4, atol 2e-6)."""
+    argv = ["stage1-train", f"{workspace}/s1.yaml", "--max-iters", "3",
+            *CPU]
+    main(argv + ["--workdir", str(tmp_path / "single")])
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "psnerf_torch.cli.main", *argv,
+         "--workdir", str(tmp_path / "mesh"), "--mesh-devices", "2"],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=str(workspace))
+    assert res.returncode == 0, res.stderr[-4000:]
+    single, _ = load_checkpoint(
+        str(tmp_path / "single" / "checkpoints" / "model.npz"))
+    mesh, scalars = load_checkpoint(
+        str(tmp_path / "mesh" / "checkpoints" / "model.npz"))
+    assert scalars["it"] == 3
+    for k in (k for k in single if k.startswith("params/")):
+        np.testing.assert_allclose(mesh[k], single[k], rtol=2e-4,
+                                   atol=2e-6, err_msg=k)
 
 
 def test_device_defaults_to_the_card(workspace, monkeypatch):

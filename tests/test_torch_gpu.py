@@ -799,3 +799,64 @@ def test_lpips_cuda_matches_cpu():
         assert abs(got["cuda"] - got["cpu"]) <= 1e-5 * got["cpu"], got
     finally:
         torch.backends.cudnn.allow_tf32 = old
+
+
+def test_stage1_runner_on_two_gloo_ranks_matches_one_process(tmp_path):
+    """Stage1Runner(mesh=...) on two gloo ranks sharing cuda:0 (NCCL
+    refuses two ranks on one device), the kernels K1 and K2/K3 on each
+    rank's block: 5 steps at the default (f32-operand) field and 2 at the
+    bf16 field on a 24x24 scene, against one process's runner on the
+    card. The first step's loss within 1e-4 relative and every leaf's
+    all-reduced gradient within 1e-4 of its max (2e-2 at the bf16 field,
+    whose plain autograd rounds each rank's partial weight gradients to
+    bf16); the params after the run within Adam's flip bound, 2 lr a step
+    (a near-zero gradient whose rounding differs between the two
+    summation orders moves its param by up to 2 lr the other way: the
+    rule of the stage-2 card-against-CPU test above)."""
+    _need_gpu()
+    import dataclasses
+
+    from psnerf_torch.config import Stage1Config
+    from psnerf_torch.data.synthetic import generate_synthetic_scene
+    from psnerf_torch.fields.occupancy import OccFieldConfig
+    from psnerf_torch.parallel.launch import launch
+    from psnerf_torch.render.unisurf import UnisurfConfig
+    from psnerf_torch.runners.stage1 import Stage1Runner
+    from psnerf_torch.train.stage1 import Stage1TrainConfig, field_params
+    from torch_dist_workers import first_step_stage1, run_jobs
+
+    scene = str(tmp_path / "scene")
+    generate_synthetic_scene(scene, n_views=2, n_test=0, n_lights=3,
+                             hw=(24, 24))
+    cfg = Stage1Config(
+        field=OccFieldConfig(),
+        render=UnisurfConfig(near=1.2, far=5.0, radius=1.2,
+                             interval_start=0.6, interval_end=0.05,
+                             ray_marching_steps=32),
+        train=Stage1TrainConfig(n_training_points=256, normal_after=0,
+                                milestone_iters=()),
+        data_dir=scene, inten_normalize=None, checkpoint_every=10 ** 9,
+        backup_every=10 ** 9, visualize_every=0)
+    cfgs = {"float32": (cfg, 5, 1e-4), "bfloat16": (dataclasses.replace(
+        cfg, field=OccFieldConfig(compute_dtype="bfloat16")), 2, 2e-2)}
+    jobs = [(name, "stage1_runner", dict(cfg=c, workdir=str(tmp_path / name),
+                                        steps=steps, first=True))
+            for name, (c, steps, _) in cfgs.items()]
+    ranks = launch(run_jobs, 2, jobs, device="cuda:0", timeout=600)
+    for name, (c, steps, grad_rel) in cfgs.items():
+        r = Stage1Runner(c, str(tmp_path / f"single_{name}"), resume=False)
+        assert r.use_fused_occ and r.use_fused_radiance
+        first = first_step_stage1(r)
+        r.train(steps, log_every=1000)
+        lr = c.train.learning_rate
+        for rank in ranks:
+            got = rank[name]
+            assert abs(got["first"]["loss"] - first["loss"]) <= \
+                1e-4 * abs(first["loss"]), name
+            for k, g in first["grads"].items():
+                scale = np.abs(g).max() + 1e-12
+                assert np.abs(got["first"]["grads"][k] - g).max() <= \
+                    grad_rel * scale, (name, k)
+            for k, v in field_params(r.field).items():
+                d = np.abs(got["params"][k] - v.detach().cpu().numpy())
+                assert d.max() <= 2 * lr * steps * (1 + 1e-3), (name, k)

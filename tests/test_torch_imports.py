@@ -1,4 +1,5 @@
-"""psnerf_torch stands alone: no module of it (nor chip_smoke.py) imports
+"""psnerf_torch stands alone: no module of it (nor chip_smoke.py, nor the
+rank functions its data-parallel tests spawn) imports
 jax, psnerf_tpu, imageio, cv2, yaml or matplotlib (the card's machine has
 no imageio and no OpenCV, and PyYAML and matplotlib are not on record
 there: the port reads and writes images with Pillow, parses its YAML
@@ -27,7 +28,8 @@ FORBIDDEN = ("jax", "jaxlib", "psnerf_tpu", "imageio", "cv2", "yaml",
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests/torch_dist_workers.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -119,3 +121,15 @@ def test_mesh_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         make_mask_carver(np.ones((1, 4, 4)), np.eye(4)[None],
                          np.eye(4)[None])
+
+
+def test_parallel_entry_points_default_to_the_card(monkeypatch):
+    """A mesh and a launch ask for CUDA unless told the CPU: without a
+    card they raise before any process group or rank starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from psnerf_torch.parallel import launch, make_mesh
+
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="is_available"):
+        launch(print, 2)
