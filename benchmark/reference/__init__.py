@@ -1,0 +1,1 @@
+"""Plain references that decide whether a run is correct."""
