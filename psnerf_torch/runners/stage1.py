@@ -75,6 +75,7 @@ from psnerf_torch.train.checkpoints import (latest_checkpoint,
                                             load_tree, save_checkpoint)
 from psnerf_torch.train.logging import MetricLogger, _to8, stage1_vis_strip
 from psnerf_torch.train.stage1 import make_stage1_train_step
+from psnerf_torch.utils import profiling
 
 # light_visibility's and occupancy_guide_grid's defaults, which the export
 # runs at
@@ -232,44 +233,54 @@ class Stage1Runner:
             if wall_budget_s is not None and rank0_flag(
                     time.time() - t_start > wall_budget_s, self.mesh,
                     self.device):
-                self.save(self.it)
+                with profiling.span("stage1.checkpoint"):
+                    self.save(self.it)
                 say(self.mesh, f"[stage1] wall budget reached at "
                     f"it={self.it}; checkpointed for resume")
                 return self
-            use_outside = self.it > self.tcfg.outside_after
-            batch, noise = self.sample(use_outside)
-            if self.mesh is not None:
-                batch = shard_stage1_batch(batch, self.mesh)
-                noise = shard_noise(noise, self.mesh)
-            terms = self.step_fn(self.field, self.opt_state, batch, self.it,
-                                 noise, use_outside=use_outside)
-            losses.append(terms["loss"])
-            self.it += 1
-            if self.it % log_every == 0:
-                vals = torch.stack(losses).cpu()
-                terms = {k: float(v) for k, v in terms.items()}
-                if not torch.isfinite(vals).all():
-                    # the rolling checkpoint holds a pre-divergence state
-                    bad = int(torch.nonzero(~torch.isfinite(vals))[0, 0])
-                    raise FloatingPointError(
-                        f"non-finite loss at it={self.it - len(losses) + bad + 1}"
-                        f": {terms}")
-                losses = []
-                dt = time.time() - t0
-                say(self.mesh, f"[stage1 it {self.it}] "
-                    f"loss={terms['loss']:.4f} "
-                    f"rgb={terms['fullrgb_loss']:.4f} "
-                    f"grad={terms['grad_loss']:.4f} "
-                    f"normal={terms.get('normal_loss', 0.0):.4f} "
-                    f"lr={terms['lr']:.2e} {log_every / dt:.1f} it/s")
-                if self.logger:
-                    self.logger.log(self.it, terms)
-                if on_log:
-                    on_log(self.it, terms)
-                t0 = time.time()
-            if self.it % ckpt_every == 0 or self.it == max_iters:
-                self.save(self.it)
+            with profiling.span("stage1.step"):
+                use_outside = self.it > self.tcfg.outside_after
+                with profiling.span("stage1.sample"):
+                    batch, noise = self.sample(use_outside)
+                    if self.mesh is not None:
+                        batch = shard_stage1_batch(batch, self.mesh)
+                        noise = shard_noise(noise, self.mesh)
+                terms = self.step_fn(self.field, self.opt_state, batch,
+                                     self.it, noise, use_outside=use_outside)
+                losses.append(terms["loss"])
+                self.it += 1
+                if self.it % log_every == 0:
+                    with profiling.span("stage1.log"):
+                        self._log(losses, terms, log_every,
+                                  time.time() - t0, on_log)
+                    losses = []
+                    t0 = time.time()
+                if self.it % ckpt_every == 0 or self.it == max_iters:
+                    with profiling.span("stage1.checkpoint"):
+                        self.save(self.it)
         return self
+
+    def _log(self, losses, terms, log_every, dt, on_log):
+        """Read the losses since the last log back (a non-finite one halts
+        the run, naming its iteration), print and log the step's terms."""
+        vals = torch.stack(losses).cpu()
+        terms = {k: float(v) for k, v in terms.items()}
+        if not torch.isfinite(vals).all():
+            # the rolling checkpoint holds a pre-divergence state
+            bad = int(torch.nonzero(~torch.isfinite(vals))[0, 0])
+            raise FloatingPointError(
+                f"non-finite loss at it={self.it - len(losses) + bad + 1}"
+                f": {terms}")
+        say(self.mesh, f"[stage1 it {self.it}] "
+            f"loss={terms['loss']:.4f} "
+            f"rgb={terms['fullrgb_loss']:.4f} "
+            f"grad={terms['grad_loss']:.4f} "
+            f"normal={terms.get('normal_loss', 0.0):.4f} "
+            f"lr={terms['lr']:.2e} {log_every / dt:.1f} it/s")
+        if self.logger:
+            self.logger.log(self.it, terms)
+        if on_log:
+            on_log(self.it, terms)
 
     def save(self, it: int) -> str:
         """Write the params, the optimizer state and `it` to the rolling
@@ -388,6 +399,7 @@ class Stage1Runner:
 
     # --------------------------------------------------------- shape export
     @torch.no_grad()
+    @profiling.spanned("shape_extract")
     def shape_extract(self, out_dir: str, visibility: bool = True,
                       vis_plus: bool = False, vis_plus_num: int = 256,
                       semisphere: bool = True, tile: int = 4096,
@@ -428,15 +440,19 @@ class Stage1Runner:
         run on one background thread. Under a mesh the ranks split each
         march tile's pixels, and each visibility tile's points and the
         lights over export_vis_mesh's rays x lights layout (`tile` must be
-        divisible by the rank count); rank 0 writes. Returns the seconds of
-        each leg summed over the
-        views: warmup_s (the first march tile and one light), guide_s (the
-        grid), fps_s, march_s, vis_train_s, vis_plus_s (device legs, each
-        ending in one read back), host_s (scatter and writes, on the
-        thread) and host_tail_s (what the writes add after the last device
-        leg)."""
+        divisible by the rank count); rank 0 writes.
+
+        The call is the root span `shape_extract`; its legs are spans
+        `shape_extract.<leg>` (utils/profiling.py). Returns the seconds of
+        each leg summed over the views, read from them: warmup_s (the first
+        march tile and one light), guide_s (the grid), fps_s, march_s (the
+        march and its read back), vis_train_s, vis_plus_s (device legs,
+        each ending in one read back), host_s (scatter and writes, on the
+        thread) and host_tail_s (the wait for the writes after the last
+        device leg)."""
         cfg = self.cfg
         dev = self.device
+        span = profiling.span
         guided = visibility and vis_plus and vis_plus_guided
         if guided:
             check_guide_calibration(guide_res, guide_coarse)
@@ -444,10 +460,11 @@ class Stage1Runner:
             vis_plus_steps = 16 if vis_plus_guided else vis_steps
         if vis_plus_rescale is None:
             vis_plus_rescale = vis_rescale
-        data = load_stage1_data(
-            self.scene, "all", cfg.inten_normalize, cfg.train_view,
-            cfg.train_light, False, cfg.render.white_background,
-            normal_loss=False, mask_valid=False, device=dev)
+        with span("shape_extract.load"):
+            data = load_stage1_data(
+                self.scene, "all", cfg.inten_normalize, cfg.train_view,
+                cfg.train_light, False, cfg.render.white_background,
+                normal_loss=False, mask_valid=False, device=dev)
         h, w = data["imgs"].shape[1:3]
         pix = _row_major_pixels(h, w, dev)
         n = pix.shape[0]
@@ -479,36 +496,40 @@ class Stage1Runner:
 
         timings = dict.fromkeys(("warmup_s", "guide_s", "fps_s", "march_s",
                                  "vis_train_s", "vis_plus_s", "host_s"), 0.0)
-        poses_np = data["poses"].cpu().numpy()
-        t0 = time.time()
-        march(pix[:tile], data["poses"][0])
-        if visibility:
-            vis(pix.new_zeros((tile, 3)),
-                torch.tensor([[0.0, 0.0, 1.0]], device=dev), vis_steps,
-                vis_rescale)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        timings["warmup_s"] = time.time() - t0
-        guide = None
-        if guided:
-            t0 = time.time()
-            guide = occupancy_guide_grid(vis_occ, res=guide_res, device=dev)
+        poses_np = profiling.to_host(data["poses"])
+        with span("shape_extract.warmup") as leg:
+            march(pix[:tile], data["poses"][0])
+            if visibility:
+                vis(pix.new_zeros((tile, 3)),
+                    torch.tensor([[0.0, 0.0, 1.0]], device=dev), vis_steps,
+                    vis_rescale)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            timings["guide_s"] = time.time() - t0
+        timings["warmup_s"] = leg.seconds
+        guide = None
+        if guided:
+            with span("shape_extract.guide") as leg:
+                guide = occupancy_guide_grid(vis_occ, res=guide_res,
+                                             device=dev)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            timings["guide_s"] = leg.seconds
 
         writer = ThreadPoolExecutor(max_workers=1)
-        host_s = [0.0]
         pending_writes = []
 
         def submit_host(fn):
+            cause = profiling.current()
+
             def run():
-                t = time.time()
-                fn()
-                host_s[0] += time.time() - t
+                with span("shape_extract.write", cause=cause) as leg:
+                    fn()
+                timings["host_s"] += leg.seconds     # the one writer thread
             pending_writes.append(writer.submit(run))
-            while len(pending_writes) > 4:   # bound the queued arrays
-                pending_writes.pop(0).result()
+            if len(pending_writes) > 4:      # bound the queued arrays
+                with span("shape_extract.write_wait"):
+                    while len(pending_writes) > 4:
+                        pending_writes.pop(0).result()
 
         rng = np.random.default_rng(seed)
         vis_plus_json = {}
@@ -516,39 +537,43 @@ class Stage1Runner:
             self.mesh).shape[RAY_AXIS]
         for v, vi in enumerate(data["views"]):
             name = f"view_{vi + 1:02d}"
-            # (dirs, timing key, subdir, protocol: steps, rescale, guide)
+            # (dirs, leg, subdir, protocol: steps, rescale, guide)
             segments = []
             if visibility:
-                segments.append((light_pred[v], "vis_train_s", "visibility",
+                segments.append((light_pred[v], "vis_train", "visibility",
                                  (vis_steps, vis_rescale, None)))
                 if vis_plus:
-                    t0 = time.time()
-                    cand = rng.normal(size=(10000, 3))
-                    cand /= np.linalg.norm(cand, axis=-1, keepdims=True)
-                    if semisphere:
-                        cand = cand[(cand * poses_np[v][:3, 2]).sum(-1) < 0]
-                    idx = farthest_point_sampling_np(
-                        cand, vis_plus_num, start=int(rng.integers(len(cand))))
-                    extra = cand[idx].astype(np.float32)
-                    vis_plus_json[name] = extra.tolist()
-                    timings["fps_s"] += time.time() - t0
-                    segments.append((extra, "vis_plus_s", "vis_plus",
+                    with span("shape_extract.fps") as leg:
+                        cand = rng.normal(size=(10000, 3))
+                        cand /= np.linalg.norm(cand, axis=-1, keepdims=True)
+                        if semisphere:
+                            cand = cand[(cand * poses_np[v][:3, 2]).sum(-1)
+                                        < 0]
+                        idx = farthest_point_sampling_np(
+                            cand, vis_plus_num,
+                            start=int(rng.integers(len(cand))))
+                        extra = cand[idx].astype(np.float32)
+                        vis_plus_json[name] = extra.tolist()
+                    timings["fps_s"] += leg.seconds
+                    segments.append((extra, "vis_plus", "vis_plus",
                                      (vis_plus_steps, vis_plus_rescale,
                                       guide)))
 
             # pass 1: march and normals over all pixels, one read back
-            t0 = time.time()
             pose = data["poses"][v]
-            outs = [march(pix[s:s + tile], pose)
-                    for s in range(0, pix.shape[0], tile)]
-            pts_dev = torch.cat([o["points"] for o in outs])[:n]
-            points, normal, mask = (
-                torch.cat([o[k] for o in outs])[:n].cpu().numpy()
-                for k in ("points", "normal", "mask"))
+            with span("shape_extract.march") as leg:
+                outs = [march(pix[s:s + tile], pose)
+                        for s in range(0, pix.shape[0], tile)]
+                pts_dev, nrm_dev, msk_dev = (
+                    torch.cat([o[k] for o in outs])[:n]
+                    for k in ("points", "normal", "mask"))
+            with span("shape_extract.readback") as back:
+                points, normal, mask = (profiling.to_host(x) for x in
+                                        (pts_dev, nrm_dev, msk_dev))
+            timings["march_s"] += leg.seconds + back.seconds
             points = points.reshape(h, w, 3)
             normal = normal.reshape(h, w, 3)
             mask = mask.reshape(h, w)
-            timings["march_s"] += time.time() - t0
 
             def save_geo(points=points, normal=normal, mask=mask, name=name):
                 for sub, arr in (("points", points), ("normal", normal),
@@ -569,14 +594,14 @@ class Stage1Runner:
             idx_dev = torch.as_tensor(
                 np.concatenate([surf_idx, np.zeros((vpad,), np.int64)]),
                 device=dev)
-            for dirs, tkey, sub, proto in segments:
-                t0 = time.time()
-                ldir = torch.as_tensor(dirs, device=dev)
-                vis_c = torch.cat(
-                    [vis(pts_dev[idx_dev[s:s + vtile]], ldir, *proto)
-                     for s in range(0, n_surf + vpad, vtile)],
-                    dim=1)[:, :n_surf].cpu().numpy()
-                timings[tkey] += time.time() - t0
+            for dirs, leg_name, sub, proto in segments:
+                with span("shape_extract." + leg_name) as leg:
+                    ldir = torch.as_tensor(dirs, device=dev)
+                    vis_c = profiling.to_host(torch.cat(
+                        [vis(pts_dev[idx_dev[s:s + vtile]], ldir, *proto)
+                         for s in range(0, n_surf + vpad, vtile)],
+                        dim=1)[:, :n_surf])
+                timings[leg_name + "_s"] += leg.seconds
 
                 def scatter_save(vis_c=vis_c, n_l=len(dirs), sub=sub,
                                  name=name, surf_idx=surf_idx):
@@ -587,12 +612,11 @@ class Stage1Runner:
 
                 if self.writes:
                     submit_host(scatter_save)
-        t0 = time.time()
-        for f in pending_writes:
-            f.result()                          # raise the writers' errors
-        writer.shutdown(wait=True)
-        timings["host_s"] = host_s[0]
-        timings["host_tail_s"] = time.time() - t0
+        with span("shape_extract.write_wait") as leg:
+            for f in pending_writes:
+                f.result()                      # raise the writers' errors
+            writer.shutdown(wait=True)
+        timings["host_tail_s"] = leg.seconds
         if vis_plus and self.writes:
             with open(os.path.join(out_dir, "vis_plus", "light_dir.json"),
                       "w") as f:

@@ -54,6 +54,7 @@ from psnerf_torch.train.logging import MetricLogger
 from psnerf_torch.train.stage2 import (init_stage2_params,
                                        light_direction_error_deg,
                                        make_stage2_train_step)
+from psnerf_torch.utils import profiling
 
 _to8 = lambda x: (np.clip(x, 0, 1) * 255).astype(np.uint8)
 ENV_CHUNK = 128      # envmap lights a render (the JAX package's chunking)
@@ -208,49 +209,61 @@ class Stage2Runner:
             if wall_budget_s is not None and rank0_flag(
                     time.time() - t_start > wall_budget_s, mesh,
                     self.device):
-                self.save(self.it)
+                with profiling.span("stage2.checkpoint"):
+                    self.save(self.it)
                 say(mesh, f"[stage2] wall budget reached at it={self.it}; "
                     "checkpointed for resume")
                 return self
-            if plot_every and self.it > 0 and self.it % plot_every == 0:
-                self.plot_to_disk(os.path.join(self.workdir, "plots",
-                                               f"it_{self.it}.png"))
-            batch, noise = self.sample()
-            if mesh is not None:
-                batch = shard_stage2_batch(batch, mesh)
-                noise = shard_noise(noise, mesh)
-            terms = self.step_fn(self.params, self.opt_state, batch, self.it,
-                                 noise)
-            losses.append(terms["loss"])
-            self.it += 1
-            if self.it % log_every == 0:
-                vals = torch.stack(losses).cpu()
-                terms = {k: float(v) for k, v in terms.items()}
-                if not torch.isfinite(vals).all():
-                    bad = self.it - len(losses) + 1 + int(
-                        torch.nonzero(~torch.isfinite(vals))[0, 0])
-                    raise FloatingPointError(
-                        f"non-finite loss at it={bad}: {terms}")
-                losses = []
-                lderr = float(light_direction_error_deg(
-                    self.params["light_dirs"], self._gt_dirs_flat))
-                mse2psnr = lambda x: -10.0 * np.log(x + 1e-8) / np.log(10.0)
-                dt = time.time() - t0
-                say(mesh, f"[stage2 it {self.it}] loss={terms['loss']:.5f} "
-                    f"rgb={terms['sg_rgb_loss']:.5f} "
-                    f"psnr={mse2psnr(terms['sg_rgb_loss']):.2f} "
-                    f"vis={terms.get('vis_loss', 0.0):.4f} "
-                    f"normal={terms.get('normal_loss', 0.0):.4f} "
-                    f"ld_err={lderr:.2f}deg {log_every / dt:.1f} it/s")
-                terms["light_direction_error"] = lderr
-                if self.logger:
-                    self.logger.log(self.it, terms)
-                if on_log:
-                    on_log(self.it, terms)
-                t0 = time.time()
-            if self.it % ckpt_every == 0 or self.it == max_iters:
-                self.save(self.it)
+            with profiling.span("stage2.step"):
+                if plot_every and self.it > 0 and self.it % plot_every == 0:
+                    with profiling.span("stage2.plot"):
+                        self.plot_to_disk(os.path.join(
+                            self.workdir, "plots", f"it_{self.it}.png"))
+                with profiling.span("stage2.sample"):
+                    batch, noise = self.sample()
+                    if mesh is not None:
+                        batch = shard_stage2_batch(batch, mesh)
+                        noise = shard_noise(noise, mesh)
+                terms = self.step_fn(self.params, self.opt_state, batch,
+                                     self.it, noise)
+                losses.append(terms["loss"])
+                self.it += 1
+                if self.it % log_every == 0:
+                    with profiling.span("stage2.log"):
+                        self._log(losses, terms, log_every,
+                                  time.time() - t0, on_log)
+                    losses = []
+                    t0 = time.time()
+                if self.it % ckpt_every == 0 or self.it == max_iters:
+                    with profiling.span("stage2.checkpoint"):
+                        self.save(self.it)
         return self
+
+    def _log(self, losses, terms, log_every, dt, on_log):
+        """Read the losses since the last log back (a non-finite one halts
+        the run, naming its iteration), print and log the step's terms and
+        the light direction error."""
+        vals = torch.stack(losses).cpu()
+        terms = {k: float(v) for k, v in terms.items()}
+        if not torch.isfinite(vals).all():
+            bad = self.it - len(losses) + 1 + int(
+                torch.nonzero(~torch.isfinite(vals))[0, 0])
+            raise FloatingPointError(
+                f"non-finite loss at it={bad}: {terms}")
+        lderr = float(light_direction_error_deg(
+            self.params["light_dirs"], self._gt_dirs_flat))
+        mse2psnr = lambda x: -10.0 * np.log(x + 1e-8) / np.log(10.0)
+        say(self.mesh, f"[stage2 it {self.it}] loss={terms['loss']:.5f} "
+            f"rgb={terms['sg_rgb_loss']:.5f} "
+            f"psnr={mse2psnr(terms['sg_rgb_loss']):.2f} "
+            f"vis={terms.get('vis_loss', 0.0):.4f} "
+            f"normal={terms.get('normal_loss', 0.0):.4f} "
+            f"ld_err={lderr:.2f}deg {log_every / dt:.1f} it/s")
+        terms["light_direction_error"] = lderr
+        if self.logger:
+            self.logger.log(self.it, terms)
+        if on_log:
+            on_log(self.it, terms)
 
     def save(self, it: int, backup_every_n_ckpts: int = 10) -> str:
         """Write the params, the optimizer state and `it` to the rolling
@@ -322,6 +335,7 @@ class Stage2Runner:
         return cache[split]
 
     @torch.no_grad()
+    @profiling.spanned("render_view")
     def render_view(self, data, view: int, light_dirs, light_ints,
                     tile: int = 4096, outputs=("rgb", "albedo", "rough",
                                                "visibility", "normal_pred"),
@@ -348,80 +362,92 @@ class Stage2Runner:
         if use_fused_vis is None:
             use_fused_vis = self.device.type == "cuda" and cfg.visibility
         dev = self.device
+        span = profiling.span
         h, w = data["img_res"]
         n = h * w
-        mask_np = data["surface_mask"][view].cpu().numpy().reshape(-1) > 0
-        if compact is None:
-            compact = mask_np.mean() < 0.6
-        ys, xs = np.mgrid[0:h, 0:w]
-        uv = torch.as_tensor(np.stack([xs, ys], -1).reshape(-1, 2)
-                             .astype(np.float32), device=dev)
 
-        if compact:
-            sel = np.where(mask_np)[0]
-            n_out = sel.shape[0]
-            pad = (-n_out) % tile
-            sel_dev = torch.as_tensor(
-                np.concatenate([sel, np.zeros((pad,), sel.dtype)]), device=dev)
-            gather = lambda x, fill=None: x[sel_dev]
-            mask_in = torch.ones((n_out + pad,), dtype=torch.bool, device=dev)
-        else:
-            n_out = n
-            pad = (-n) % tile
+        with span("render_view.prepare"):
+            mask_np = profiling.to_host(
+                data["surface_mask"][view]).reshape(-1) > 0
+            if compact is None:
+                compact = mask_np.mean() < 0.6
+            ys, xs = np.mgrid[0:h, 0:w]
+            uv = torch.as_tensor(np.stack([xs, ys], -1).reshape(-1, 2)
+                                 .astype(np.float32), device=dev)
 
-            def gather(x, fill=0.0):
-                if pad == 0:
-                    return x
-                tail = torch.full((pad,) + tuple(x.shape[1:]), fill,
-                                  dtype=x.dtype, device=x.device)
-                return torch.cat([x, tail], dim=0)
+            if compact:
+                sel = np.where(mask_np)[0]
+                n_out = sel.shape[0]
+                pad = (-n_out) % tile
+                sel_dev = torch.as_tensor(
+                    np.concatenate([sel, np.zeros((pad,), sel.dtype)]),
+                    device=dev)
+                gather = lambda x, fill=None: x[sel_dev]
+                mask_in = torch.ones((n_out + pad,), dtype=torch.bool,
+                                     device=dev)
+            else:
+                n_out = n
+                pad = (-n) % tile
 
-            mask_in = gather(data["surface_mask"][view], False)
+                def gather(x, fill=0.0):
+                    if pad == 0:
+                        return x
+                    tail = torch.full((pad,) + tuple(x.shape[1:]), fill,
+                                      dtype=x.dtype, device=x.device)
+                    return torch.cat([x, tail], dim=0)
 
-        avail = {"rgb", "rgb_sum", "albedo", "rough", "sg_weight",
-                 "visibility"}
-        if cfg.normal_mlp:
-            avail.add("normal_pred")
-        if not cfg.visibility:
-            avail.discard("visibility")
-        outs = tuple(o for o in outputs if o in avail)
-        f32 = torch.float32
-        args = (self.params["model"], gather(uv), data["poses"][view],
-                data["K"], gather(data["points"][view]),
-                gather(data["normals"][view]), mask_in,
-                torch.as_tensor(np.asarray(light_dirs), dtype=f32, device=dev),
-                torch.as_tensor(np.asarray(light_ints), dtype=f32, device=dev))
+                mask_in = gather(data["surface_mask"][view], False)
+
+            avail = {"rgb", "rgb_sum", "albedo", "rough", "sg_weight",
+                     "visibility"}
+            if cfg.normal_mlp:
+                avail.add("normal_pred")
+            if not cfg.visibility:
+                avail.discard("visibility")
+            outs = tuple(o for o in outputs if o in avail)
+            f32 = torch.float32
+            args = (self.params["model"], gather(uv), data["poses"][view],
+                    data["K"], gather(data["points"][view]),
+                    gather(data["normals"][view]), mask_in,
+                    torch.as_tensor(np.asarray(light_dirs), dtype=f32,
+                                    device=dev),
+                    torch.as_tensor(np.asarray(light_ints), dtype=f32,
+                                    device=dev))
         kw = dict(outputs=outs, use_fused_vis=use_fused_vis,
                   albedo_new=albedo_new, basis_new=basis_new)
         mesh = self.mesh
-        if mesh is None:
-            out = render_frame_stage2(args[0], cfg, *args[1:], tile=tile,
-                                      **kw)
-        else:
-            out = make_sharded_frame_renderer(
-                cfg, mesh, tile=rank_tile(tile, mesh), **kw)(*args)
+        with span("render_view.frame"):
+            if mesh is None:
+                out = render_frame_stage2(args[0], cfg, *args[1:], tile=tile,
+                                          **kw)
+            else:
+                out = make_sharded_frame_renderer(
+                    cfg, mesh, tile=rank_tile(tile, mesh), **kw)(*args)
         res = {}
         # reference fill values outside the surface mask: ones everywhere
         # except sg_weight; rgb_sum's per-light ones sum to L
         fills = {"sg_weight": 0.0, "rgb_sum": float(len(light_dirs))}
         for k, v in out.items():
-            v = v.cpu().numpy()
-            if compact:
-                full_shape = ((v.shape[0], n) + v.shape[2:] if v.ndim == 3
-                              else (n,) + v.shape[1:])
-                full = np.full(full_shape, fills.get(k, 1.0), v.dtype)
+            with span("render_view.copy"):
+                v = profiling.to_host(v)
+            with span("render_view.scatter"):
+                if compact:
+                    full_shape = ((v.shape[0], n) + v.shape[2:] if v.ndim == 3
+                                  else (n,) + v.shape[1:])
+                    full = np.full(full_shape, fills.get(k, 1.0), v.dtype)
+                    if v.ndim == 3:
+                        full[:, sel] = v[:, :n_out]
+                    else:
+                        full[sel] = v[:n_out]
+                    v = full
                 if v.ndim == 3:
-                    full[:, sel] = v[:, :n_out]
+                    res[k] = v[:, :n].reshape(v.shape[0], h, w, -1)
                 else:
-                    full[sel] = v[:n_out]
-                v = full
-            if v.ndim == 3:
-                res[k] = v[:, :n].reshape(v.shape[0], h, w, -1)
-            else:
-                res[k] = v[:n].reshape(h, w, -1)
+                    res[k] = v[:n].reshape(h, w, -1)
         res["mask"] = mask_np.reshape(h, w)
-        res["normal_values"] = data["normals"][view].cpu().numpy().reshape(
-            h, w, 3)
+        with span("render_view.copy"):
+            res["normal_values"] = profiling.to_host(
+                data["normals"][view]).reshape(h, w, 3)
         return res
 
     def trained_lights_for_view(self, data, view: int):

@@ -3,7 +3,8 @@ a ray batch, compute the loss, backpropagate (second order through the
 analytic normals), Adam-update. The MultiStepLR schedule and the
 normal-supervision gate (`it >= normal_after`) are functions of the
 iteration counter; `use_outside` (it > 5000) switches the sample grid.
-Nothing on the step's path reads a device value back to the host."""
+Nothing on the step's path reads a device value back to the host. Its
+phases are the spans stage1.forward, stage1.backward and stage1.optim."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from psnerf_torch.parallel.mesh import all_reduce_grads, world_sum
 from psnerf_torch.render.unisurf import UnisurfConfig, render_unisurf
 from psnerf_torch.train.losses import Stage1LossWeights, stage1_loss
 from psnerf_torch.train.optim import adam_init, adam_update, multistep_lr
+from psnerf_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,33 +74,38 @@ def make_stage1_train_step(field_cfg: OccFieldConfig, rcfg: UnisurfConfig,
 
     @torch.enable_grad()
     def step(field, opt_state, batch, it, noise, use_outside=True):
-        occ_fn = radiance_fn = None
-        if use_fused_occ:
-            occ_fn = make_fused_occ_fn(field, field_cfg)
-        if use_fused_radiance:
-            radiance_fn = lambda p, rd: fused_radiance_and_alpha(
-                field, p, rd, field_cfg, compute=compute)
-        params = field_params(field)
-        for p in params.values():
-            p.grad = None
-        out = render_unisurf(
-            field, field_cfg, rcfg, batch["pixels"], batch["camera_mat"],
-            batch["world_mat"], it=float(it), noise=noise,
-            use_outside=use_outside, train=True, occ_fn=occ_fn,
-            radiance_fn=radiance_fn)
-        # SDPS-normal supervision starts at normal_after
-        norm_mask = batch["norm_mask"] & (it >= tcfg.normal_after)
-        terms = stage1_loss(out, batch["rgb_gt"], tcfg.weights,
-                            normal_gt=batch.get("normal_gt"),
-                            norm_mask=norm_mask, mask_gt=batch.get("mask_gt"),
-                            mask_valid=batch.get("mask_valid"), mesh=mesh)
-        terms["loss"].backward()
-        if mesh is not None:
-            all_reduce_grads([p.grad for p in params.values()], mesh)
-        lr = multistep_lr(tcfg.learning_rate, tcfg.milestone_iters,
-                          tcfg.gamma, it)
-        adam_update(params, {k: p.grad for k, p in params.items()},
-                    opt_state, lr)
+        with profiling.span("stage1.forward"):
+            occ_fn = radiance_fn = None
+            if use_fused_occ:
+                occ_fn = make_fused_occ_fn(field, field_cfg)
+            if use_fused_radiance:
+                radiance_fn = lambda p, rd: fused_radiance_and_alpha(
+                    field, p, rd, field_cfg, compute=compute)
+            params = field_params(field)
+            for p in params.values():
+                p.grad = None
+            out = render_unisurf(
+                field, field_cfg, rcfg, batch["pixels"],
+                batch["camera_mat"], batch["world_mat"], it=float(it),
+                noise=noise, use_outside=use_outside, train=True,
+                occ_fn=occ_fn, radiance_fn=radiance_fn)
+            # SDPS-normal supervision starts at normal_after
+            norm_mask = batch["norm_mask"] & (it >= tcfg.normal_after)
+            terms = stage1_loss(out, batch["rgb_gt"], tcfg.weights,
+                                normal_gt=batch.get("normal_gt"),
+                                norm_mask=norm_mask,
+                                mask_gt=batch.get("mask_gt"),
+                                mask_valid=batch.get("mask_valid"),
+                                mesh=mesh)
+        with profiling.span("stage1.backward"):
+            terms["loss"].backward()
+            if mesh is not None:
+                all_reduce_grads([p.grad for p in params.values()], mesh)
+        with profiling.span("stage1.optim"):
+            lr = multistep_lr(tcfg.learning_rate, tcfg.milestone_iters,
+                              tcfg.gamma, it)
+            adam_update(params, {k: p.grad for k, p in params.items()},
+                        opt_state, lr)
         terms = {k: world_sum(v.detach(), mesh) for k, v in terms.items()}
         terms["lr"] = torch.tensor(lr, dtype=torch.float32)
         return terms

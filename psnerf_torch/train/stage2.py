@@ -13,7 +13,8 @@ SVBRDF, normal, visibility and light optimisation, one step at a time.
 
 The step updates the parameters and the optimizer state in place and
 returns the loss terms as device tensors: nothing on its path reads a
-device value back to the host.
+device value back to the host. Its phases are the spans stage2.forward,
+stage2.backward (both in loss_and_grads) and stage2.optim.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from psnerf_torch.render.shading import render_psnet
 from psnerf_torch.train.losses import Stage2LossWeights, stage2_loss
 from psnerf_torch.train.optim import (adam_init, adam_update, multistep_lr,
                                       row_mask_from_indices)
+from psnerf_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,71 +119,83 @@ def make_stage2_train_step(cfg: PSNetConfig, tcfg: Stage2TrainConfig,
         tables = {k: params[k].detach().requires_grad_(True)
                   for k in ("light_dirs", "light_ints")}
         with torch.enable_grad():
-            l_slt = batch["l_slt"]
-            ldirs = tables["light_dirs"][l_slt]
-            ldirs = ldirs / torch.clamp_min(
-                torch.linalg.norm(ldirs, dim=-1, keepdim=True), 1e-12)
-            lints = tables["light_ints"][l_slt][:, 0]
-            ray_dirs, _ = get_camera_params(batch["uv"], batch["pose"],
-                                            batch["intrinsics"])
-            out = render_psnet(
-                params["model"], cfg, batch["points"], batch["normal"],
-                batch["surface_mask"], ray_dirs, ldirs, lints, noise=noise,
-                light_vis_train=batch.get("light_vis_train"))
-            override = {
-                "sg_rgb_weight": live * w.sg_rgb_weight,
-                "albedo_smooth_weight": live * w.albedo_smooth_weight,
-                "rough_smooth_weight": live * w.rough_smooth_weight,
-                "vis_weight": (tcfg.warmup_vis_weight if warm
-                               else w.vis_weight)}
-            terms = stage2_loss(out, batch["rgb_gt"], batch["object_mask"], w,
-                                vis_gt=batch.get("visibility"),
-                                vis_train_gt=batch.get("vis_train_gt"),
-                                weights_override=override, mesh=mesh)
-            leaves = {**mp, **tables}
-            grads = torch.autograd.grad(terms["loss"], list(leaves.values()),
-                                        allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(leaves.items(), grads)}
-        if mesh is not None:
-            all_reduce_grads(list(grads.values()), mesh)
+            with profiling.span("stage2.forward"):
+                l_slt = batch["l_slt"]
+                ldirs = tables["light_dirs"][l_slt]
+                ldirs = ldirs / torch.clamp_min(
+                    torch.linalg.norm(ldirs, dim=-1, keepdim=True), 1e-12)
+                lints = tables["light_ints"][l_slt][:, 0]
+                ray_dirs, _ = get_camera_params(batch["uv"], batch["pose"],
+                                                batch["intrinsics"])
+                out = render_psnet(
+                    params["model"], cfg, batch["points"], batch["normal"],
+                    batch["surface_mask"], ray_dirs, ldirs, lints,
+                    noise=noise,
+                    light_vis_train=batch.get("light_vis_train"))
+                override = {
+                    "sg_rgb_weight": live * w.sg_rgb_weight,
+                    "albedo_smooth_weight": live * w.albedo_smooth_weight,
+                    "rough_smooth_weight": live * w.rough_smooth_weight,
+                    "vis_weight": (tcfg.warmup_vis_weight if warm
+                                   else w.vis_weight)}
+                terms = stage2_loss(out, batch["rgb_gt"],
+                                    batch["object_mask"], w,
+                                    vis_gt=batch.get("visibility"),
+                                    vis_train_gt=batch.get("vis_train_gt"),
+                                    weights_override=override, mesh=mesh)
+            with profiling.span("stage2.backward"):
+                leaves = {**mp, **tables}
+                grads = torch.autograd.grad(terms["loss"],
+                                            list(leaves.values()),
+                                            allow_unused=True)
+                grads = {k: torch.zeros_like(p) if g is None else g
+                         for (k, p), g in zip(leaves.items(), grads)}
+                if mesh is not None:
+                    all_reduce_grads(list(grads.values()), mesh)
         return {k: world_sum(v.detach(), mesh) for k, v in terms.items()}, \
             grads
 
     def step(params: dict, opt_state: dict, batch: dict, it, noise: dict):
         terms, grads = loss_and_grads(params, batch, it, noise)
-        live = 0.0 if in_warmup(it) else 1.0
-        mp = model_params(params["model"])
-        # aliases of the light tables' storage, updated in place
-        tables = {k: params[k].detach() for k in ("light_dirs", "light_ints")}
-        l_slt = batch["l_slt"]
+        with profiling.span("stage2.optim"):
+            live = 0.0 if in_warmup(it) else 1.0
+            mp = model_params(params["model"])
+            # aliases of the light tables' storage, updated in place
+            tables = {k: params[k].detach()
+                      for k in ("light_dirs", "light_ints")}
+            l_slt = batch["l_slt"]
 
-        # gates: albedo and rough frozen in the warm-up; the normal net
-        # frozen when it is not trained jointly; light rows by this step's
-        # gather, the warm-up, ana_fixlight and light_(inten_)train
-        gate = {}
-        for k in mp:
-            head = k.split("/")[0]
-            gate[k] = (live if head in ("albedo", "rough")
-                       else 0.0 if head == "normal" and not cfg.normal_joint
-                       else 1.0)
-        light_live = live * float(not tcfg.ana_fixlight)
-        row = row_mask_from_indices(tables["light_dirs"].shape[0], l_slt)
-        if mesh is not None:             # the rows of the whole batch
-            row = (all_sum(row, mesh.groups[LIGHT_AXIS]) > 0).float()
-        lr_sg = multistep_lr(tcfg.sg_learning_rate, tcfg.milestone_iters,
-                             tcfg.gamma, it)
-        lr_l, lr_i = tcfg.light_learning_rate, tcfg.light_inten_lr
-        if tcfg.light_decay:
-            lr_l = multistep_lr(lr_l, tcfg.milestone_iters, tcfg.gamma, it)
-            lr_i = multistep_lr(lr_i, tcfg.milestone_iters, tcfg.gamma, it)
+            # gates: albedo and rough frozen in the warm-up; the normal
+            # net frozen when it is not trained jointly; light rows by this
+            # step's gather, the warm-up, ana_fixlight and
+            # light_(inten_)train
+            gate = {}
+            for k in mp:
+                head = k.split("/")[0]
+                gate[k] = (live if head in ("albedo", "rough")
+                           else 0.0 if head == "normal"
+                           and not cfg.normal_joint else 1.0)
+            light_live = live * float(not tcfg.ana_fixlight)
+            row = row_mask_from_indices(tables["light_dirs"].shape[0],
+                                        l_slt)
+            if mesh is not None:             # the rows of the whole batch
+                row = (all_sum(row, mesh.groups[LIGHT_AXIS]) > 0).float()
+            lr_sg = multistep_lr(tcfg.sg_learning_rate,
+                                 tcfg.milestone_iters, tcfg.gamma, it)
+            lr_l, lr_i = tcfg.light_learning_rate, tcfg.light_inten_lr
+            if tcfg.light_decay:
+                lr_l = multistep_lr(lr_l, tcfg.milestone_iters, tcfg.gamma,
+                                    it)
+                lr_i = multistep_lr(lr_i, tcfg.milestone_iters, tcfg.gamma,
+                                    it)
 
-        adam_update(mp, grads, opt_state["model"], lr_sg, gate=gate)
-        for name, lr, on in (("light_dirs", lr_l, tcfg.light_train),
-                             ("light_ints", lr_i, tcfg.light_inten_train)):
-            adam_update({name: tables[name]}, grads,
-                        _light_state(opt_state[name], name), lr,
-                        gate={name: row if light_live * on else 0.0})
+            adam_update(mp, grads, opt_state["model"], lr_sg, gate=gate)
+            for name, lr, on in (
+                    ("light_dirs", lr_l, tcfg.light_train),
+                    ("light_ints", lr_i, tcfg.light_inten_train)):
+                adam_update({name: tables[name]}, grads,
+                            _light_state(opt_state[name], name), lr,
+                            gate={name: row if light_live * on else 0.0})
         terms["sg_lr"] = torch.tensor(lr_sg, dtype=torch.float32)
         return terms
 

@@ -5,8 +5,9 @@ tests/test_cli.py:163-209, on the same 32x32 scene and the same configs
 -> stage2-train -> stage2-eval (plain, --render_envmap, --edit_albedo
 --edit_specular) -> evaluation (a finite PSNR) -> chamfer, with the same
 file contract. Also: plot_metrics draws the stage-1 metrics into a PNG of
-one panel per scalar; PhaseTimer and trace run on the CPU; the MetricLogger
-mirrors to TensorBoard and keeps its JSONL when the writer is missing;
+one panel per scalar; trace writes its spans beside its Chrome trace; the
+MetricLogger mirrors to TensorBoard and keeps its JSONL when the writer is
+missing;
 stage1-train and stage2-train with `--mesh-devices 2` train on two CPU
 ranks as a fresh process (and stage1-train as two torchrun processes)
 and write the checkpoint of a single-device run;
@@ -226,22 +227,27 @@ def test_device_defaults_to_the_card(workspace, monkeypatch):
 
 
 def test_phase_timer_and_trace_on_the_cpu(tmp_path):
-    from psnerf_torch.utils.profiling import PhaseTimer, trace
+    """trace() writes the Chrome trace and the session's spans beside it."""
+    from psnerf_torch.utils.profiling import span, trace
 
-    timer = PhaseTimer()
     x = torch.ones(64, 64)
     with trace(str(tmp_path / "trace")) as prof:
-        y = x @ x
-        timer.mark("matmul", {"out": [y]})
-        timer.mark("none")
-    assert prof is not None
-    assert any(e.key for e in prof.key_averages())
-    files = os.listdir(tmp_path / "trace")
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(tmp_path / "trace" / files[0]) as f:
+        with span("cli.matmul") as sp:
+            y = x @ x
+    assert prof is not None and y.shape == (64, 64)
+    assert any(e.key == "cli.matmul" for e in prof.key_averages())
+    files = sorted(os.listdir(tmp_path / "trace"))
+    assert len(files) == 2 and files[0] == f"spans_{os.getpid()}.jsonl"
+    assert files[1].startswith("trace_") and files[1].endswith(".json")
+    with open(tmp_path / "trace" / files[1]) as f:
         assert "traceEvents" in json.load(f)
-    s = timer.summary()
-    assert set(s) == {"matmul", "none"} and all(v >= 0 for v in s.values())
+    with open(tmp_path / "trace" / files[0]) as f:
+        lines = [json.loads(line) for line in f]
+    assert lines[-1] == {"counters": {}}
+    (rec,) = lines[:-1]
+    assert rec["name"] == "cli.matmul" and rec["id"] == sp.id
+    assert rec["cause"] is None and rec["root"] == sp.id
+    assert rec["end_ns"] - rec["start_ns"] == sp.end_ns - sp.start_ns > 0
     with trace(None) as nothing:
         assert nothing is None
 

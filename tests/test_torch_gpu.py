@@ -860,3 +860,35 @@ def test_stage1_runner_on_two_gloo_ranks_matches_one_process(tmp_path):
             for k, v in field_params(r.field).items():
                 d = np.abs(got["params"][k] - v.detach().cpu().numpy())
                 assert d.max() <= 2 * lr * steps * (1 + 1e-3), (name, k)
+
+
+def test_a_kernel_launched_in_a_span_starts_after_the_span_on_the_device():
+    """The spans' clock (time.time_ns()) is the one torch.profiler reports
+    device events in: a kernel launched inside a span starts on the card
+    after the span's start, and the span's record_function event lies
+    inside the span."""
+    _need_gpu()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from psnerf_torch.utils import profiling
+
+    x = torch.randn(2048, 2048, device="cuda")
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        with profiling.span("gpu.matmul") as sp:
+            y = x @ x
+        torch.cuda.synchronize()
+    assert y.shape == x.shape
+    kernels, annotation = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            kernels.append(e.start_ns())
+        elif e.name() == "gpu.matmul" and e.device_type() == DeviceType.CPU:
+            annotation.append((e.start_ns(),
+                               e.start_ns() + e.duration_ns()))
+    assert kernels and all(k >= sp.start_ns for k in kernels)
+    (a0, a1), = annotation
+    assert sp.start_ns <= a0 <= a1 <= sp.end_ns
