@@ -25,6 +25,7 @@ same way and gathers it on every rank. Only rank 0 writes files.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 
@@ -347,12 +348,18 @@ class Stage2Runner:
         light_ints: [L] or per-channel [L, 3]. albedo_new / basis_new:
         material edits (render_frame_stage2).
 
+        The full frames are assembled on the device in one buffer and read
+        back in one copy: on CUDA the arrays (all but mask) are views of a
+        page-locked host tensor that this result alone owns, so a result
+        kept across later calls stays as it was; on the CPU they are views
+        of the assembly buffer itself.
+
         use_fused_vis: route the visibility MLP through the CUDA kernels
         (auto: on when the device is CUDA and the net has visibility).
         compact: render only the surface-mask pixels (padded to the tile)
-        and scatter the results back with the reference's fill values
-        (auto: on when mask coverage < 0.6). Per-pixel math is independent,
-        so outputs are identical.
+        and scatter the results back on the device with the reference's
+        fill values (auto: on when mask coverage < 0.6). Per-pixel math is
+        independent, so outputs are identical.
 
         Under a mesh each ray rank renders its block of the (padded)
         pixels in tiles of tile // ray ranks, and on a rays x lights mesh
@@ -423,31 +430,34 @@ class Stage2Runner:
             else:
                 out = make_sharded_frame_renderer(
                     cfg, mesh, tile=rank_tile(tile, mesh), **kw)(*args)
-        res = {}
         # reference fill values outside the surface mask: ones everywhere
         # except sg_weight; rgb_sum's per-light ones sum to L
         fills = {"sg_weight": 0.0, "rgb_sum": float(len(light_dirs))}
-        for k, v in out.items():
-            with span("render_view.copy"):
-                v = profiling.to_host(v)
-            with span("render_view.scatter"):
+        with span("render_view.scatter"):
+            # every output at full-frame shape ([L, n, C] or [n, C]: the
+            # pixel axis is the second last), then the normals, in one flat
+            # device buffer
+            shapes = {k: v.shape[:-2] + (n, v.shape[-1])
+                      for k, v in out.items()}
+            shapes["normal_values"] = (n, 3)
+            sizes = [math.prod(s) for s in shapes.values()]
+            buf = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+            parts = {k: p.view(s) for (k, s), p in
+                     zip(shapes.items(), buf.split(sizes))}
+            for k, v in out.items():
+                ax = v.ndim - 2
+                v = v.narrow(ax, 0, n_out)
                 if compact:
-                    full_shape = ((v.shape[0], n) + v.shape[2:] if v.ndim == 3
-                                  else (n,) + v.shape[1:])
-                    full = np.full(full_shape, fills.get(k, 1.0), v.dtype)
-                    if v.ndim == 3:
-                        full[:, sel] = v[:, :n_out]
-                    else:
-                        full[sel] = v[:n_out]
-                    v = full
-                if v.ndim == 3:
-                    res[k] = v[:, :n].reshape(v.shape[0], h, w, -1)
+                    parts[k].fill_(fills.get(k, 1.0)).index_copy_(
+                        ax, sel_dev[:n_out], v)
                 else:
-                    res[k] = v[:n].reshape(h, w, -1)
-        res["mask"] = mask_np.reshape(h, w)
+                    parts[k].copy_(v)
+            parts["normal_values"].copy_(data["normals"][view])
         with span("render_view.copy"):
-            res["normal_values"] = profiling.to_host(
-                data["normals"][view]).reshape(h, w, 3)
+            host = profiling.to_pinned_host(buf)
+        res = {k: p.view(s[:-2] + (h, w, s[-1])).numpy() for (k, s), p in
+               zip(shapes.items(), host.split(sizes))}
+        res["mask"] = mask_np.reshape(h, w)
         return res
 
     def trained_lights_for_view(self, data, view: int):

@@ -16,7 +16,10 @@ the program; `sp.seconds` always holds its length, so callers read their
 legs from it. Spans nest per thread: each records the span that caused it
 (the enclosing one, or the `cause` given for work handed to another
 thread) and the root of its request (one per training step, rendered view
-or export call). `profiling.count(name, n)` adds to a named counter.
+or export call). `profiling.count(name, n)` adds to a named counter;
+`d2h_bytes` counts the read-backs of `to_host` and `to_pinned_host`,
+`d2h_pinned_bytes` those that went through page-locked memory (0 until
+one does).
 
 Tracing is on inside `trace()` and whenever a torch.profiler session is
 active (as in the benchmark's traced window). Only then does a span open
@@ -58,7 +61,8 @@ MAX_SPANS = 1 << 20
 class _Session:
     def __init__(self):
         self.spans = []
-        self.counters = {}
+        # named from the start, so a session that pinned nothing reads 0
+        self.counters = {"d2h_pinned_bytes": 0}
         self.lock = threading.Lock()
 
 
@@ -197,6 +201,22 @@ def to_host(x: torch.Tensor):
     program's device-to-host read-backs)."""
     count("d2h_bytes", x.nbytes)
     return x.cpu().numpy()
+
+
+def to_pinned_host(x: torch.Tensor) -> torch.Tensor:
+    """x as a host tensor of its own, counting its bytes as d2h_bytes. A
+    CUDA tensor is read back in one copy into page-locked memory (PyTorch's
+    caching host allocator, which takes the block back once nothing views
+    it), waited on, and its bytes count as d2h_pinned_bytes too; a CPU
+    tensor already is host memory and is returned as it is."""
+    count("d2h_bytes", x.nbytes)
+    if x.device.type != "cuda":
+        return x
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    torch.cuda.current_stream(x.device).synchronize()
+    count("d2h_pinned_bytes", x.nbytes)
+    return host
 
 
 def spans() -> list:

@@ -243,7 +243,7 @@ def test_phase_timer_and_trace_on_the_cpu(tmp_path):
         assert "traceEvents" in json.load(f)
     with open(tmp_path / "trace" / files[0]) as f:
         lines = [json.loads(line) for line in f]
-    assert lines[-1] == {"counters": {}}
+    assert lines[-1] == {"counters": {"d2h_pinned_bytes": 0}}
     (rec,) = lines[:-1]
     assert rec["name"] == "cli.matmul" and rec["id"] == sp.id
     assert rec["cause"] is None and rec["root"] == sp.id

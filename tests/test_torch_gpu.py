@@ -892,3 +892,80 @@ def test_a_kernel_launched_in_a_span_starts_after_the_span_on_the_device():
     assert kernels and all(k >= sp.start_ns for k in kernels)
     (a0, a1), = annotation
     assert sp.start_ns <= a0 <= a1 <= sp.end_ns
+
+
+RENDER_VIEW_OUTPUTS = ("rgb", "rgb_sum", "albedo", "rough", "sg_weight",
+                       "visibility", "normal_pred")
+
+
+@pytest.fixture(scope="module")
+def card_stage2(tmp_path_factory):
+    """A Stage2Runner on the card over a 32x32 synthetic scene (81% of
+    each view on the surface) with small PSNet widths; the visibility
+    trunk is 64 wide, the kernels' narrowest."""
+    _need_gpu()
+    import os
+
+    from psnerf_torch.config import Stage2Config
+    from psnerf_torch.data.synthetic import (generate_synthetic_scene,
+                                             write_stage1_exports)
+    from psnerf_torch.fields.psnet import PSNetConfig
+    from psnerf_torch.runners.stage2 import Stage2Runner
+    from psnerf_torch.train.stage2 import Stage2TrainConfig
+
+    d = str(tmp_path_factory.mktemp("s2_scene"))
+    generate_synthetic_scene(d, n_views=3, n_test=1, n_lights=6,
+                             hw=(32, 32), ragged_lights=True)
+    write_stage1_exports(d, os.path.join(d, "exports"), n_vis_plus=6)
+    cfg = Stage2Config(
+        net=PSNetConfig(mlp_width=32, sg_mlp_width=16, normal_mlp_width=32,
+                        vis_mlp_width=64, vis_mlp_depth=4, vis_mlp_skip_at=2,
+                        n_freqs_xyz=4, normal_n_freqs_xyz=4, light_int=1.2),
+        train=Stage2TrainConfig(warmup_iters=10), data_dir=d,
+        stage1_shape_path=os.path.join(d, "exports"), inten_normalize=None,
+        light_bs=4, vis_train_num=4, num_pixels=256, train_all_pixels=False)
+    return Stage2Runner(cfg, str(tmp_path_factory.mktemp("s2_wd")),
+                        resume=False, device="cuda")
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_render_view_assembles_on_the_card_into_pinned_host_memory(
+        card_stage2, monkeypatch, tmp_path, compact):
+    """Every output kind, compact and full: the arrays equal a numpy
+    assembly of the same frame's outputs bit for bit, view page-locked
+    host tensors, and a kept result survives two later renders of another
+    view of the same shapes unchanged; those views' read-backs all count
+    as pinned bytes."""
+    from frame_assembly import capture_frames, host_assembly
+    from psnerf_torch.utils import profiling
+
+    r = card_stage2
+    data = r._eval_data("train")
+    lights = r.trained_lights_for_view(data, 0)
+    kw = dict(tile=256, outputs=RENDER_VIEW_OUTPUTS, compact=compact)
+    frames = capture_frames(monkeypatch)
+    got = r.render_view(data, 0, *lights, **kw)
+    h, w = data["img_res"]
+    want = host_assembly(
+        frames[0], data["surface_mask"][0].cpu().numpy().reshape(h, w) > 0,
+        len(lights[0]), data["normals"][0].cpu().numpy(), compact)
+    assert set(got) == set(want) == set(RENDER_VIEW_OUTPUTS) | {
+        "mask", "normal_values"}
+    for k, a in want.items():
+        assert got[k].dtype == a.dtype and got[k].shape == a.shape, k
+        np.testing.assert_array_equal(got[k], a, err_msg=k)
+        if k != "mask":
+            base = got[k]
+            while isinstance(base, np.ndarray):
+                base = base.base
+            assert isinstance(base, torch.Tensor) and base.is_pinned(), k
+    before = {k: a.copy() for k, a in got.items()}
+    with profiling.trace(str(tmp_path)):
+        for _ in range(2):
+            later = r.render_view(data, 1, *lights, **kw)
+    for k, a in before.items():
+        np.testing.assert_array_equal(got[k], a, err_msg=k)
+    pinned = sum(a.nbytes for k, a in later.items() if k != "mask")
+    counted = profiling.counters()
+    assert counted["d2h_pinned_bytes"] == 2 * pinned
+    assert counted["d2h_bytes"] == 2 * (pinned + later["mask"].nbytes)

@@ -204,3 +204,67 @@ def test_render_view_matches_jax_for_rgb_sum(runners):
     for k in outs:
         np.testing.assert_allclose(got[k], ref[k], atol=1e-4, rtol=0,
                                    err_msg=k)
+
+
+ALL_OUTPUTS = ("rgb", "rgb_sum", "albedo", "rough", "sg_weight",
+               "visibility", "normal_pred")
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_render_view_assembles_the_host_frames_bit_for_bit(
+        runners, monkeypatch, compact):
+    """The device assembly gives what a numpy scatter of the same frame's
+    outputs into full frames of the reference fills gives, value for
+    value, dtype and shape."""
+    from frame_assembly import capture_frames, host_assembly
+
+    _, pr = runners
+    data = pr._eval_data("train")
+    dirs, ints = pr.trained_lights_for_view(data, 1)
+    frames = capture_frames(monkeypatch)
+    got = pr.render_view(data, 1, dirs, ints, tile=TILE, outputs=ALL_OUTPUTS,
+                         compact=compact)
+    h, w = data["img_res"]
+    want = host_assembly(
+        frames[0], data["surface_mask"][1].numpy().reshape(h, w) > 0,
+        len(dirs), data["normals"][1].numpy(), compact)
+    assert set(got) == set(want) == set(ALL_OUTPUTS) | {"mask",
+                                                        "normal_values"}
+    for k, a in want.items():
+        assert got[k].dtype == a.dtype and got[k].shape == a.shape, k
+        np.testing.assert_array_equal(got[k], a, err_msg=k)
+
+
+def test_render_view_result_is_not_overwritten_by_later_views(runners):
+    """A result kept across later render_views of another view, of the
+    same shapes (one set of lights), is unchanged and shares no memory
+    with theirs."""
+    _, pr = runners
+    data = pr._eval_data("train")
+    lights = pr.trained_lights_for_view(data, 0)
+    kept = pr.render_view(data, 0, *lights, tile=TILE, outputs=ALL_OUTPUTS)
+    before = {k: a.copy() for k, a in kept.items()}
+    for _ in range(2):
+        later = pr.render_view(data, 1, *lights, tile=TILE,
+                               outputs=ALL_OUTPUTS)
+        for k, a in later.items():
+            assert not np.shares_memory(a, kept[k]), k
+    for k, a in before.items():
+        np.testing.assert_array_equal(kept[k], a, err_msg=k)
+
+
+def test_render_view_counts_its_read_back_bytes(runners, tmp_path):
+    """Under a trace, d2h_bytes counts the whole frame that render_view
+    returns (every output at full-frame shape, the normals, the mask);
+    on the CPU nothing goes through page-locked memory."""
+    from psnerf_torch.utils import profiling
+
+    _, pr = runners
+    data = pr._eval_data("test")
+    dirs, ints = pr.trained_lights_for_view(data, 0)
+    with profiling.trace(str(tmp_path)):
+        r = pr.render_view(data, 0, dirs, ints, tile=TILE,
+                           outputs=ALL_OUTPUTS, compact=True)
+    counted = profiling.counters()
+    assert counted["d2h_bytes"] == sum(a.nbytes for a in r.values())
+    assert counted["d2h_pinned_bytes"] == 0

@@ -2,7 +2,8 @@
 CPU: off, a span records nothing and never enters record_function; under
 torch.profiler, spans nest with their cause and root on the profiler's own
 clock; work handed to a thread keeps its cause; each tracing session holds
-only its own records; counters add only while tracing. And one traced toy
+only its own records; counters add only while tracing, and
+d2h_pinned_bytes reads 0 in a session that pinned nothing. And one traced toy
 run of each benchmark cell reports the per-layer metrics that read them.
 """
 
@@ -121,7 +122,23 @@ def test_count_adds_only_while_tracing():
         profiling.count("c.n")
         profiling.to_host(torch.zeros(4, 3))
     profiling.count("c.n", 7)
-    assert profiling.counters() == {"c.n": 3, "d2h_bytes": 48}
+    assert profiling.counters() == {"c.n": 3, "d2h_bytes": 48,
+                                    "d2h_pinned_bytes": 0}
+
+
+def test_pinned_bytes_is_a_named_counter_that_reads_zero_unpinned(tmp_path):
+    """Every session names d2h_pinned_bytes from its start, so a reader
+    tells "nothing pinned" (0) from a program without the counter; a CPU
+    read-back through to_pinned_host counts as d2h_bytes alone and returns
+    the tensor itself."""
+    with profile():
+        profiling.count("other")
+        assert profiling.counters() == {"other": 1, "d2h_pinned_bytes": 0}
+    x = torch.arange(6.0)
+    with profiling.trace(str(tmp_path)):
+        assert profiling.counters() == {"d2h_pinned_bytes": 0}
+        assert profiling.to_pinned_host(x) is x
+    assert profiling.counters() == {"d2h_bytes": 24, "d2h_pinned_bytes": 0}
 
 
 def _toy():
