@@ -1,6 +1,7 @@
-"""render_view's device-to-host copies in ms a view: the program's spans
-render_view.copy (each output's .cpu(), which first waits for the frame's
-kernels, and the normals') over the window's views."""
+"""render_view's device-to-host read-back in ms a view: the program's
+spans render_view.copy (one copy of the assembled frame into page-locked
+memory and its wait, which first waits for the frame's device work) over
+the window's views."""
 
 from benchmark import program_spans
 

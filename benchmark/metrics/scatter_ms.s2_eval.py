@@ -1,6 +1,7 @@
-"""The host's scatter of render_view's outputs into full frames, in ms a
-view: the program's spans render_view.scatter (np.full, the fancy-index
-fill and the reshape of each output) over the window's views."""
+"""render_view's assembly of its outputs into full frames on the device,
+in ms a view: the program's spans render_view.scatter (the enqueue of one
+flat device buffer, each output's fill and index_copy_ at the mask's
+pixels or its slice copy, and the normals) over the window's views."""
 
 from benchmark import program_spans
 

@@ -14,8 +14,7 @@ SMALL_SCENE = {"hw": [128, 153], "focal_px": 1825.0}
 SMALL = {
     "s1_train_bear": {"cfg": {"training": {"n_training_points": 512},
                               "dataset_shape": SMALL_SCENE}},
-    "s2_train_bear": {"cfg": {"train": {"num_pixels": 2048},
-                              "dataset_shape": SMALL_SCENE}},
+    "s2_train_bear": {"cfg": {"dataset_shape": SMALL_SCENE}},
     "s2_eval_bear": {"cfg": {"dataset_shape": SMALL_SCENE},
                      "params": {"pick_from": 2, "pixels": 512}},
     "s1_export_bear": {"cfg": {"dataset_shape": SMALL_SCENE},

@@ -25,8 +25,10 @@ def no_update(monkeypatch, module):
 
 
 def half_batch(monkeypatch, runners, name, n_key, fields, light_fields):
-    """Wrap the runner module's step factory: the step sees the first half
-    of each batch's rows and jitter draws."""
+    """Wrap the runner module's step factory: the step sees every other
+    row of each batch and its jitter draws. (Not the first half: the
+    stage-2 sampler puts the object's pixels first, and where a batch holds
+    every pixel of a view its first half holds all of them.)"""
     make = getattr(runners, name)
 
     def wrapped(*a, **kw):
@@ -35,16 +37,16 @@ def half_batch(monkeypatch, runners, name, n_key, fields, light_fields):
         def half(*args, **kwargs):
             args = list(args)
             batch, noise = dict(args[2]), dict(args[4])
-            n = batch[n_key].shape[0] // 2
+            half = slice(0, batch[n_key].shape[0], 2)
             for k in fields:
                 if k in batch:
-                    batch[k] = batch[k][:n]
+                    batch[k] = batch[k][half]
             for k in light_fields:
                 if k in batch:
-                    batch[k] = batch[k][:, :n]
+                    batch[k] = batch[k][:, half]
             for k, v in noise.items():
                 if v.ndim:
-                    noise[k] = v[:n]
+                    noise[k] = v[half]
             args[2], args[4] = batch, noise
             return step(*args, **kwargs)
 

@@ -126,6 +126,35 @@ def summarize(prof, top: int = 10) -> dict:
         "idle_gaps": gaps}
 
 
+def device_only(cuda: bool = True):
+    """A profiler of the device alone (on the CPU, of its operators), for a
+    window whose end-to-end metric is read from the device's trace."""
+    return profile(activities=[ProfilerActivity.CUDA if cuda
+                               else ProfilerActivity.CPU])
+
+
+def kernel_busy_seconds(prof, cuda: bool = True) -> float:
+    """The union of the intervals in which the device ran a kernel (on CUDA
+    copies and sets left out; on the CPU, for the CPU tests, the aten
+    operators)."""
+    s, e = [], []
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if cuda:
+            if (ev.device_type() != DeviceType.CUDA or ev.is_user_annotation()
+                    or name.startswith(("Memcpy", "Memset"))):
+                continue
+        elif not name.startswith("aten::"):
+            continue
+        t = ev.start_ns() / 1e3
+        s.append(t)
+        e.append(t + ev.duration_ns() / 1e3)
+    if not s:
+        return 0.0
+    ms, me = _merge(np.asarray(s), np.asarray(e))
+    return float(np.sum(me - ms)) / 1e6
+
+
 def kernel_seconds(summary: dict, patterns) -> tuple:
     """(seconds, launches) of the window's device kernels whose names
     contain any of `patterns`."""

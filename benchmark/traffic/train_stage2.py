@@ -1,15 +1,20 @@
 """Stage-2 training as the command line runs it: `Stage2Runner.train` with
-the configuration's plot and checkpoint cadence, on a scene, its analytic
-stage-1 shape export and PSNet weights made from the seed, resumed from a
+the configuration's checkpoint cadence, on a scene, its analytic stage-1
+shape export and PSNet weights made from the seed, resumed from a
 checkpoint at `resume_it` (past the warm-up).
 
-Resuming at a multiple of plot_freq plots at entry, in set-up, so the
-test split is loaded and the plot path warm before the window. Set-up
-then drives the runner's own loop through the first `first_steps` steps
+Set-up drives the runner's own loop through the first `first_steps` steps
 (recording the sampler's draws and each step's loss) and `warm_steps`
 more; the window continues the loop for --seconds (the runner's wall
-budget). The reference follows the first steps from the same weights and
-the recorded draws, gathering every batch again from the scene's files.
+budget), and at the latest up to the next multiple of plot_freq, where it
+stops before the plot: every window holds the same kind of step and one
+checkpoint, the wall budget's or the last step's, at its end. Set-up plots
+nothing, since the window never does. The reference follows the first
+steps from the same weights and the recorded draws, gathering every batch
+again from the scene's files.
+
+The window records the process's device memory peak at its close in
+run.work["peak_mem_gb"].
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ from benchmark.scene import synthetic
 from benchmark.traffic.train_stage1 import spy
 
 # faults the calibration reads beside the control: half of each batch
-# left out, the mean taken over the rest
+# left out, the mean taken over the rest. Every other pixel goes: the
+# sampler puts the object's pixels first, and at every pixel of a view the
+# first half holds all of them, which leaves the masked means unchanged.
 FAULTS = ("half",)
 
 
@@ -131,11 +138,11 @@ def setup(run):
     p = run.params
     n = p["first_steps"]
     draws, losses = spy(runner, n, record)
-    runner.train(runner.it + 1, plot_every=runner.cfg.plot_freq)
+    runner.train(runner.it + 1)
     g1 = first_moments(runner)
-    runner.train(p["resume_it"] + n, plot_every=runner.cfg.plot_freq)
+    runner.train(p["resume_it"] + n)
     w_n = {k: v.detach().clone() for k, v in leaves(runner).items()}
-    runner.train(runner.it + p["warm_steps"], plot_every=runner.cfg.plot_freq)
+    runner.train(runner.it + p["warm_steps"])
     run.work.update(num_pixels=runner.num_pixels, light_bs=runner.light_bs,
                     vis_train_num=runner.cfg.vis_train_num)
     return {"runner": runner, "net": net, "w0": w0, "scene": scene,
@@ -147,12 +154,15 @@ def setup(run):
 def window(run, state):
     runner = state["runner"]
     it0 = runner.it
+    plot_freq = runner.cfg.plot_freq
     run.sync()
     t0 = time.perf_counter()
-    runner.train(10 ** 9, plot_every=runner.cfg.plot_freq,
+    runner.train((it0 // plot_freq + 1) * plot_freq, plot_every=plot_freq,
                  wall_budget_s=run.seconds)
     run.sync()
     elapsed = time.perf_counter() - t0
+    if run.device != "cpu":
+        run.work["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     steps = runner.it - it0
     return {"attempted": steps, "failed": 0, "elapsed": elapsed,
             "metrics": {"stage2_step_ms": elapsed * 1e3 / steps}}
@@ -211,7 +221,7 @@ def reference(run, out, control=False, half=False):
     batches, noises = [], []
     for d in out["draws"]:
         n = d["batch"]["pix"].shape[0]
-        keep = slice(None) if not half else slice(0, n // 2)
+        keep = slice(None) if not half else slice(0, n, 2)
         batches.append(gather(data, lw_init, vp_dirs, d, keep))
         noises.append({k: v[keep] for k, v in d["noise"].items()})
     with precision(control):
