@@ -5,21 +5,21 @@ Reference: preprocessing/test.py + test_utils.py:18-92 +
 datasets/UPS_Custom_Dataset.py:26-107. Per view: mask-crop (15 px pad,
 then pad to a multiple of 4), LCNet at the 128x128 canonical resolution
 for light estimation, NENet at the cropped resolution for normals,
-re-embed the outputs into the full frame, save outnpy/view_XX.npy +
-outimg/view_XX.png, and per dataset light_direction_pred.npy +
-light_intensity_pred.npy.
+re-embed the outputs into the full frame (sdps_view, on images a caller
+holds), save outnpy/view_XX.npy + outimg/view_XX.png, and per dataset
+light_direction_pred.npy + light_intensity_pred.npy (run_sdps).
 """
 
 from __future__ import annotations
 
 import json
 import os
-import time
 
 import numpy as np
 import torch
 
 from psnerf_torch.data.scene import imread, imwrite
+from psnerf_torch.utils import profiling
 
 
 def resize_bilinear_align(img: np.ndarray, th: int, tw: int) -> np.ndarray:
@@ -97,6 +97,63 @@ def sdps_inputs(imgs: np.ndarray, mask: np.ndarray, test_hw=(128, 128)):
             mask_lc.astype(np.float32))
 
 
+def sdps_view(lcnet, nenet, imgs: np.ndarray, mask: np.ndarray,
+              test_hw: tuple = (128, 128)) -> dict:
+    """LCNet and NENet on one view's light images [L, H, W, 3] and mask [H,
+    W], as read_view returns them, on the device the nets' parameters are
+    on: the mask crop and pad, LCNet at test_hw for the lights (read back
+    before NENet runs), NENet at the padded crop for the normals, read back
+    and re-embedded into the full frame (test_utils.py:56-67). Returns
+    {"dirs" [L, 3] (camera frame), "intens" [L], "normal" [H, W, 3] (zero
+    outside the crop, masked inside it), "crop" (top, left, bottom,
+    right), "timings" (this view's host seconds as run_sdps describes
+    them: "crop_s", "lcnet_s", "nenet_s"; and "crop_hw", NENet's padded
+    crop)}.
+
+    Spans: sdps.view (the root) over sdps.prepare (the crop, the pad, the
+    resize, the uploads), sdps.lcnet (LCNet and the lights' read-back, which
+    waits for it), sdps.nenet (NENet's enqueue) and sdps.readback (the
+    normals' read-back, which waits for NENet, and the re-embedding).
+    Counters: sdps.lcnet_px (lights x test_hw pixels) and sdps.nenet_px
+    (lights x padded crop pixels)."""
+    span = profiling.span
+    dev = next(lcnet.parameters()).device
+    h0, w0 = mask.shape
+    with span("sdps.view"):
+        with span("sdps.prepare") as prep:
+            cropped, cmask, crop, imgs_lc, mask_lc = sdps_inputs(imgs, mask,
+                                                                 test_hw)
+            x_lc = torch.as_tensor(imgs_lc.transpose(0, 3, 1, 2), device=dev)
+            m_lc = torch.as_tensor(mask_lc[None], device=dev)
+            x_ne = torch.as_tensor(cropped.transpose(0, 3, 1, 2), device=dev)
+        n_l = cropped.shape[0]
+        profiling.count("sdps.lcnet_px", n_l * test_hw[0] * test_hw[1])
+        profiling.count("sdps.nenet_px",
+                        n_l * cropped.shape[1] * cropped.shape[2])
+        with torch.no_grad():
+            # LCNet at the canonical resolution
+            with span("sdps.lcnet") as lc:
+                pred = lcnet(x_lc, m_lc)
+                dirs = profiling.to_host(pred["dirs"])       # [L, 3]
+                intens = profiling.to_host(pred["intens"])   # [L]
+            # NENet at the cropped resolution
+            with span("sdps.nenet") as ne:
+                normal = nenet(x_ne, pred["dirs"], pred["intens"])
+        with span("sdps.readback") as back:
+            normal = profiling.to_host(normal).transpose(1, 2, 0) \
+                * cmask[..., None]
+            norm0 = np.zeros((h0, w0, 3), np.float32)
+            ch = crop[2] - crop[0]
+            cw = crop[3] - crop[1]
+            norm0[crop[0]:crop[0] + ch, crop[1]:crop[1] + cw] = \
+                normal[:ch, :cw]
+    timings = {"crop_s": prep.seconds, "lcnet_s": lc.seconds,
+               "nenet_s": ne.seconds + back.seconds,
+               "crop_hw": list(cropped.shape[1:3])}
+    return {"dirs": dirs, "intens": intens, "normal": norm0, "crop": crop,
+            "timings": timings}
+
+
 def run_sdps(
     data_dir: str,
     lcnet,
@@ -108,10 +165,13 @@ def run_sdps(
     timings: dict | None = None,
 ) -> str:
     """Runs the LCNet and NENet modules (psnerf_torch.preprocess.sdps) on
-    the device their parameters are on; returns the output directory.
-    `timings`, if given, gets per-view lists of host seconds ("read_s":
-    the PNGs; "crop_s": the crops and LCNet's resize; "lcnet_s", "nenet_s"
-    with their copies; "write_s") and the NENet crop sizes ("crop_hw")."""
+    the device their parameters are on, one view at a time through
+    sdps_view; returns the output directory. `timings`, if given, gets
+    per-view lists of host seconds ("read_s": the PNGs; "crop_s": the crops,
+    LCNet's resize and the uploads; "lcnet_s": LCNet and the lights'
+    read-back; "nenet_s": NENet, the normals' read-back and the
+    re-embedding; "write_s") and the NENet crop sizes ("crop_hw"). Spans
+    sdps.read and sdps.write beside sdps_view's."""
     with open(os.path.join(data_dir, "params.json")) as f:
         para = json.load(f)
     n_view = para["n_view"]
@@ -132,56 +192,27 @@ def run_sdps(
     img_root = "img_intnorm_gt" if light_intnorm_gt else "img"
     lslt = (para[f"light_slt_{train_light}"]
             if light_is_same and train_light is not None else None)
-    dev = next(lcnet.parameters()).device
     clock = {k: [] for k in ("read_s", "crop_s", "lcnet_s", "nenet_s",
                              "write_s", "crop_hw")}
-
-    def lap(key, t0):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        clock[key].append(time.perf_counter() - t0)
-        return time.perf_counter()
 
     all_dirs, all_ints = [], []
     for vi in range(n_view):
         view = f"view_{vi + 1:02d}"
-        t0 = time.perf_counter()
-        imgs, mask = read_view(data_dir, view, img_root, lslt)
-        h0, w0 = mask.shape
-        t0 = lap("read_s", t0)
-        cropped, cmask, crop, imgs_lc, mask_lc = sdps_inputs(imgs, mask,
-                                                             test_hw)
-        clock["crop_hw"].append(list(cropped.shape[1:3]))
-        t0 = lap("crop_s", t0)
+        with profiling.span("sdps.read") as sp:
+            imgs, mask = read_view(data_dir, view, img_root, lslt)
+        clock["read_s"].append(sp.seconds)
+        r = sdps_view(lcnet, nenet, imgs, mask, test_hw)
+        for key, value in r["timings"].items():
+            clock[key].append(value)
+        with profiling.span("sdps.write") as sp:
+            norm0 = r["normal"]
+            np.save(os.path.join(out_dir, "outnpy", f"{view}.npy"), norm0)
+            vis = ((norm0 / 2 + 0.5) * 255).clip(0, 255).astype(np.uint8)
+            imwrite(os.path.join(out_dir, "outimg", f"{view}.png"), vis)
+        clock["write_s"].append(sp.seconds)
 
-        with torch.no_grad():
-            # LCNet at the canonical resolution
-            pred = lcnet(torch.as_tensor(imgs_lc.transpose(0, 3, 1, 2),
-                                         device=dev),
-                         torch.as_tensor(mask_lc[None], device=dev))
-            dirs = pred["dirs"].cpu().numpy()        # [L, 3] camera frame
-            intens = pred["intens"].cpu().numpy()    # [L]
-            t0 = lap("lcnet_s", t0)
-            # NENet at the cropped resolution
-            normal = nenet(torch.as_tensor(cropped.transpose(0, 3, 1, 2),
-                                           device=dev),
-                           pred["dirs"], pred["intens"])
-            normal = normal.cpu().numpy().transpose(1, 2, 0) \
-                * cmask[..., None]
-        t0 = lap("nenet_s", t0)
-
-        # re-embed into the full frame (test_utils.py:56-67)
-        norm0 = np.zeros((h0, w0, 3), np.float32)
-        ch = crop[2] - crop[0]
-        cw = crop[3] - crop[1]
-        norm0[crop[0]:crop[0] + ch, crop[1]:crop[1] + cw] = normal[:ch, :cw]
-        np.save(os.path.join(out_dir, "outnpy", f"{view}.npy"), norm0)
-        vis = ((norm0 / 2 + 0.5) * 255).clip(0, 255).astype(np.uint8)
-        imwrite(os.path.join(out_dir, "outimg", f"{view}.png"), vis)
-        lap("write_s", t0)
-
-        all_dirs.append(dirs)
-        all_ints.append(intens)
+        all_dirs.append(r["dirs"])
+        all_ints.append(r["intens"])
 
     # light_is_same=false: object arrays of per-view [L_v, ...]
     np.save(os.path.join(out_dir, "light_direction_pred.npy"),

@@ -534,10 +534,11 @@ class Stage2Runner:
                             .astype(np.float32))
         barrier(self.mesh)
 
+    @profiling.spanned("render_envmap")
     def render_envmap(self, out_dir: str, envmap: np.ndarray,
                       split: str = "test", light_h: int = 16,
                       gamma: float = 1.0, envmap_scale: float = 1.0,
-                      tile: int = 4096):
+                      tile: int = 4096, on_view=None):
         """Relight every view of a split under a lat-long envmap [light_h,
         2 * light_h, 3] (stage2/eval.py:173-231): one directional light per
         texel with the texel's rgb (times envmap_scale) as per-channel
@@ -545,7 +546,15 @@ class Stage2Runner:
         (each chunk's sum on the device, one light-sum launch on the card;
         the chunks added on the host in order), clipped, gamma-mapped,
         white off the mask; writes rgb/img/view_XX.png and
-        light_probe.png (rank 0 of a mesh writes)."""
+        light_probe.png (rank 0 of a mesh writes).
+
+        on_view: if given, called as on_view(v, img) with each view's index
+        in the split and its float frame [H, W, 3] as written (clipped,
+        gamma-mapped, white off the mask), before its PNG is encoded.
+
+        Spans: render_envmap (the root), render_envmap.chunk (each chunk's
+        render_view), render_envmap.write (the PNG encoding)."""
+        span = profiling.span
         data = self._eval_data(split)
         lxyz, _ = gen_light_xyz(light_h, 2 * light_h, envmap_radius=1.0)
         dirs = lxyz.reshape(-1, 3)
@@ -553,21 +562,26 @@ class Stage2Runner:
         texels = envmap.reshape(-1, 3).astype(np.float32) * envmap_scale
         if self.writes:
             os.makedirs(os.path.join(out_dir, "rgb", "img"), exist_ok=True)
-            imwrite(os.path.join(out_dir, "light_probe.png"),
-                    vis_light_probe(envmap * envmap_scale, light_h * 8))
+            with span("render_envmap.write"):
+                imwrite(os.path.join(out_dir, "light_probe.png"),
+                        vis_light_probe(envmap * envmap_scale, light_h * 8))
         for v, vi in enumerate(data["views"]):
             acc = 0.0
             for s in range(0, len(dirs), ENV_CHUNK):
-                r = self.render_view(data, v, dirs[s:s + ENV_CHUNK],
-                                     texels[s:s + ENV_CHUNK], tile,
-                                     outputs=("rgb_sum",))
+                with span("render_envmap.chunk"):
+                    r = self.render_view(data, v, dirs[s:s + ENV_CHUNK],
+                                         texels[s:s + ENV_CHUNK], tile,
+                                         outputs=("rgb_sum",))
                 acc = acc + r["rgb_sum"]
             img = np.power(np.clip(acc, 0, 1), 1.0 / gamma)
             mask = r["mask"][..., None]
             img = img * mask + (1 - mask)
+            if on_view is not None:
+                on_view(v, img)
             if self.writes:
-                imwrite(os.path.join(out_dir, "rgb", "img",
-                                     f"view_{vi + 1:02d}.png"), _to8(img))
+                with span("render_envmap.write"):
+                    imwrite(os.path.join(out_dir, "rgb", "img",
+                                         f"view_{vi + 1:02d}.png"), _to8(img))
         barrier(self.mesh)
         return out_dir
 
