@@ -283,9 +283,9 @@ def light_block(x: torch.Tensor, mesh: Mesh, dim: int = 0,
 
 
 # keys whose FIRST axis is the pixel axis
-_STAGE2_PIX0 = ("uv", "object_mask", "points", "normal", "surface_mask")
+STAGE2_PIX0 = ("uv", "object_mask", "points", "normal", "surface_mask")
 # keys whose SECOND axis is the pixel axis (leading light axis)
-_STAGE2_PIX1 = ("rgb_gt", "visibility", "vis_train_gt")
+STAGE2_PIX1 = ("rgb_gt", "visibility", "vis_train_gt")
 _STAGE1_PIX0 = ("pixels", "rgb_gt", "normal_gt", "norm_mask", "mask_gt",
                 "mask_valid")
 
@@ -310,9 +310,9 @@ def shard_stage2_batch_2d(batch: dict, mesh: Mesh) -> dict:
                                else ("light_vis_train",))
     out = {}
     for k, v in batch.items():
-        if k in _STAGE2_PIX0:
+        if k in STAGE2_PIX0:
             v = ray_block(v, mesh, 0, k)
-        elif k in _STAGE2_PIX1:
+        elif k in STAGE2_PIX1:
             if k != "vis_train_gt":
                 v = light_block(v, mesh, 0, k)
             v = ray_block(v, mesh, 1, k)

@@ -6,6 +6,9 @@ newest checkpoint (params and optimizer state), trains step by step on its
 device, and renders every test view under every light with the frame
 renderer (on a CUDA device through the fused_vis kernels). Losses stay on
 the device between logs: the only reads back to the host are at log time.
+A step shades only the first n_live pixels of its drawn batch, those the
+losses can see first (train.stage2.live_rows); sample() still returns
+the whole draw.
 
 Relighting under an environment map (render_envmap) sums the light
 kernel's per-pixel light sums over chunks of 128 envmap texels, each a
@@ -52,9 +55,10 @@ from psnerf_torch.train.checkpoints import (latest_checkpoint,
                                             load_checkpoint, load_tree,
                                             save_checkpoint)
 from psnerf_torch.train.logging import MetricLogger
+from psnerf_torch.train.losses import loss_mask
 from psnerf_torch.train.stage2 import (init_stage2_params,
                                        light_direction_error_deg,
-                                       make_stage2_train_step)
+                                       live_rows, make_stage2_train_step)
 from psnerf_torch.utils import profiling
 
 _to8 = lambda x: (np.clip(x, 0, 1) * 255).astype(np.uint8)
@@ -96,6 +100,14 @@ class Stage2Runner:
                     raise ValueError(f"{what}={n} not divisible by the "
                                      f"mesh's {mesh.shape[axis]} {axis} "
                                      "ranks")
+        # every loss term is a masked mean over loss_mask, so each step
+        # shades a static prefix of its batch (live_rows) that holds the
+        # most such pixels a train view has, in blocks of the ray ranks:
+        # one read-back, here
+        live = loss_mask(self.data["object_masks"],
+                         self.data["surface_mask"]).sum(1).max()
+        ranks = mesh.shape[RAY_AXIS] if mesh is not None else 1
+        self.n_live = min(-(-int(live) // ranks) * ranks, self.num_pixels)
 
         # ---- light table init (trainer.py:132-163) ----
         cnt = self.light_count
@@ -177,7 +189,7 @@ class Stage2Runner:
         its device: a view, then the sampler's lights, pixels and vis_plus
         rows. Without vis_plus the visibility net is supervised on the
         initial directions of the step's lights. Whole, on every rank of a
-        mesh."""
+        mesh, and before live_rows cuts it to n_live pixels."""
         cfg, dev, gen = self.cfg, self.device, self.generator
         view = torch.randint(0, self.n_views, (1,), generator=gen, device=dev)
         use_vp = cfg.vis_plus and "vis_plus" in self.data
@@ -221,7 +233,9 @@ class Stage2Runner:
                         self.plot_to_disk(os.path.join(
                             self.workdir, "plots", f"it_{self.it}.png"))
                 with profiling.span("stage2.sample"):
-                    batch, noise = self.sample()
+                    batch, noise = live_rows(*self.sample(), self.n_live)
+                    profiling.count("stage2.drawn_px", self.num_pixels)
+                    profiling.count("stage2.shaded_px", self.n_live)
                     if mesh is not None:
                         batch = shard_stage2_batch(batch, mesh)
                         noise = shard_noise(noise, mesh)

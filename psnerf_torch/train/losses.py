@@ -98,6 +98,14 @@ class Stage2LossWeights:
     normal_smooth_weight: float = 0.05
 
 
+def loss_mask(object_mask: torch.Tensor,
+              surface_mask: torch.Tensor) -> torch.Tensor:
+    """The pixels every stage-2 loss term averages over: on the object and
+    on the stage-1 surface. A pixel outside it adds 0 to every term, count
+    and gradient."""
+    return surface_mask & object_mask
+
+
 def stage2_loss(out: dict, rgb_gt: torch.Tensor, object_mask: torch.Tensor,
                 w: Stage2LossWeights, vis_gt: torch.Tensor | None = None,
                 vis_train_gt: torch.Tensor | None = None,
@@ -117,7 +125,7 @@ def stage2_loss(out: dict, rgb_gt: torch.Tensor, object_mask: torch.Tensor,
     if weights_override:
         ww.update(weights_override)
 
-    mask = out["network_object_mask"] & object_mask                # [N]
+    mask = loss_mask(object_mask, out["network_object_mask"])      # [N]
     err = out["rgb"] - rgb_gt
     per_elem = torch.abs(err) if w.loss_type == "L1" else err ** 2
     rgb_loss = masked_mean(per_elem, mask[None, :], mesh)

@@ -15,6 +15,11 @@ The step updates the parameters and the optimizer state in place and
 returns the loss terms as device tensors: nothing on its path reads a
 device value back to the host. Its phases are the spans stage2.forward,
 stage2.backward (both in loss_and_grads) and stage2.optim.
+
+Every loss term is a masked mean over losses.loss_mask (object_mask &
+surface_mask), so a pixel outside that mask adds 0 to every term, count
+and gradient: live_rows cuts a batch to a static-length prefix that holds
+every pixel inside it, and the step shades only those rows.
 """
 
 from __future__ import annotations
@@ -27,10 +32,12 @@ import torch
 
 from psnerf_torch.core.rays import get_camera_params
 from psnerf_torch.fields.psnet import PSNet, PSNetConfig
-from psnerf_torch.parallel.mesh import (LIGHT_AXIS, all_reduce_grads, all_sum,
-                                        world_sum)
+from psnerf_torch.parallel.mesh import (LIGHT_AXIS, STAGE2_PIX0,
+                                        STAGE2_PIX1, all_reduce_grads,
+                                        all_sum, world_sum)
 from psnerf_torch.render.shading import render_psnet
-from psnerf_torch.train.losses import Stage2LossWeights, stage2_loss
+from psnerf_torch.train.losses import (Stage2LossWeights, loss_mask,
+                                       stage2_loss)
 from psnerf_torch.train.optim import (adam_init, adam_update, multistep_lr,
                                       row_mask_from_indices)
 from psnerf_torch.utils import profiling
@@ -76,6 +83,32 @@ def model_params(model: PSNet) -> dict:
 def _light_state(state: dict, name: str) -> dict:
     """A light table's {m, v, step} (tensors) as adam_update's keyed state."""
     return {k: {name: v} for k, v in state.items()}
+
+
+# the batch's keys with a pixel axis: the sharded ones, and the drawn
+# pixel indices, which every rank keeps whole
+_PIX0 = STAGE2_PIX0 + ("pix",)
+
+
+def live_rows(batch: dict, noise: dict, n_live: int):
+    """The batch and its jitter draws on n_live of their pixels: those
+    whose loss mask (losses.loss_mask) is set, in their drawn
+    order, then the first of the rest, so a fixed n_live at least the
+    batch's count of loss pixels drops only rows every loss term weighs
+    by 0. The gather is on the device, with no read-back; n_live not
+    below the batch's pixels returns both as they are."""
+    if n_live >= batch["object_mask"].shape[0]:
+        return batch, noise
+    dead = ~loss_mask(batch["object_mask"], batch["surface_mask"])
+    keep = torch.argsort(dead.to(torch.uint8), stable=True)[:n_live]
+    out = dict(batch)
+    for k in _PIX0:
+        if k in batch:
+            out[k] = batch[k][keep]
+    for k in STAGE2_PIX1:
+        if k in batch:
+            out[k] = batch[k][:, keep]
+    return out, {k: v[keep] for k, v in noise.items()}
 
 
 def make_stage2_train_step(cfg: PSNetConfig, tcfg: Stage2TrainConfig,

@@ -201,6 +201,23 @@ def stage1_runner(mesh, cfg, workdir, steps, export=None, tile=256,
     return out
 
 
+def stage2_live_step(mesh, cfg, workdir, it):
+    """Stage2Runner(mesh=...)'s first batch cut to its n_live pixels
+    (live_rows) and split over the ranks, as its train loop does: n_live,
+    and the step's terms and (all-reduced) gradients at iteration it."""
+    from psnerf_torch.runners.stage2 import Stage2Runner
+    from psnerf_torch.train.stage2 import live_rows
+
+    r = Stage2Runner(cfg, workdir, resume=False, device="cpu", mesh=mesh)
+    batch, noise = live_rows(*r.sample(), r.n_live)
+    terms, grads = r.step_fn.loss_and_grads(
+        r.params, pm.shard_stage2_batch(batch, mesh), it,
+        pm.shard_noise(noise, mesh))
+    return {"n_live": r.n_live,
+            "terms": {k: float(v) for k, v in terms.items()},
+            "grads": _np(grads)}
+
+
 def stage2_runner(mesh, cfg, workdir, steps, tile=64, outputs=("rgb",),
                   envmap=None, light_h=2):
     """Stage2Runner(mesh=...) trained `steps` steps from its seed: its
