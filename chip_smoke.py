@@ -3622,9 +3622,8 @@ def first_step_stage1(r):
 
     use_outside = r.it > r.tcfg.outside_after
     batch, noise = r.sample(use_outside)
-    if r.mesh is not None:
-        batch = shard_stage1_batch(batch, r.mesh)
-        noise = shard_noise(noise, r.mesh)
+    batch = shard_stage1_batch(batch, r.mesh)
+    noise = shard_noise(noise, r.mesh)
     terms = r.step_fn(r.field, r.opt_state, batch, r.it, noise,
                       use_outside=use_outside)
     r.it += 1
@@ -3639,9 +3638,8 @@ def first_step_stage2(r):
     from psnerf_torch.parallel import shard_noise, shard_stage2_batch
 
     batch, noise = r.sample()
-    if r.mesh is not None:
-        batch = shard_stage2_batch(batch, r.mesh)
-        noise = shard_noise(noise, r.mesh)
+    batch = shard_stage2_batch(batch, r.mesh)
+    noise = shard_noise(noise, r.mesh)
     terms, grads = r.step_fn.loss_and_grads(r.params, batch, r.it, noise)
     r.step_fn(r.params, r.opt_state, batch, r.it, noise)
     r.it += 1

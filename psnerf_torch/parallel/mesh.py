@@ -16,6 +16,12 @@ Rays are independent, so rendering needs collectives only to gather its
 outputs; training needs one gradient all-reduce a step and the loss's
 global denominators (psnerf_torch.train.losses).
 
+A single device is the one-rank case (as_mesh(None, device)): rank 0 of
+1, both axes of size 1 and without a group. Every helper below returns
+its input on it and none calls torch.distributed, which may stay
+uninitialised, so the runners and the steps have one code path for one
+device and for many.
+
 Collectives used: all_reduce, all_gather (the list form) and broadcast. The
 gloo backend takes CUDA tensors for all_reduce and broadcast; all_gather of
 a CUDA tensor under gloo goes through the host.
@@ -32,6 +38,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from psnerf_torch.device import resolve_device
+
 RAY_AXIS = "rays"
 LIGHT_AXIS = "lights"
 PG_TIMEOUT = datetime.timedelta(minutes=30)
@@ -42,13 +50,13 @@ class Mesh:
     """This rank's place in the mesh. shape: {"rays": n_ray, "lights":
     n_light} (n_light is 1 on a 1-D mesh); groups: the process group of
     each axis, i.e. of the ranks that differ from this one only along it
-    (None for an axis of size 1)."""
+    (None for an axis of size 1); backend: None on one rank."""
     rank: int
     size: int
-    device: torch.device
+    device: torch.device | None
     shape: dict
     groups: dict
-    backend: str
+    backend: str | None
 
     @property
     def ray_index(self) -> int:
@@ -76,8 +84,6 @@ def _init(device) -> torch.device:
     """The default process group (from the environment, as torchrun sets
     it, when nothing initialised it yet: NCCL on CUDA, gloo on the CPU)
     and this rank's device."""
-    from psnerf_torch.device import resolve_device
-
     dev = resolve_device(device)
     if not dist.is_initialized():
         backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -135,29 +141,41 @@ def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     return make_mesh_2d(world, 1, dev)
 
 
+def as_mesh(mesh: Mesh | None, device=None) -> Mesh:
+    """mesh itself, or for None the one-rank mesh of a single device:
+    rank 0 of 1, both axes of size 1 and without a group, no backend. The
+    public entries (the runners, the train steps, the losses) take
+    mesh=None and read it through here. device: where the one rank runs
+    (None for a train step's, which runs where its tensors are)."""
+    if mesh is not None:
+        return mesh
+    return Mesh(rank=0, size=1,
+                device=None if device is None else resolve_device(device),
+                shape={RAY_AXIS: 1, LIGHT_AXIS: 1},
+                groups={RAY_AXIS: None, LIGHT_AXIS: None}, backend=None)
+
+
 # ------------------------------------------------------- the runners' roles
 
-def writes(mesh: Mesh | None) -> bool:
-    """Whether this process writes files: rank 0 of a mesh, or no mesh."""
-    return mesh is None or mesh.is_main
+def writes(mesh: Mesh) -> bool:
+    """Whether this process writes files: rank 0."""
+    return mesh.is_main
 
 
-def barrier(mesh: Mesh | None) -> None:
-    """Wait for every rank of the mesh (nothing without one)."""
-    if mesh is not None:
+def barrier(mesh: Mesh) -> None:
+    """Wait for every rank of the mesh (nothing on one rank)."""
+    if mesh.size > 1:
         dist.barrier()
 
 
-def say(mesh: Mesh | None, msg: str) -> None:
+def say(mesh: Mesh, msg: str) -> None:
     """Print on the rank that writes."""
     if writes(mesh):
         print(msg)
 
 
-def rank_tile(tile: int, mesh: Mesh | None) -> int:
-    """A ray rank's share of a tile of pixels (the tile without a mesh)."""
-    if mesh is None:
-        return tile
+def rank_tile(tile: int, mesh: Mesh) -> int:
+    """A ray rank's share of a tile of pixels."""
     n = mesh.shape[RAY_AXIS]
     if tile % n:
         raise ValueError(f"tile={tile} not divisible by the mesh's {n} ray "
@@ -165,10 +183,10 @@ def rank_tile(tile: int, mesh: Mesh | None) -> int:
     return tile // n
 
 
-def rank0_flag(flag: bool, mesh: Mesh | None, device) -> bool:
+def rank0_flag(flag: bool, mesh: Mesh, device) -> bool:
     """Rank 0's flag on every rank (a host decision, such as a wall-clock
     budget, that the ranks must take together)."""
-    if mesh is None:
+    if mesh.size == 1:
         return flag
     t = torch.tensor(float(flag), device=device)
     dist.broadcast(t, src=0)
@@ -191,18 +209,26 @@ def rank0_only(method):
 def all_sum(x: torch.Tensor, group) -> torch.Tensor:
     """A detached copy of x summed over a group (x itself when the group
     is None, an axis of size 1)."""
-    x = x.detach()
     if group is None:
         return x
-    y = x.clone()
+    y = x.detach().clone()
     dist.all_reduce(y, group=group)
     return y
 
 
-def world_sum(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """x summed over every rank of the mesh, detached (x itself without a
-    mesh): the loss's global counts and the logged loss terms."""
-    return x if mesh is None else all_sum(x, dist.group.WORLD)
+def world_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """x summed over every rank of the mesh, detached (x itself on one
+    rank): the loss's global counts and the logged loss terms."""
+    return x if mesh.size == 1 else all_sum(x, dist.group.WORLD)
+
+
+def any_over_lights(mask: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A 0/1 mask set wherever any rank of this rank's light row sets it
+    (mask itself on a light axis of size 1): the stage-2 light tables'
+    row gate of the whole batch."""
+    group = mesh.groups[LIGHT_AXIS]
+    return mask if group is None else (all_sum(mask, group) > 0).to(
+        mask.dtype)
 
 
 def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -229,7 +255,9 @@ def gather_lights(x: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
 
 def all_reduce_grads(grads: list, mesh: Mesh) -> None:
     """Sum a list of gradient tensors over every rank in place, through one
-    flat buffer in the list's order."""
+    flat buffer in the list's order (nothing on one rank)."""
+    if mesh.size == 1:
+        return
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat)
     off = 0
@@ -242,6 +270,8 @@ def replicate(tree, mesh: Mesh):
     """Broadcast rank 0's values of a module's parameters and buffers, a
     tensor, or a (nested) dict of them, into every rank's, in place.
     Returns the tree."""
+    if mesh.size == 1:
+        return tree
     for t in _tensors(tree):
         dist.broadcast(t.data, src=0)
     return tree

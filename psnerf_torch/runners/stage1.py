@@ -21,14 +21,17 @@ the value grid by the training views' dilated silhouettes on the device,
 marches it on the host, optionally refines the vertices against the field
 and writes OBJ or PLY.
 
-Under a mesh (psnerf_torch.parallel, one process a device) every rank
-holds the field and the optimizer state whole, draws each step's batch and
-noise whole from its identically seeded generator and trains on its block
-of the rays (one gradient all-reduce a step); the eval render and the
+The runner always runs over a mesh (psnerf_torch.parallel, one process a
+device); a single device is the one-rank mesh, on which every block is the
+whole and every gather and collective returns its input. Every rank holds
+the field and the optimizer state whole, draws each step's batch and noise
+whole from its identically seeded generator and trains on its block of
+the rays (one gradient all-reduce a step); the eval render and the
 export's march split each image's pixels over the ranks, the export's
-visibility its surface points and lights over a rays x lights layout. Only
-rank 0 writes files (checkpoints, metrics, images, exports); the mesh
-extraction runs on rank 0 alone, as the JAX package's MISE takes no mesh.
+visibility its surface points and lights over a rays x lights layout
+(export_fns). Only rank 0 writes files (checkpoints, metrics, images,
+exports); the mesh extraction runs on rank 0 alone, as the JAX package's
+MISE takes no mesh.
 """
 
 from __future__ import annotations
@@ -45,7 +48,6 @@ import torch
 from psnerf_torch.config import Stage1Config, milestones_epochs_to_iters
 from psnerf_torch.data.scene import imwrite, load_scene_params
 from psnerf_torch.data.stage1 import load_stage1_data, sample_stage1_batch
-from psnerf_torch.device import resolve_device
 from psnerf_torch.fields.occupancy import init_occupancy_field, occ_alpha
 from psnerf_torch.mesh.extractor import (build_value_grid,
                                          make_field_value_fn,
@@ -56,14 +58,13 @@ from psnerf_torch.mesh.refine import (make_mask_carver, pixel_to_ndc_camera,
 from psnerf_torch.ops.fps import farthest_point_sampling_np
 from psnerf_torch.ops.fused_occ import make_fused_occ_fn
 from psnerf_torch.ops.fused_radiance import supports
-from psnerf_torch.parallel.mesh import (LIGHT_AXIS, RAY_AXIS, barrier,
-                                        gather_rays, rank0_flag, rank0_only,
+from psnerf_torch.parallel.mesh import (LIGHT_AXIS, RAY_AXIS, as_mesh,
+                                        barrier, gather_lights, gather_rays,
+                                        light_block, rank0_flag, rank0_only,
                                         rank_tile, ray_block, replicate, say,
                                         shard_noise, shard_stage1_batch,
                                         writes)
-from psnerf_torch.parallel.sharded_export import (export_vis_mesh,
-                                                  make_sharded_march_fn,
-                                                  make_sharded_vis_fn)
+from psnerf_torch.parallel.sharded_export import export_vis_mesh
 from psnerf_torch.render.marching import (light_visibility,
                                           occupancy_guide_grid)
 from psnerf_torch.render.phong import phong_shade
@@ -108,6 +109,47 @@ def check_guide_calibration(res: int, coarse: int, dilate: int = GUIDE_DILATE,
             "raise guide_coarse or lower guide_res")
 
 
+def export_fns(field, field_cfg, rcfg, mesh, occ_fn, vis_occ, K,
+               n_steps: int = 512, light_chunk: int = 1,
+               guide_coarse: int = 16):
+    """The shape export's two passes over the mesh (one rank included):
+
+      march(pix_tile, pose) -> {points, normal, mask} of every pixel of the
+        tile, each ray rank marching its block of it (render_shape_extract
+        with occ_fn: the fused_occ kernel's closure, None for the plain
+        route); the tile must divide by the ray ranks;
+      vis(points, dirs, steps, rescale, guide=None) -> visibility [L, N],
+        each rank marching its block of the points toward its block of the
+        lights over export_vis_mesh's layout (light_visibility through
+        vis_occ); N must divide by that layout's ray ranks, and the lights
+        are padded with copies of light 0 when its light ranks do not
+        divide L.
+
+    Both return the whole result on every rank. render_shape_extract and
+    light_visibility are this module's, looked up at each call."""
+    mesh2 = export_vis_mesh(mesh)
+    n_light = mesh2.shape[LIGHT_AXIS]
+
+    def march(pix_tile, pose):
+        out = render_shape_extract(
+            field, field_cfg, rcfg, ray_block(pix_tile, mesh, 0, "pixels"),
+            K, pose, n_steps=n_steps, occ_fn=occ_fn)
+        return {k: gather_rays(v, mesh) for k, v in out.items()}
+
+    def vis(pts, dirs, steps, rescale, guide=None):
+        n_l = dirs.shape[0]
+        if n_l % n_light:
+            dirs = torch.cat([dirs, dirs[:1].expand(-n_l % n_light, 3)])
+        v = light_visibility(
+            vis_occ, ray_block(pts, mesh2, 0, "surface points"),
+            light_block(dirs, mesh2, 0, "lights"), n_steps=steps,
+            rescale=rescale, light_chunk=light_chunk, guide=guide,
+            guide_coarse=guide_coarse)
+        return gather_rays(gather_lights(v, mesh2, 0), mesh2, 1)[:n_l]
+
+    return march, vis
+
+
 def _row_major_pixels(h: int, w: int, device) -> torch.Tensor:
     """Pixel coordinates [h * w, 2] (x, y), row-major."""
     ys, xs = torch.meshgrid(torch.arange(h, device=device),
@@ -125,17 +167,16 @@ class Stage1Runner:
         layout takes the default OccFieldConfig() in either operand
         form). mesh: a 1-D mesh (psnerf_torch.parallel.make_mesh) to train,
         render and export data-parallel over its ranks, on mesh.device;
-        n_training_points must be divisible by the rank count."""
-        if mesh is not None:
-            if mesh.shape[LIGHT_AXIS] != 1:
-                raise ValueError("Stage1Runner takes a 1-D (rays) mesh")
-            if cfg.train.n_training_points % mesh.size:
-                raise ValueError(
-                    f"n_training_points={cfg.train.n_training_points} not "
-                    f"divisible by the {mesh.size}-rank mesh")
-            device = mesh.device
-        self.mesh = mesh
-        self.device = dev = resolve_device(device)
+        n_training_points must be divisible by the rank count. None: the
+        one-rank mesh of `device`."""
+        self.mesh = mesh = as_mesh(mesh, device)
+        if mesh.shape[LIGHT_AXIS] != 1:
+            raise ValueError("Stage1Runner takes a 1-D (rays) mesh")
+        if cfg.train.n_training_points % mesh.size:
+            raise ValueError(
+                f"n_training_points={cfg.train.n_training_points} not "
+                f"divisible by the {mesh.size}-rank mesh")
+        self.device = dev = mesh.device
         on_card = dev.type == "cuda"
         if use_fused_occ is None:
             use_fused_occ = on_card
@@ -183,9 +224,8 @@ class Stage1Runner:
                 self.it = int(scalars.get("it", 0))
                 say(mesh, f"resumed from {ck} at it={self.it}")
         self.writes = writes(mesh)
-        if mesh is not None:
-            replicate(self.field, mesh)
-            replicate(self.opt_state, mesh)
+        replicate(self.field, mesh)
+        replicate(self.opt_state, mesh)
         self.logger = (MetricLogger(os.path.join(workdir, "metrics.jsonl"))
                        if self.writes else None)
 
@@ -242,9 +282,8 @@ class Stage1Runner:
                 use_outside = self.it > self.tcfg.outside_after
                 with profiling.span("stage1.sample"):
                     batch, noise = self.sample(use_outside)
-                    if self.mesh is not None:
-                        batch = shard_stage1_batch(batch, self.mesh)
-                        noise = shard_noise(noise, self.mesh)
+                    batch = shard_stage1_batch(batch, self.mesh)
+                    noise = shard_noise(noise, self.mesh)
                 terms = self.step_fn(self.field, self.opt_state, batch,
                                      self.it, noise, use_outside=use_outside)
                 losses.append(terms["loss"])
@@ -313,8 +352,7 @@ class Stage1Runner:
         light = pose[:3, 3] / torch.linalg.norm(pose[:3, 3])
         occ_fn = self._occ_fn()
         sub = rank_tile(tile, self.mesh)
-        if self.mesh is not None:           # this rank's block of the pixels
-            pix = ray_block(pix, self.mesh, 0, "pixels")
+        pix = ray_block(pix, self.mesh, 0, "pixels")
         chunks = []
         for s in range(0, pix.shape[0], sub):
             out = render_unisurf(
@@ -328,9 +366,8 @@ class Stage1Runner:
                                      light)})
         shapes = {"rgb": (h, w, 3), "normal": (h, w, 3), "mask": (h, w),
                   "acc": (h, w), "phong": (h, w, 3)}
-        whole = lambda x: x if self.mesh is None else gather_rays(x,
-                                                                  self.mesh)
-        return {k: whole(torch.cat([c[k] for c in chunks]))[:n]
+        return {k: gather_rays(torch.cat([c[k] for c in chunks]),
+                               self.mesh)[:n]
                 .reshape(shape).cpu().numpy() for k, shape in shapes.items()}
 
     def eval_views(self, out_dir: str, split: str = "test",
@@ -437,10 +474,10 @@ class Stage1Runner:
         Visibility runs only on the surface pixels, compacted into tiles
         (of at most the surface's pixel count, as the march's tiles are of
         at most the image's), and is scattered back on the host. .npy writes
-        run on one background thread. Under a mesh the ranks split each
+        run on one background thread. The ranks of the mesh split each
         march tile's pixels, and each visibility tile's points and the
-        lights over export_vis_mesh's rays x lights layout (`tile` must be
-        divisible by the rank count); rank 0 writes.
+        lights over export_vis_mesh's rays x lights layout (export_fns;
+        `tile` must be divisible by the rank count); rank 0 writes.
 
         The call is the root span `shape_extract`; its legs are spans
         `shape_extract.<leg>` (utils/profiling.py). Returns the seconds of
@@ -481,18 +518,10 @@ class Stage1Runner:
                       if visibility else None)
         occ_fn = self._occ_fn()
         vis_occ = occ_fn or (lambda p: occ_alpha(self.field, p, cfg.field))
-        chunk = 1 if light_chunk is None else light_chunk
-        if self.mesh is None:
-            march = lambda pix_tile, pose: render_shape_extract(
-                self.field, cfg.field, cfg.render, pix_tile, data["K"], pose,
-                n_steps=n_steps, occ_fn=occ_fn)
-            vis = lambda pts, dirs, steps, rescale, guide=None: \
-                light_visibility(vis_occ, pts, dirs, n_steps=steps,
-                                 rescale=rescale, light_chunk=chunk,
-                                 guide=guide, guide_coarse=guide_coarse)
-        else:
-            march, vis = self._sharded_export_fns(data["K"], n_steps, chunk,
-                                                  guide_coarse)
+        march, vis = export_fns(
+            self.field, cfg.field, cfg.render, self.mesh, occ_fn, vis_occ,
+            data["K"], n_steps, 1 if light_chunk is None else light_chunk,
+            guide_coarse)
 
         timings = dict.fromkeys(("warmup_s", "guide_s", "fps_s", "march_s",
                                  "vis_train_s", "vis_plus_s", "host_s"), 0.0)
@@ -533,8 +562,7 @@ class Stage1Runner:
 
         rng = np.random.default_rng(seed)
         vis_plus_json = {}
-        ray_ranks = 1 if self.mesh is None else export_vis_mesh(
-            self.mesh).shape[RAY_AXIS]
+        ray_ranks = export_vis_mesh(self.mesh).shape[RAY_AXIS]
         for v, vi in enumerate(data["views"]):
             name = f"view_{vi + 1:02d}"
             # (dirs, leg, subdir, protocol: steps, rescale, guide)
@@ -624,38 +652,6 @@ class Stage1Runner:
         barrier(self.mesh)
         say(self.mesh, f"[shape_extract] leg breakdown (s): {timings}")
         return timings
-
-    def _sharded_export_fns(self, K, n_steps, light_chunk, guide_coarse):
-        """The export's march(pix_tile, pose) and vis(points, dirs, steps,
-        rescale, guide=None) over the mesh: the march splits each tile's
-        pixels over the ranks, the visibility its points and (padded with
-        copies of light 0, sliced off after) the lights over
-        export_vis_mesh's layout. The fused_occ kernel runs on each rank
-        when the runner takes it."""
-        cfg = self.cfg
-        builder = ((lambda f: make_fused_occ_fn(f, cfg.field))
-                   if self.use_fused_occ else None)
-        sharded_march = make_sharded_march_fn(cfg.field, cfg.render,
-                                              self.mesh, n_steps, builder)
-        march = lambda pix_tile, pose: sharded_march(self.field, pix_tile, K,
-                                                     pose)
-        mesh2 = export_vis_mesh(self.mesh)
-        n_light = mesh2.shape[LIGHT_AXIS]
-        fns = {}
-
-        def vis(pts, dirs, steps, rescale, guide=None):
-            key = (steps, rescale)
-            if key not in fns:
-                fns[key] = make_sharded_vis_fn(
-                    cfg.field, mesh2, builder, vis_steps=steps,
-                    vis_rescale=rescale, light_chunk=light_chunk,
-                    guide_coarse=guide_coarse)
-            L = dirs.shape[0]
-            pad = dirs[:1].expand((-L) % n_light, 3)
-            return fns[key](self.field, pts, torch.cat([dirs, pad]),
-                            guide)[:L]
-
-        return march, vis
 
     # ---------------------------------------------------------- mesh export
     @rank0_only

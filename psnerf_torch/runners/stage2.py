@@ -16,13 +16,16 @@ directional light with per-channel intensities; material edits
 (edit_material) render the trained lights with an albedo or SG-basis
 override, through the visibility kernel's precompute and plain shading.
 
-Under a mesh (psnerf_torch.parallel, one process a device) every rank
-holds the parameters, the light tables and the optimizer state whole,
-draws each step's batch and jitter whole from its identically seeded
-generator and trains on its block (its pixels; on a rays x lights mesh
-also its lights), with one gradient all-reduce a step. render_view, and
-with it evaluate, render_envmap and edit_material, splits each frame the
-same way and gathers it on every rank. Only rank 0 writes files.
+The runner always runs over a mesh (psnerf_torch.parallel, one process a
+device); a single device is the one-rank mesh, on which every block is the
+whole and every gather and collective returns its input. Every rank holds
+the parameters, the light tables and the optimizer state whole, draws
+each step's batch and jitter whole from its identically seeded generator
+and trains on its block (its pixels; on a rays x lights mesh also its
+lights), with one gradient all-reduce a step. render_view, and with it
+evaluate, render_envmap and edit_material, splits each frame the same way
+(parallel.sharded_render) and gathers it on every rank. Only rank 0
+writes files.
 """
 
 from __future__ import annotations
@@ -41,15 +44,14 @@ from psnerf_torch.data.envmap import load_envmap  # noqa: F401  (API)
 from psnerf_torch.data.scene import imwrite, load_scene_params
 from psnerf_torch.data.stage2 import (decode_imgs, load_stage2_data,
                                       sample_stage2_batch)
-from psnerf_torch.device import resolve_device
 from psnerf_torch.eval.frame import render_frame_stage2
 from psnerf_torch.eval.metrics import mae, psnr
 from psnerf_torch.fields.psnet import init_psnet
-from psnerf_torch.parallel.mesh import (LIGHT_AXIS, RAY_AXIS, barrier,
-                                        rank0_flag, rank_tile,
+from psnerf_torch.parallel.mesh import (LIGHT_AXIS, RAY_AXIS, as_mesh,
+                                        barrier, rank0_flag, rank_tile,
                                         replicate, say, shard_noise,
                                         shard_stage2_batch, writes)
-from psnerf_torch.parallel.sharded_render import make_sharded_frame_renderer
+from psnerf_torch.parallel.sharded_render import frame_block, gather_frame
 from psnerf_torch.render.shading import draw_psnet_noise
 from psnerf_torch.train.checkpoints import (latest_checkpoint,
                                             load_checkpoint, load_tree,
@@ -72,14 +74,13 @@ class Stage2Runner:
         """mesh: a mesh (psnerf_torch.parallel.make_mesh, or make_mesh_2d
         for rays x lights) to train and render data-parallel over its
         ranks, on mesh.device: num_pixels must be divisible by its ray
-        ranks, and on a 2-D mesh light_bs by its light ranks."""
+        ranks, and on a 2-D mesh light_bs by its light ranks. None: the
+        one-rank mesh of `device`."""
         self.cfg = cfg
         self.workdir = workdir
-        self.mesh = mesh
+        self.mesh = mesh = as_mesh(mesh, device)
         self.writes = writes(mesh)
-        if mesh is not None:
-            device = mesh.device
-        self.device = resolve_device(device)
+        self.device = mesh.device
         os.makedirs(workdir, exist_ok=True)
         self.scene = load_scene_params(cfg.data_dir)
         self.data = load_stage2_data(
@@ -93,20 +94,18 @@ class Stage2Runner:
         total = self.data["imgs"].shape[2]
         self.num_pixels = min(total if cfg.train_all_pixels
                               else cfg.num_pixels, total)
-        if mesh is not None:
-            for what, n, axis in (("num_pixels", self.num_pixels, RAY_AXIS),
-                                  ("light_bs", self.light_bs, LIGHT_AXIS)):
-                if n % mesh.shape[axis]:
-                    raise ValueError(f"{what}={n} not divisible by the "
-                                     f"mesh's {mesh.shape[axis]} {axis} "
-                                     "ranks")
+        for what, n, axis in (("num_pixels", self.num_pixels, RAY_AXIS),
+                              ("light_bs", self.light_bs, LIGHT_AXIS)):
+            if n % mesh.shape[axis]:
+                raise ValueError(f"{what}={n} not divisible by the mesh's "
+                                 f"{mesh.shape[axis]} {axis} ranks")
         # every loss term is a masked mean over loss_mask, so each step
         # shades a static prefix of its batch (live_rows) that holds the
         # most such pixels a train view has, in blocks of the ray ranks:
         # one read-back, here
         live = loss_mask(self.data["object_masks"],
                          self.data["surface_mask"]).sum(1).max()
-        ranks = mesh.shape[RAY_AXIS] if mesh is not None else 1
+        ranks = mesh.shape[RAY_AXIS]
         self.n_live = min(-(-int(live) // ranks) * ranks, self.num_pixels)
 
         # ---- light table init (trainer.py:132-163) ----
@@ -177,9 +176,8 @@ class Stage2Runner:
                 self.opt_state = load_tree(self.opt_state, flat, "opt/")
                 self.it = int(scalars.get("it", 0))
                 say(mesh, f"resumed from {ck} at it={self.it}")
-        if mesh is not None:
-            replicate(self.params, mesh)
-            replicate(self.opt_state, mesh)
+        replicate(self.params, mesh)
+        replicate(self.opt_state, mesh)
         self.logger = (MetricLogger(os.path.join(workdir, "metrics.jsonl"))
                        if self.writes else None)
 
@@ -236,9 +234,8 @@ class Stage2Runner:
                     batch, noise = live_rows(*self.sample(), self.n_live)
                     profiling.count("stage2.drawn_px", self.num_pixels)
                     profiling.count("stage2.shaded_px", self.n_live)
-                    if mesh is not None:
-                        batch = shard_stage2_batch(batch, mesh)
-                        noise = shard_noise(noise, mesh)
+                    batch = shard_stage2_batch(batch, mesh)
+                    noise = shard_noise(noise, mesh)
                 terms = self.step_fn(self.params, self.opt_state, batch,
                                      self.it, noise)
                 losses.append(terms["loss"])
@@ -375,10 +372,11 @@ class Stage2Runner:
         fill values (auto: on when mask coverage < 0.6). Per-pixel math is
         independent, so outputs are identical.
 
-        Under a mesh each ray rank renders its block of the (padded)
-        pixels in tiles of tile // ray ranks, and on a rays x lights mesh
-        its block of the lights (their count must divide by the light
-        ranks); every rank returns the whole frame."""
+        Each ray rank of the mesh renders its block of the (padded) pixels
+        in tiles of tile // ray ranks, and on a rays x lights mesh its
+        block of the lights (their count must divide by the light ranks);
+        every rank returns the whole frame. On one rank the block is the
+        frame."""
         cfg = self.cfg.net
         if use_fused_vis is None:
             use_fused_vis = self.device.type == "cuda" and cfg.visibility
@@ -436,14 +434,11 @@ class Stage2Runner:
                                     device=dev))
         kw = dict(outputs=outs, use_fused_vis=use_fused_vis,
                   albedo_new=albedo_new, basis_new=basis_new)
-        mesh = self.mesh
+        mesh, sub = self.mesh, rank_tile(tile, self.mesh)
         with span("render_view.frame"):
-            if mesh is None:
-                out = render_frame_stage2(args[0], cfg, *args[1:], tile=tile,
-                                          **kw)
-            else:
-                out = make_sharded_frame_renderer(
-                    cfg, mesh, tile=rank_tile(tile, mesh), **kw)(*args)
+            out = gather_frame(render_frame_stage2(
+                args[0], cfg, *frame_block(mesh, sub, *args[1:]), tile=sub,
+                **kw), cfg, mesh)
         # reference fill values outside the surface mask: ones everywhere
         # except sg_weight; rgb_sum's per-light ones sum to L
         fills = {"sg_weight": 0.0, "rgb_sum": float(len(light_dirs))}

@@ -3,11 +3,13 @@ functions of dense masked tensors: every boolean-mask reduction
 `x[mask].mean()` is sum(x * m) / max(sum(m), 1), so no step reads a value
 back to the host.
 
-Under a mesh (psnerf_torch.parallel) each rank holds a block of the batch
-and divides its LOCAL sum by the GLOBAL count: the counts come from masks
-and shapes, are summed over every rank and detached. The sum of the ranks'
-terms, and of their gradients, is then the single-device value whatever
-the masks hold. (A rank's local mean would weight the blocks equally, and
+Every loss takes the mesh the batch is split over (psnerf_torch.parallel;
+mesh=None: one device, the one-rank mesh, where the block is the batch and
+the counts are its own). Each rank holds a block of the batch and divides
+its LOCAL sum by the GLOBAL count: the counts come from masks and shapes,
+are summed over every rank and detached. The sum of the ranks' terms, and
+of their gradients, is then the single-device value whatever the masks
+hold. (A rank's local mean would weight the blocks equally, and
 an autograd-aware all-reduce of the loss would scale every gradient by the
 rank count.) On a rays x lights mesh the ranks of one ray row hold the same
 pixels: a per-pixel term counts them on every such rank, in its numerator
@@ -20,7 +22,7 @@ import dataclasses
 
 import torch
 
-from psnerf_torch.parallel.mesh import world_sum
+from psnerf_torch.parallel.mesh import as_mesh, world_sum
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor,
@@ -32,7 +34,7 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor,
     while mask.ndim < x.ndim:
         mask = mask[..., None]
     num = torch.sum(x * mask)
-    den = world_sum(torch.sum(mask.expand(x.shape)), mesh)
+    den = world_sum(torch.sum(mask.expand(x.shape)), as_mesh(mesh))
     return torch.where(den > 0, num / torch.clamp_min(den, 1.0), 0.0)
 
 
@@ -54,7 +56,8 @@ def stage1_loss(out: dict, rgb_gt: torch.Tensor, w: Stage1LossWeights,
     normal supervision by iteration and angle (norm_mask). mesh: this
     rank's share of the terms of every rank's rays (every rank holds as
     many)."""
-    size = 1 if mesh is None else mesh.size
+    mesh = as_mesh(mesh)
+    size = mesh.size
     n = rgb_gt.shape[0] * size
     rgb_loss = torch.sum(torch.abs(out["rgb"] - rgb_gt)) / n    # L1(sum)/N
     diff_norm = out.get("diff_norm")
@@ -118,6 +121,7 @@ def stage2_loss(out: dict, rgb_gt: torch.Tensor, object_mask: torch.Tensor,
     weights_override may replace sg_rgb_weight, albedo_smooth_weight,
     rough_smooth_weight and vis_weight (the warm-up's values). mesh: this
     rank's share of the terms of every rank's block."""
+    mesh = as_mesh(mesh)
     ww = {"sg_rgb_weight": w.sg_rgb_weight,
           "albedo_smooth_weight": w.albedo_smooth_weight,
           "rough_smooth_weight": w.rough_smooth_weight,

@@ -16,7 +16,7 @@ import torch
 from psnerf_torch.fields.occupancy import OccFieldConfig
 from psnerf_torch.ops.fused_occ import make_fused_occ_fn
 from psnerf_torch.ops.fused_radiance import fused_radiance_and_alpha
-from psnerf_torch.parallel.mesh import all_reduce_grads, world_sum
+from psnerf_torch.parallel.mesh import all_reduce_grads, as_mesh, world_sum
 from psnerf_torch.render.unisurf import UnisurfConfig, render_unisurf
 from psnerf_torch.train.losses import Stage1LossWeights, stage1_loss
 from psnerf_torch.train.optim import adam_init, adam_update, multistep_lr
@@ -59,13 +59,16 @@ def make_stage1_train_step(field_cfg: OccFieldConfig, rcfg: UnisurfConfig,
     kernel; use_fused_radiance: the integration batch (forward and
     backward) goes through the fused_radiance kernels.
 
-    mesh (psnerf_torch.parallel): the batch and noise are this rank's
-    block (shard_stage1_batch, shard_noise) and the parameters and
-    opt_state are replicated; the losses divide by global counts, every
-    leaf's gradient is summed over the ranks by one all-reduce before
-    Adam, which then runs identically on every rank, and the returned
-    terms are summed over the ranks (the single-device values). The
-    kernels run on the rank's block, with no collective inside."""
+    mesh (psnerf_torch.parallel; None: one device, the one-rank mesh, on
+    which the block is the batch and no collective runs): the batch and
+    noise are this rank's block (shard_stage1_batch, shard_noise) and the
+    parameters and opt_state are replicated; the losses divide by global
+    counts, every leaf's gradient is summed over the ranks by one
+    all-reduce before Adam, which then runs identically on every rank, and
+    the returned terms are summed over the ranks (the single-device
+    values). The kernels run on the rank's block, with no collective
+    inside."""
+    mesh = as_mesh(mesh)
     compute = ("bfloat16" if field_cfg.compute_dtype == "bfloat16"
                else "float32")
 
@@ -99,8 +102,7 @@ def make_stage1_train_step(field_cfg: OccFieldConfig, rcfg: UnisurfConfig,
                                 mesh=mesh)
         with profiling.span("stage1.backward"):
             terms["loss"].backward()
-            if mesh is not None:
-                all_reduce_grads([p.grad for p in params.values()], mesh)
+            all_reduce_grads([p.grad for p in params.values()], mesh)
         with profiling.span("stage1.optim"):
             lr = multistep_lr(tcfg.learning_rate, tcfg.milestone_iters,
                               tcfg.gamma, it)

@@ -32,9 +32,9 @@ import torch
 
 from psnerf_torch.core.rays import get_camera_params
 from psnerf_torch.fields.psnet import PSNet, PSNetConfig
-from psnerf_torch.parallel.mesh import (LIGHT_AXIS, STAGE2_PIX0,
-                                        STAGE2_PIX1, all_reduce_grads,
-                                        all_sum, world_sum)
+from psnerf_torch.parallel.mesh import (STAGE2_PIX0, STAGE2_PIX1,
+                                        all_reduce_grads, any_over_lights,
+                                        as_mesh, world_sum)
 from psnerf_torch.render.shading import render_psnet
 from psnerf_torch.train.losses import (Stage2LossWeights, loss_mask,
                                        stage2_loss)
@@ -128,12 +128,15 @@ def make_stage2_train_step(cfg: PSNetConfig, tcfg: Stage2TrainConfig,
     (draw_psnet_noise). step.loss_and_grads(params, batch, it, noise) gives
     the terms and the gradients of the same batch without the update.
 
-    mesh (psnerf_torch.parallel): the batch and noise are this rank's block
-    (shard_stage2_batch, shard_noise) and params and opt_state are replicated. The losses divide
-    by global counts; loss_and_grads sums the gradients over the ranks by
-    one all-reduce and the terms likewise (the single-device values), and
-    the light tables' row gate is the union of the ranks' rows, so Adam
-    runs identically on every rank."""
+    mesh (psnerf_torch.parallel; None: one device, the one-rank mesh, on
+    which the block is the batch and no collective runs): the batch and
+    noise are this rank's block (shard_stage2_batch, shard_noise) and
+    params and opt_state are replicated. The losses divide by global
+    counts; loss_and_grads sums the gradients over the ranks by one
+    all-reduce and the terms likewise (the single-device values), and the
+    light tables' row gate is the union of the ranks' rows, so Adam runs
+    identically on every rank."""
+    mesh = as_mesh(mesh)
     w = tcfg.weights
     in_warmup = lambda it: it < tcfg.warmup_iters and tcfg.train_order
 
@@ -183,8 +186,7 @@ def make_stage2_train_step(cfg: PSNetConfig, tcfg: Stage2TrainConfig,
                                             allow_unused=True)
                 grads = {k: torch.zeros_like(p) if g is None else g
                          for (k, p), g in zip(leaves.items(), grads)}
-                if mesh is not None:
-                    all_reduce_grads(list(grads.values()), mesh)
+                all_reduce_grads(list(grads.values()), mesh)
         return {k: world_sum(v.detach(), mesh) for k, v in terms.items()}, \
             grads
 
@@ -209,10 +211,9 @@ def make_stage2_train_step(cfg: PSNetConfig, tcfg: Stage2TrainConfig,
                            else 0.0 if head == "normal"
                            and not cfg.normal_joint else 1.0)
             light_live = live * float(not tcfg.ana_fixlight)
-            row = row_mask_from_indices(tables["light_dirs"].shape[0],
-                                        l_slt)
-            if mesh is not None:             # the rows of the whole batch
-                row = (all_sum(row, mesh.groups[LIGHT_AXIS]) > 0).float()
+            # the rows of the whole batch
+            row = any_over_lights(row_mask_from_indices(
+                tables["light_dirs"].shape[0], l_slt), mesh)
             lr_sg = multistep_lr(tcfg.sg_learning_rate,
                                  tcfg.milestone_iters, tcfg.gamma, it)
             lr_l, lr_i = tcfg.light_learning_rate, tcfg.light_inten_lr

@@ -558,3 +558,157 @@ def test_stage2_runner_mesh_training_matches_single_device(runners):
     for k in ("rgb", "albedo"):
         np.testing.assert_allclose(got["view"][k], runners["view2"][k],
                                    atol=1e-5, err_msg=k)
+
+
+# ---------------------------------------------------------- the one rank
+
+@pytest.fixture
+def no_collectives(monkeypatch):
+    """torch.distributed's collectives raise, and so does torch.cat once
+    armed (all_reduce_grads' flat buffer): a one-rank mesh calls none."""
+    import torch.distributed as dist
+
+    def refuse(*a, **kw):
+        raise AssertionError("a collective on the one-rank mesh")
+
+    for name in ("all_reduce", "all_gather", "broadcast", "barrier"):
+        monkeypatch.setattr(dist, name, refuse)
+    cat = torch.cat
+
+    def arm_cat():
+        monkeypatch.setattr(torch, "cat", refuse)
+        return lambda: monkeypatch.setattr(torch, "cat", cat)
+
+    return arm_cat
+
+
+def _one_rank_case(name, mesh, arm_cat, capsys):
+    """(what the helper returned, what it must return by identity)."""
+    from psnerf_torch.parallel import mesh as pm
+    from psnerf_torch.parallel.sharded_export import export_vis_mesh
+    from psnerf_torch.parallel.sharded_render import (frame_block,
+                                                      gather_frame)
+
+    x = torch.arange(24.0).reshape(4, 6)
+    if name == "writes":
+        return pm.writes(mesh), True
+    if name == "barrier":
+        return pm.barrier(mesh), None
+    if name == "say":
+        pm.say(mesh, "one rank")
+        return capsys.readouterr().out, "one rank\n"
+    if name == "rank_tile":
+        return pm.rank_tile(64, mesh), 64
+    if name == "rank0_flag":
+        return pm.rank0_flag(True, mesh, "cpu"), True
+    if name == "world_sum":
+        return pm.world_sum(x, mesh), x
+    if name == "all_sum":
+        return pm.all_sum(x, mesh.groups[pm.LIGHT_AXIS]), x
+    if name == "any_over_lights":
+        return pm.any_over_lights(x, mesh), x
+    if name == "all_reduce_grads":
+        grads = [x, x[0].clone()]
+        want = [g.clone() for g in grads]
+        restore = arm_cat()
+        got = pm.all_reduce_grads(grads, mesh)
+        restore()
+        for g, w in zip(grads, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        return got, None
+    if name == "replicate":
+        tree = {"a": x, "b": {"c": x[0]}}
+        return pm.replicate(tree, mesh), tree
+    if name == "ray_block":
+        return pm.ray_block(x, mesh, 1), x
+    if name == "light_block":
+        return pm.light_block(x, mesh), x
+    if name == "gather_rays":
+        return pm.gather_rays(x, mesh, 1), x
+    if name == "gather_lights":
+        return pm.gather_lights(x, mesh), x
+    if name == "export_vis_mesh":
+        return export_vis_mesh(mesh), mesh
+    if name == "shard_stage1_batch":
+        batch = {"pixels": x[:, :2], "rgb_gt": x[:, :3],
+                 "camera_mat": torch.eye(4)}
+        return pm.shard_stage1_batch(batch, mesh), batch
+    if name in ("shard_stage2_batch", "shard_stage2_batch_2d"):
+        batch = {"uv": x[:, :2], "object_mask": x[:, 0] > 3,
+                 "rgb_gt": x[None, :, :3].expand(2, 4, 3),
+                 "visibility": x[:2], "l_slt": torch.arange(2),
+                 "light_vis_train": x[:2, :3], "pose": torch.eye(4)}
+        return getattr(pm, name)(batch, mesh), batch
+    if name == "shard_noise":
+        noise = {"phase": x[0, 0], "hit": x}
+        return pm.shard_noise(noise, mesh), noise
+    if name == "frame_block":
+        args = (x[:, :2], torch.eye(4), torch.eye(4), x[:, :3], x[:, 3:],
+                x[:, 0] > 3, x[:2, :3], x[:2, 0])
+        return frame_block(mesh, 2, *args), args
+    if name == "gather_frame":
+        out = {"rgb": x[None].expand(2, 4, 6), "albedo": x,
+               "rgb_sum": x[:, :3], "rgb_cnl": x[None]}
+        return gather_frame(out, CFG, mesh), out
+    raise KeyError(name)
+
+
+ONE_RANK_HELPERS = (
+    "writes", "barrier", "say", "rank_tile", "rank0_flag", "world_sum",
+    "all_sum", "any_over_lights", "all_reduce_grads", "replicate",
+    "ray_block", "light_block", "gather_rays", "gather_lights",
+    "export_vis_mesh", "shard_stage1_batch", "shard_stage2_batch",
+    "shard_stage2_batch_2d", "shard_noise", "frame_block", "gather_frame")
+
+
+@pytest.mark.parametrize("name", ONE_RANK_HELPERS)
+def test_one_rank_mesh_helpers_return_their_inputs(name, no_collectives,
+                                                  capsys):
+    """On the one-rank mesh that mesh=None stands for, every layout,
+    gather and collective helper returns its input tensors themselves,
+    with torch.distributed uninitialised and its collectives refused."""
+    from psnerf_torch.parallel.mesh import as_mesh
+
+    assert not torch.distributed.is_initialized()
+    mesh = as_mesh(None, "cpu")
+    assert (mesh.rank, mesh.size, mesh.backend) == (0, 1, None)
+    got, want = _one_rank_case(name, mesh, no_collectives, capsys)
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        assert all(got[k] is want[k] for k in want)
+    elif isinstance(want, tuple):
+        assert len(got) == len(want)
+        assert all(g is w for g, w in zip(got, want))
+    elif isinstance(want, torch.Tensor) or name in ("replicate",
+                                                    "export_vis_mesh"):
+        assert got is want
+    else:
+        assert got == want
+
+
+def test_one_device_runners_make_no_distributed_call(tmp_path,
+                                                     no_collectives):
+    """Stage1Runner(mesh=None) trains a step and exports, Stage2Runner
+    (mesh=None) trains a step on that export and renders a view, on the
+    CPU at toy size, with every collective refused: one device is the
+    one-rank mesh, which never reaches torch.distributed."""
+    scene = str(tmp_path / "scene")
+    generate_synthetic_scene(scene, n_views=2, n_test=1, n_lights=3,
+                             hw=(16, 16))
+    r1 = Stage1Runner(_stage1_cfg(scene), str(tmp_path / "s1"),
+                      resume=False, device="cpu")
+    assert r1.mesh.size == 1 and r1.mesh.device == r1.device
+    r1.train(1, log_every=1000)
+    exports = str(tmp_path / "s1" / "export")
+    r1.shape_extract(exports, tile=256, visibility=True, vis_plus=True,
+                     vis_plus_num=4, n_steps=16, vis_steps=16)
+    r2 = Stage2Runner(_stage2_cfg(scene, exports), str(tmp_path / "s2"),
+                      resume=False, device="cpu")
+    r2.train(1, log_every=1000)
+    assert r1.it == r2.it == 1
+    dirs, ints = r2.trained_lights_for_view(r2.data, 0)
+    view = r2.render_view(r2.data, 0, dirs, ints, tile=64,
+                          outputs=("rgb",))
+    assert view["rgb"].shape == (len(dirs), 16, 16, 3)
+    assert np.isfinite(view["rgb"]).all()
+    assert not torch.distributed.is_initialized()

@@ -8,7 +8,9 @@ gradient once; four spawned gloo ranks hold that composition against the
 JAX mesh forms at the JAX file's bars (K1 0.02; the radiance forward 1e-5,
 its gradients 2e-4 of each leaf's max; the fused-vis frame 2e-2 and a mean
 of 2e-3; the stage-1 step over both kernels a loss within 2e-3 and params
-within 5e-4), and against the port's single-process result at 1e-5.
+within 5e-4), and against the port's single-process result at 1e-5. The
+shape export's march and visibility through K1's closure are held against
+the one-rank mesh's at 1e-5.
 """
 
 import jax
@@ -30,7 +32,7 @@ from psnerf_torch.ops.fused_radiance import fused_radiance_and_alpha
 from psnerf_torch.parallel.launch import launch
 from psnerf_torch.render.unisurf import UnisurfConfig
 from psnerf_torch.train import losses, stage1
-from torch_dist_workers import occ_field, run_jobs
+from torch_dist_workers import export_fns, occ_field, run_jobs
 from torch_helpers import flatten_jax, port_config, port_psnet, t
 
 torch.set_num_threads(1)
@@ -90,6 +92,23 @@ def _stage1_setup():
     return rcfg, _stage1_batch(n=64), key, noise
 
 
+def _export_kw(flat, rcfg):
+    """The export passes' inputs: 256 pixels of a camera 3 from the init
+    field's sphere (some on it, some off), marched in tiles of 64, and the
+    visibility toward 3 lights (padded to the 2 x 2 layout's 4)."""
+    rng = np.random.default_rng(4)
+    world = np.eye(4, dtype=np.float32)
+    world[2, 3] = -3.0
+    lights = rng.normal(size=(3, 3))
+    return dict(fcfg=CFG, rcfg=port_config(rcfg, UnisurfConfig), flat=flat,
+                pix=rng.uniform(-0.4, 0.4, (256, 2)).astype(np.float32),
+                K=np.eye(4, dtype=np.float32), pose=world,
+                lights=(lights / np.linalg.norm(lights, axis=-1,
+                                                keepdims=True))
+                .astype(np.float32),
+                n_steps=16, vis_steps=16, tile=64, fused=True)
+
+
 @pytest.fixture(scope="module")
 def ranks():
     params, p, rd, w_rgb, w_a = _points()
@@ -102,6 +121,7 @@ def ranks():
                   weights=losses.Stage1LossWeights()),
               flat=flat, batch={k: np.asarray(v) for k, v in batch.items()},
               noise=noise, it=100, fused=True)
+    export_kw = _export_kw(flat, rcfg)
     jobs = [
         ("occ", "occ_logit", dict(fcfg=CFG, flat=flat, points=p)),
         ("radiance", "radiance", dict(fcfg=CFG, flat=flat, points=p,
@@ -111,14 +131,15 @@ def ranks():
                                 tile=256, outputs=("rgb",),
                                 use_fused_vis=True)),
         ("stage1", "stage1_step", s1),
+        ("export", "export_fns", export_kw),
     ]
     out = launch(run_jobs, 4, jobs, device="cpu", timeout=SPAWN_S)
     for r in out[1:]:             # every rank returns the whole result
-        for name in ("occ", "frame"):
+        for name in ("occ", "frame", "export"):
             np.testing.assert_equal(r[name], out[0][name])
     return dict(out=out[0], params=params, points=(p, rd, w_rgb, w_a),
                 frame=(jcfg_ps, ps_params, fargs), stage1=(rcfg, batch, key),
-                s1_kw=s1)
+                s1_kw=s1, export_kw=export_kw)
 
 
 def test_fused_occ_under_mesh_matches_xla(ranks):
@@ -236,4 +257,20 @@ def test_stage1_train_step_with_sharded_kernels(ranks):
     assert abs(got["loss"] - single["loss"]) <= 1e-4 * abs(single["loss"])
     for k, v in single["params"].items():
         np.testing.assert_allclose(got["params"][k], v, rtol=0, atol=1e-5,
+                                   err_msg=k)
+
+
+def test_export_passes_under_mesh_match_one_rank(ranks):
+    """Stage1Runner.shape_extract's march and visibility (runners.stage1.
+    export_fns through K1's closure) on 4 ranks, the visibility over
+    export_vis_mesh's 2 x 2 layout, against the one-rank mesh's."""
+    got = ranks["out"]["export"]
+    single = export_fns(None, **ranks["export_kw"])
+    assert got.keys() == single.keys() == {"points", "normal", "mask",
+                                           "visibility"}
+    assert got["visibility"].shape == (3, 256)
+    assert 0 < single["mask"].sum() < 256
+    np.testing.assert_array_equal(got["mask"], single["mask"])
+    for k in ("points", "normal", "visibility"):
+        np.testing.assert_allclose(got[k], single[k], rtol=0, atol=1e-5,
                                    err_msg=k)

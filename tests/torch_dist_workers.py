@@ -89,21 +89,20 @@ def stage2_step(mesh, cfg, tcfg, flat, tables, batch, it, noise):
 def stage1_step(mesh, fcfg, rcfg, tcfg, flat, batch, noise, it,
                 use_outside=True, fused=False):
     """One stage-1 step on this rank's block of the batch (the whole batch
-    in one process when mesh is None): the loss, every leaf's (all-reduced)
-    gradient and the params after the step. fused:
+    in one process when mesh is None, the one-rank mesh): the loss, every
+    leaf's (all-reduced) gradient and the params after the step. fused:
     the fused_occ and fused_radiance wrappers (their plain versions on the
     CPU)."""
     from psnerf_torch.train.stage1 import field_params, make_stage1_train_step
 
+    mesh = pm.as_mesh(mesh, "cpu")
     field = occ_field(fcfg, flat)
     init, step = make_stage1_train_step(fcfg, rcfg, tcfg,
                                         use_fused_occ=fused,
                                         use_fused_radiance=fused, mesh=mesh)
     opt = init(field)
-    batch, noise = _t(batch), _t(noise)
-    if mesh is not None:
-        batch = pm.shard_stage1_batch(batch, mesh)
-        noise = pm.shard_noise(noise, mesh)
+    batch = pm.shard_stage1_batch(_t(batch), mesh)
+    noise = pm.shard_noise(_t(noise), mesh)
     terms = step(field, opt, batch, it, noise, use_outside=use_outside)
     params = field_params(field)
     return {"loss": float(terms["loss"]),
@@ -143,22 +142,26 @@ def radiance(mesh, fcfg, flat, points, dirs, w_rgb, w_a):
 
 def export_fns(mesh, fcfg, rcfg, flat, pix, K, pose, lights, n_steps,
                vis_steps, tile, fused=False):
-    """The sharded march over `pix` in tiles of `tile` pixels and the
-    sharded visibility of its points toward `lights` over
-    export_vis_mesh's layout."""
+    """The shape export's march (runners.stage1.export_fns) over `pix` in
+    tiles of `tile` pixels and its visibility of the marched points toward
+    `lights` over export_vis_mesh's layout (mesh None: the one-rank
+    mesh). fused: the fused_occ wrapper's closure (its plain version on
+    the CPU), else the plain route."""
+    from psnerf_torch.fields.occupancy import occ_alpha
     from psnerf_torch.ops.fused_occ import make_fused_occ_fn
-    from psnerf_torch.parallel import sharded_export as se
+    from psnerf_torch.runners.stage1 import export_fns as passes
 
+    mesh = pm.as_mesh(mesh, "cpu")
     field = occ_field(fcfg, flat)
-    builder = (lambda f: make_fused_occ_fn(f, fcfg)) if fused else None
-    march = se.make_sharded_march_fn(fcfg, rcfg, mesh, n_steps, builder)
-    pix, K, pose = _t(pix), _t(K), _t(pose)
-    parts = [march(field, pix[s:s + tile], K, pose)
+    occ_fn = make_fused_occ_fn(field, fcfg) if fused else None
+    vis_occ = occ_fn or (lambda p: occ_alpha(field, p, fcfg))
+    march, vis = passes(field, fcfg, rcfg, mesh, occ_fn, vis_occ, _t(K),
+                        n_steps)
+    pix, pose = _t(pix), _t(pose)
+    parts = [march(pix[s:s + tile], pose)
              for s in range(0, pix.shape[0], tile)]
     out = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
-    vis = se.make_sharded_vis_fn(fcfg, se.export_vis_mesh(mesh), builder,
-                                 vis_steps=vis_steps)
-    out["visibility"] = vis(field, out["points"], _t(lights))
+    out["visibility"] = vis(out["points"], _t(lights), vis_steps, False)
     return _np(out)
 
 
@@ -170,9 +173,8 @@ def first_step_stage1(r):
 
     use_outside = r.it > r.tcfg.outside_after
     batch, noise = r.sample(use_outside)
-    if r.mesh is not None:
-        batch = pm.shard_stage1_batch(batch, r.mesh)
-        noise = pm.shard_noise(noise, r.mesh)
+    batch = pm.shard_stage1_batch(batch, r.mesh)
+    noise = pm.shard_noise(noise, r.mesh)
     terms = r.step_fn(r.field, r.opt_state, batch, r.it, noise,
                       use_outside=use_outside)
     r.it += 1
