@@ -58,20 +58,21 @@ Phases (any failure exits non-zero; nothing is caught):
   8. stage-2 training on the same scene: Stage2Runner.train at the full
      bear PSNet (8,192 pixels x 10 lights, a vis_plus pool of 8) for 20
      warm-up and 20 more steps, with one plot_to_disk (fused_vis_shade's
-     launches set to 0 just before and read just after); albedo, rough and
-     the light tables bit for bit in the warm-up; a fresh runner's resume
-     restores it, the params and the optimizer state bit for bit; ms per
-     step and it/s, one profiled step; the card's step against the CPU's
-     from identical params, batch and draws, in f32 and in f64 (loss,
-     gradients, params);
+     and the Adam kernel's launches set to 0 just before and read just
+     after: two Adam launches a call, one call a warm-up step, three
+     after); albedo, rough and the light tables bit for bit in the warm-up;
+     a fresh runner's resume restores it, the params and the optimizer
+     state bit for bit; ms per step and it/s, one profiled step; the
+     card's step against the CPU's from identical params, batch and draws,
+     in f32 and in f64 (loss, gradients, params);
   9. stage-1 main path on the same scene, twice: at the bf16 field (10 + 5
      steps) and at the default f32 field (20 + 10 steps, with the
      visualisation strip): Stage1Runner.train (2048 rays, 256 march steps,
      64 samples), counts of each kernel and form set to 0 just before and
-     read just after; a checkpoint at it=6000 resumed by a fresh runner
-     that trains at 96 samples; ms per step at 64 and 96 samples; one
-     profiled step; the kernel route's step held against the plain
-     route's from identical params, batch and noise;
+     read just after (two Adam launches a step); a checkpoint at it=6000
+     resumed by a fresh runner that trains at 96 samples; ms per step at
+     64 and 96 samples; one profiled step; the kernel route's step held
+     against the plain route's from identical params, batch and noise;
  10. stage-1 eval and export on the trained default field: render_view of
      the test view, eval_views("test"), and the faithful shape_extract of
      all three views toward the 96 training lights and 32 vis_plus
@@ -138,7 +139,15 @@ Phases (any failure exits non-zero; nothing is caught):
      through the command line (one NCCL rank). Each rank's counts of K1,
      K2/K3 (both forms), K4 and K5 must be > 0 on the paths that take
      them; every wall is logged beside the card's name and power limit;
- 16. one JSON line of kernels, then the last line
+ 16. the multi-tensor Adam (psnerf_torch/ops/csrc/adam.cu): one training
+     step's adam_update calls on the card at the default widths, stage 1's
+     field (42 leaves, one call) and the PSNet (44 leaves) with both light
+     tables under row masks (three calls), held bit for bit (p, m, v,
+     step) against adam_update_plain over ADAM_STEPS steps, two launches a
+     call counted; each route timed in turns (plain, kernel, kernel,
+     plain) by CUDA events, by the profiler's device time and by the host
+     clock (µs a step), beside the byte bound (28 B a value at 3.35 TB/s);
+ 17. one JSON line of kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It needs no network and writes only inside the checkout (a work directory
@@ -252,6 +261,9 @@ MESH_EVAL_ABS = 1e-5     # frames (tests/test_parallel.py:49-52)
 MESH_MARCH_STEPS, MESH_VIS_STEPS = 512, 128     # the faithful export's
 MESH_CLI_STEPS = 3
 MESH_TIMEOUT_S = 400
+# phase 16: the multi-tensor Adam against adam_update_plain
+ADAM_BYTES = 28      # a value: p, g, m, v read; p, m, v written
+ADAM_STEPS = 3       # steps held bit for bit
 
 
 def log(msg):
@@ -1112,6 +1124,7 @@ def phase_stage2_train(scene):
     optimizer state bit for bit, ms per step, one profiled step, and the
     card's step against the CPU's from identical params, batch and draws
     (f32 and f64)."""
+    from psnerf_torch.ops import adam
     from psnerf_torch.ops import fused_vis as fv
     from psnerf_torch.runners.stage2 import Stage2Runner
 
@@ -1127,6 +1140,7 @@ def phase_stage2_train(scene):
     # ---- the main path: counts set to 0 just before, read just after
     fv.fused_visibility.launches = 0
     fv.fused_vis_shade.launches = 0
+    adam.fused_adam.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     runner.train(S2_WARMUP, log_every=S2_WARMUP // 2)
@@ -1141,7 +1155,8 @@ def phase_stage2_train(scene):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = {"fused_visibility": fv.fused_visibility.launches,
-                "fused_vis_shade": fv.fused_vis_shade.launches}
+                "fused_vis_shade": fv.fused_vis_shade.launches,
+                "fused_adam": adam.fused_adam.launches}
     recs = read_losses(wd)
     losses = [r["loss"] for r in recs if "loss" in r]
     plots = [r for r in recs if "train_psnr" in r]
@@ -1164,6 +1179,14 @@ def phase_stage2_train(scene):
         wd, "plots", f"it_{S2_WARMUP + S2_WARMUP // 2}.png")),
         f"plot_to_disk {plots}")
     check(launches["fused_vis_shade"] >= 2, f"K5 in plot_to_disk {launches}")
+    # Adam: the PSNet's call every step, a call per trained light table
+    # after the warm-up (frozen in it), two launches a call
+    tc = cfg.train
+    lights = (int(tc.light_train) + int(tc.light_inten_train)) * int(
+        not tc.ana_fixlight)
+    adam_calls = S2_WARMUP + (S2_STEPS - S2_WARMUP) * (1 + lights)
+    check(launches["fused_adam"] == 2 * adam_calls,
+          f"Adam launches {launches}, {adam_calls} calls")
 
     # ---- the end-of-run checkpoint, resumed by a fresh runner
     resumed = Stage2Runner(cfg, wd, seed=SEED + 1, device=DEV)
@@ -2102,6 +2125,7 @@ def phase_stage1_main(scene, compute, steps, steps96, vis_every=0):
     import copy
 
     from psnerf_torch.data.scene import imread
+    from psnerf_torch.ops import adam
     from psnerf_torch.ops import fused_occ as fo
     from psnerf_torch.ops import fused_radiance as fr
     from psnerf_torch.render.unisurf import _march_and_surface
@@ -2126,11 +2150,13 @@ def phase_stage1_main(scene, compute, steps, steps96, vis_every=0):
     # ---- the main path: counts set to 0 just before, read just after
     fo.fused_occ_logit.launches = 0
     fr.reset_launches()
+    adam.fused_adam.launches = 0
     t0 = time.perf_counter()
     runner.train(steps, log_every=steps // 2, vis_every=vis_every)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"fused_occ_logit": fo.fused_occ_logit.launches,
+    launches = {"fused_adam": adam.fused_adam.launches,
+                "fused_occ_logit": fo.fused_occ_logit.launches,
                 "fused_radiance_fwd": dict(fr.radiance_forward.launches),
                 "fused_radiance_bwd": dict(fr.radiance_backward.launches),
                 "fused_radiance_f32": dict(fr.f32_launches),
@@ -2146,6 +2172,8 @@ def phase_stage1_main(scene, compute, steps, steps96, vis_every=0):
         "steps": steps, "wall_s": train_s, "vis_every": vis_every,
         "launches": launches}}))
     check(launches["fused_occ_logit"] >= 9 * steps, f"launches {launches}")
+    # one Adam call of the field's 42 leaves a step, two launches
+    check(launches["fused_adam"] == 2 * steps, f"Adam launches {launches}")
     for k in ("fused_radiance_fwd", "fused_radiance_bwd"):
         check(launches[k][compute] >= steps and launches[k][other] == 0,
               f"{k}: {compute} form launched, {other} form not: {launches}")
@@ -3702,6 +3730,122 @@ def train_errors(per_rank, want, bars):
     return rep
 
 
+# ---------------------------------------------- phase 16: multi-tensor Adam
+
+def adam_sets():
+    """One training step's adam_update calls on the card, at the default
+    widths: {name: (params, [(lr, gate or None, leaf names) a call])}.
+    Stage 1's field: 42 leaves, one call. Stage 2: the PSNet's 44 leaves
+    (every head live) in one call, then each light table in its own under
+    a row mask (train/stage2.py's calls), over the phase-6 scene's 2 train
+    views x 96 lights with S2_LIGHTS lights of each view on."""
+    from psnerf_torch.fields.occupancy import (OccFieldConfig,
+                                               init_occupancy_field)
+    from psnerf_torch.fields.psnet import PSNetConfig, init_psnet
+    from psnerf_torch.train.optim import row_mask_from_indices
+    from psnerf_torch.train.stage1 import field_params
+    from psnerf_torch.train.stage2 import model_params
+
+    gen = torch.Generator().manual_seed(SEED)
+    copy = lambda d: {k: v.detach().clone() for k, v in d.items()}
+    field = copy(field_params(init_occupancy_field(
+        OccFieldConfig(), generator=gen, device=DEV)))
+    psnet = copy(model_params(init_psnet(PSNetConfig(), generator=gen,
+                                         device=DEV)))
+    heads = list(psnet)
+    rows = 2 * N_LIGHTS
+    psnet["light_dirs"] = torch.randn(rows, 3, generator=gen).to(DEV)
+    psnet["light_ints"] = (torch.rand(rows, 1, generator=gen) + 1.5).to(DEV)
+    on = torch.cat([v * N_LIGHTS + torch.randperm(N_LIGHTS, generator=gen)[
+        :S2_LIGHTS] for v in range(2)]).to(DEV)
+    row = row_mask_from_indices(rows, on)
+    return {"stage1": (field, [(5e-4, None, list(field))]),
+            "stage2": (psnet, [(5e-4, None, heads),
+                               (5e-3, {"light_dirs": row}, ["light_dirs"]),
+                               (1e-3, {"light_ints": row}, ["light_ints"])])}
+
+
+def phase_adam():
+    """The multi-tensor Adam (ops/csrc/adam.cu, through adam_update)
+    against adam_update_plain on the same params and gradients: p, m, v and
+    step bit for bit over ADAM_STEPS steps of each set of adam_sets, two
+    launches a call counted, no leaf on the plain loop; then a step of each
+    route timed in turns: CUDA events, the profiler's device time, the host
+    clock. Returns {set: numbers}."""
+    from psnerf_torch.ops import adam
+    from psnerf_torch.train.optim import (adam_init, adam_update,
+                                          adam_update_plain)
+    from psnerf_torch.utils import profiling
+
+    out = {}
+    for name, (params, calls) in adam_sets().items():
+        gen = torch.Generator().manual_seed(SEED + 1)
+        grads = [{k: torch.randn(p.shape, generator=gen).to(DEV)
+                  for k, p in params.items()} for _ in range(ADAM_STEPS)]
+        routes = {}
+        for r, fn in (("kernel", adam_update), ("plain", adam_update_plain)):
+            p = {k: v.clone() for k, v in params.items()}
+            st = adam_init(p)
+            sub = [({k: p[k] for k in names},
+                    {part: {k: st[part][k] for k in names} for part in st},
+                    lr, gate) for lr, gate, names in calls]
+            routes[r] = (p, st, sub, fn)
+
+        def step(r, g):
+            _, _, sub, fn = routes[r]
+            for p, st, lr, gate in sub:
+                fn(p, g, st, lr, gate=gate)
+
+        adam.fused_adam.launches = 0
+        profiling.count("optim.fused_leaves", 0)    # off: a new session
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            for g in grads:
+                step("kernel", g)
+            counted = profiling.counters()
+        for g in grads:
+            step("plain", g)
+        torch.cuda.synchronize()
+        launches = adam.fused_adam.launches
+        (pk, sk, _, _), (pp, sp, _, _) = routes["kernel"], routes["plain"]
+        differ = [k for k in pk if not torch.equal(pk[k], pp[k])] + [
+            f"{part}/{k}" for part in ("m", "v", "step") for k in sk[part]
+            if not torch.equal(sk[part][k], sp[part][k])]
+        err = max((pk[k] - pp[k]).abs().max().item() for k in pk)
+        steps = {k: int(sk["step"][k]) for k in ("light_dirs", "light_ints")
+                 if k in sk["step"]}
+        values = sum(p.numel() for p in params.values())
+        res = {"leaves": len(params), "values": values,
+               "calls_a_step": len(calls), "launches": launches,
+               "fused_leaves": counted.get("optim.fused_leaves"),
+               "plain_leaves": counted.get("optim.plain_leaves"),
+               "bit_for_bit": not differ, "differ": differ[:8],
+               "max_abs_err": err, "light_steps": steps,
+               "bound_ms": values * ADAM_BYTES / PEAK_BYTES * 1e3,
+               "bound_by": "bytes"}
+        log(json.dumps({f"adam_{name}": res}))
+        check(not differ, f"Adam {name}: kernel against plain {res}")
+        check(launches == 2 * len(calls) * ADAM_STEPS,
+              f"Adam {name}: two launches a call {res}")
+        check(res["fused_leaves"] == len(params) * ADAM_STEPS
+              and res["plain_leaves"] == 0, f"Adam {name}: routes {res}")
+
+        # a step of each route, in turns
+        fns = {r: (lambda r=r: step(r, grads[0])) for r in routes}
+        order = ["plain", "kernel", "kernel", "plain"]
+        ev = in_turns(fns, {"kernel": 20, "plain": 20}, order)
+        dev = in_turns(fns, {"kernel": 20, "plain": 20}, order,
+                       timer=device_ms)
+        host = in_turns(fns, {"kernel": 200, "plain": 100}, order,
+                        timer=host_us)
+        res.update(ms=ev["kernel"], device_ms=dev["kernel"],
+                   host_us=host["kernel"], plain_ms=ev["plain"],
+                   plain_device_ms=dev["plain"], plain_host_us=host["plain"])
+        log(json.dumps({f"adam_{name}": res}))
+        out[name] = res
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3741,6 +3885,7 @@ def main():
         e2e_cli = phase_cli(scene)
         e2e_pre = phase_preprocess(scene, e2e_cli)
         dp, e2e_dp = phase_data_parallel(scene, card)
+        adam_rows = phase_adam()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -3854,7 +3999,18 @@ def main():
                    at_envmap_chunk=k5_env,
                    launches_cli=cli_launches("fused_vis_shade"),
                    launches_data_parallel=dp["fused_vis_shade"]),
-              launches["fused_vis_shade"])], "not_ported": []}))
+              launches["fused_vis_shade"]),
+        # replaces no TPU kernel: XLA fuses the JAX package's Adam into its
+        # train step; the port's plain route is adam_update_plain
+        {"name": "adam (multi-tensor: step bump, update)", "route": "cuda",
+         "source": "psnerf_torch/ops/csrc/adam.cu", "replaces": None,
+         "status": "port_only", "launches": launches1["fused_adam"],
+         "launches_stage2_train": launches_s2["fused_adam"],
+         "max_abs_err": adam_rows["stage1"]["max_abs_err"],
+         **{k: adam_rows["stage1"][k] for k in (
+             "ms", "device_ms", "host_us", "plain_ms", "plain_device_ms",
+             "plain_host_us", "bound_ms", "bound_by", "values")},
+         "at_stage2": adam_rows["stage2"]}], "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
     return 0

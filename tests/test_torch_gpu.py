@@ -969,3 +969,189 @@ def test_render_view_assembles_on_the_card_into_pinned_host_memory(
     counted = profiling.counters()
     assert counted["d2h_pinned_bytes"] == 2 * pinned
     assert counted["d2h_bytes"] == 2 * (pinned + later["mask"].nbytes)
+
+
+# ------------------------------------------------- multi-tensor Adam (adam.cu)
+
+def _adam_copies(params: dict, steps: dict | None = None):
+    """Two copies of params on the card with their fresh optimizer states
+    (the step counters preset from `steps`): the fused route's and the plain
+    loop's."""
+    from psnerf_torch.train.optim import adam_init
+
+    out = []
+    for _ in range(2):
+        p = {k: v.detach().to("cuda", torch.float32).clone()
+             for k, v in params.items()}
+        s = adam_init(p)
+        for k, n in (steps or {}).items():
+            s["step"][k].fill_(n)
+        out.append((p, s))
+    return out
+
+
+def _adam_grads(params: dict, seed: int) -> dict:
+    """Gradients of each leaf's own scale (10^-6 to 10^0, and 10^-20 on
+    every eleventh leaf, whose squares are subnormal), some exactly 0."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for i, (k, p) in enumerate(params.items()):
+        scale = 1e-20 if i % 11 == 10 else 10.0 ** -(i % 7)
+        g = torch.randn(p.shape, generator=gen) * scale
+        g[torch.rand(p.shape, generator=gen) < 0.05] = 0.0
+        out[k] = g.to("cuda")
+    return out
+
+
+def _adam_bits(p: dict, s: dict) -> dict:
+    out = {f"p/{k}": v.detach().clone() for k, v in p.items()}
+    for part in ("m", "v", "step"):
+        out.update({f"{part}/{k}": v.clone() for k, v in s[part].items()})
+    return out
+
+
+def _assert_adam_equal(a: dict, b: dict):
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype, k
+        bad = (a[k] != b[k]).sum().item()
+        assert bad == 0, (k, bad, (a[k] - b[k]).abs().max().item())
+
+
+def _adam_kernels(fn) -> list:
+    """The names of the device kernels fn() launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation()]
+
+
+def _adam_case(name):
+    """(params, [per step: [(lr, {leaf: gate} or None, leaves)]], preset
+    steps) of a case: each step is adam_update calls as the train steps
+    make them."""
+    from psnerf_torch.fields.occupancy import (OccFieldConfig,
+                                               init_occupancy_field)
+    from psnerf_torch.fields.psnet import PSNetConfig, init_psnet
+    from psnerf_torch.train.optim import row_mask_from_indices
+    from psnerf_torch.train.stage1 import field_params
+    from psnerf_torch.train.stage2 import model_params
+
+    gen = torch.Generator().manual_seed(0)
+    if name == "stage1":
+        params = field_params(init_occupancy_field(OccFieldConfig(),
+                                                   generator=gen))
+        assert len(params) == 42
+        return params, [[(5e-4, None, list(params))]] * 3, {}
+    if name == "psnet":
+        params = dict(model_params(init_psnet(PSNetConfig(), generator=gen)))
+        names = list(params)
+        params["light_dirs"] = torch.randn(40, 3, generator=gen)
+        params["light_ints"] = torch.rand(40, 1, generator=gen) + 1.5
+        rows = lambda idx: row_mask_from_indices(40, torch.tensor(
+            idx, dtype=torch.long)).to("cuda")
+        plan = []
+        for live, idx_d, idx_i in ((0.0, [1, 5, 9], []), (1.0, [], [2, 3]),
+                                   (1.0, [0, 5, 39], [7])):
+            gate = {k: (live if k.split("/")[0] in ("albedo", "rough")
+                        else 0.0 if k.startswith("normal/") else 1.0)
+                    for k in names}
+            plan.append([(5e-4, gate, names),
+                         (5e-3, {"light_dirs": rows(idx_d)}, ["light_dirs"]),
+                         (1e-3, {"light_ints": rows(idx_i)}, ["light_ints"])])
+        return params, plan, {}
+    if name == "small":
+        shapes = [(1,), (3,), (9,), (5,), (7, 3), (1023,), (1025,), (4097,),
+                  (33, 31)]
+        params = {f"s/{i}": torch.randn(s, generator=gen)
+                  for i, s in enumerate(shapes)}
+        return params, [[(1e-2, None, list(params))]] * 3, {
+            "s/1": 12345, "s/5": 99999, "s/7": 4321, "s/8": 1000}
+    # past one table: 48, 48, 4 leaves a call; every 25th leaf of 2^20 + 3
+    # values, 1,025 CTAs that must all take one step
+    assert name == "many"
+    params = {f"l/{i}": torch.randn((1 << 20) + 3 if i % 25 == 0
+                                    else 1 + 37 * (i % 5), generator=gen)
+              for i in range(100)}
+    return params, [[(1e-3, None, list(params))]] * 3, {}
+
+
+@pytest.mark.parametrize("case", ["stage1", "psnet", "small", "many"])
+def test_fused_adam_matches_plain_bit_for_bit(case):
+    """The fused route of adam_update against adam_update_plain on the card,
+    over 3 steps: p, m, v and step bit for bit, gates included (a frozen
+    head, the warm-up's live gate, light-table row masks selecting some
+    rows and none, so a table keeps its step 0), steps preset far from 0;
+    each call makes two launches (the step bump, then the update) per 48
+    leaves and no other kernel; the fused counter counts every updated
+    leaf."""
+    _need_gpu()
+    from psnerf_torch.ops import adam
+    from psnerf_torch.train.optim import adam_update, adam_update_plain
+    from psnerf_torch.utils import profiling
+
+    params, plan, steps = _adam_case(case)
+    (pf, sf), (pp, sp) = _adam_copies(params, steps)
+    # a first launch before any profiling: the profiler records no kernel
+    # of a module that the card first loaded inside a profiled region
+    (wp, ws), _ = _adam_copies({"w": torch.zeros(3)})
+    adam_update(wp, wp, ws, 1e-3)
+    for it, calls in enumerate(plan):
+        grads = _adam_grads(params, it)
+        for lr, gate, names in calls:
+            sub = lambda d: {k: d[k] for k in names}
+            state = lambda s: {part: sub(s[part]) for part in s}
+            frozen = {k for k in names if gate is not None
+                      and isinstance(gate[k], float) and not gate[k]}
+            kept = _adam_bits(sub(pf), state(sf))
+            before = adam.fused_adam.launches
+            profiling.count("optim.fused_leaves", 0)  # off: a new session
+            kernels = _adam_kernels(lambda: adam_update(
+                sub(pf), grads, state(sf), lr, gate=gate))
+            counted = profiling.counters()
+            tables = -(-(len(names) - len(frozen)) // adam.MAX_LEAVES)
+            assert adam.fused_adam.launches - before == 2 * tables
+            # demangled names, e.g. "(anonymous namespace)::adam_kernel(...)"
+            short = [next((n for n in ("adam_step_kernel", "adam_kernel")
+                           if n in k), k) for k in kernels]
+            assert short == ["adam_step_kernel", "adam_kernel"] * tables, \
+                kernels
+            assert counted["optim.fused_leaves"] == len(names) - len(frozen)
+            assert counted["optim.plain_leaves"] == 0
+            adam_update_plain(sub(pp), grads, state(sp), lr, gate=gate)
+            now = _adam_bits(sub(pf), state(sf))
+            for k in frozen:
+                for part in ("p", "m", "v", "step"):
+                    key = f"{part}/{k}"
+                    assert torch.equal(now[key], kept[key]), key
+        torch.cuda.synchronize()
+        _assert_adam_equal(_adam_bits(pf, sf), _adam_bits(pp, sp))
+    if case == "psnet":
+        assert int(sf["step"]["normal/0/w"]) == 0
+        assert int(sf["step"]["albedo/0/w"]) == 2
+        assert int(sf["step"]["light_dirs"]) == 2
+        assert int(sf["step"]["light_ints"]) == 2
+
+
+def test_fused_adam_raises_for_a_card_leaf_it_cannot_take():
+    """A float32 leaf on the card that the kernel cannot take (a strided
+    param) raises, and no leaf of the call moves."""
+    _need_gpu()
+    from psnerf_torch.train.optim import adam_init, adam_update
+
+    params = {"a": torch.randn(5, device="cuda"),
+              "b": torch.randn(4, 2, device="cuda")[:, 0]}
+    state = adam_init(params)
+    kept = _adam_bits(params, state)
+    with pytest.raises(ValueError, match="not contiguous"):
+        adam_update(params, {k: torch.ones_like(p) for k, p in params.items()},
+                    state, 1e-3)
+    torch.cuda.synchronize()
+    _assert_adam_equal(_adam_bits(params, state), kept)
